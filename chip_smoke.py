@@ -10,10 +10,21 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    build every kernel from ``jepsen_tpu_torch/checker/csrc``.
 2. ``kernels``: each kernel against its plain PyTorch version on the
    card, on the ops of real encoded histories and seeds from their
-   search; outputs must be bit-identical. Kernel and plain times come
-   from CUDA events after warm-up; ``bound_ms`` is the least time the
-   card could take for the same work (bytes over 3.35 TB/s, or integer
-   operations over 67 T/s, whichever is larger).
+   search (the main-path shapes of ``rollout_cases.MAIN_SHAPES``), then
+   on the adversarial cases of
+   ``jepsen_tpu_torch/checker/rollout_cases.py`` under every launch
+   plan the kernel has (op columns staged in shared memory or not,
+   chain state in shared or global memory); outputs must be
+   bit-identical. Kernel and plain times come from CUDA events after
+   warm-up; each adversarial case's kernel is timed under the default
+   plan. ``bound_ms`` is the least time the card could take for the
+   work these inputs need (bytes over 3.35 TB/s, or integer operations
+   over 67 T/s, whichever is larger), counted as ``bound`` says;
+   ``bound_ms_sweep`` is the first port's count (a full n-op pass per
+   live step) on the same inputs. ``latency_floor_ms`` is the longest
+   chain's live steps times ``step_ns``, the dependent latency of the
+   kernel's common step alone, measured in this run
+   (``jt_step_probe``).
 3. ``main``: ``checkers.linearizable`` decides the 10k-op, 64-process
    cas-register and mutex histories on the card; both must be valid and
    the rollout kernel must have been launched. The same histories then
@@ -29,6 +40,7 @@ raises and the script exits non-zero.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import random
@@ -42,6 +54,10 @@ sys.modules["jepsen_tpu"] = None
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT_OPS_PER_S = 67e12         # H100 SXM 32-bit rate outside tensor cores
+#: integer operations to test one op at a rollout step: the bit test, the
+#: invoke < rm compare, the model step (field loads, compares, selects)
+#: and the first-success select
+OPS_PER_OP = 12
 MAIN_HISTORIES = (("cas-register", 0.05), ("mutex", 0.02))
 ROLLOUT_REPLACES = "jepsen_tpu/checker/pallas_rollout.py:179"
 
@@ -58,94 +74,129 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of ``fn()`` on the card over ``reps`` calls,
-    after one warm-up call, timed with CUDA events."""
+def step_ns(steps=1 << 18):
+    """Nanoseconds of one common rollout step alone: ``jt_step_probe``
+    (csrc/rollout.cu) rolls one warp ``steps`` steps with its frontier
+    word in registers, timed with CUDA events after a warm-up launch."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    from jepsen_tpu_torch import _build
+    from jepsen_tpu_torch.checker.rollout_ab import cuda_ms
+    fn = _build.library("rollout").jt_step_probe_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    out = torch.zeros(2, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(1, 1, steps, out.data_ptr(), stream):   # cas-register writes
+            raise RuntimeError("step probe failed to launch")
+    return cuda_ms(launch, 3) * 1e6 / steps
 
 
-def search_seeds(spec, hist, dev, NS=8, iters=3):
-    """Op columns of ``hist`` as the search sees them, and NS seed
-    configurations from its search: the top of the stack after a few
-    iterations without rollout. The last seed is marked dead so the
-    dead-seed path runs too."""
+def bound(seed_lin, seed_ok, j, n, A, S, step):
+    """The least time for a rollout with outputs ``j`` on these inputs.
+    Bytes: each input read once, each output written once. Operations:
+    OPS_PER_OP for every op a step must look at, from the chain's
+    frontier word to the op taken (to n for the step that wedges), which
+    is what these inputs need (``rollout_cases.work``). The earlier count
+    (``bound_ms_sweep``) charged a full n-op pass per live step, as the
+    first port's kernel did; both are returned, with the latency floor:
+    the longest chain's live steps times ``step`` ns (``step_ns``)."""
+    import numpy as np
+    from jepsen_tpu_torch.checker import rollout_cases
+    NS, B = seed_lin.shape
+    R = j.shape[1]
+    w = rollout_cases.work(seed_lin.cpu().numpy().view(np.uint32),
+                           seed_ok.cpu().numpy(), j.cpu().numpy(), n)
+    nbytes = n * (3 + 2 * A) * 4 + NS * (B + S) * 4 + NS \
+        + NS * R * (1 + S) * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = OPS_PER_OP * w["scanned"] / INT_OPS_PER_S * 1e3
+    old_ms = OPS_PER_OP * n * w["live"] / INT_OPS_PER_S * 1e3
+    return {"live_steps": w["live"], "live_max": w["live_max"],
+            "scanned_ops": w["scanned"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms_sweep": max(bytes_ms, old_ms),
+            "bound_by_sweep": "bytes" if bytes_ms >= old_ms else "operations",
+            "latency_floor_ms": w["live_max"] * step * 1e-6}
+
+
+def same(name, got, want):
     import torch
-    from jepsen_tpu_torch.checker import torch_wgl as tw
-    e, init_state = spec.encode(hist)
-    kind, prep = tw._prepare_search(spec, e, init_state)
-    assert kind == "search", f"{spec.name}: history decided by a fast path"
-    (_, inv32, ret32, fop, args, rets, ok_words, init_state, n_pad, C, A,
-     S) = prep
-    B, W, O, T = tw._plan_sizes(n_pad, S, C)
-    init_carry, _, run_chunk = tw._build_search(
-        spec.step, 1, n_pad, B, S, C, A, W, O, T, R=0,
-        rollout_kernel="scan", device=str(dev))
-    consts = tw.make_consts(inv32, ret32, fop, args, rets, ok_words, dev)
-    carry = run_chunk(init_carry(init_state[None]), consts, iters)
-    top = int(carry[tw.IDX_TOP][0])
-    pos = torch.tensor([(top - 1 - k) % O for k in range(NS)],
-                       device=dev)
-    seed_ok = torch.tensor([k < top for k in range(NS)], device=dev)
-    seed_ok[-1] = False
-    cols = tuple(x[0].contiguous() for x in consts[:5])
-    return (carry[tw.IDX_BUF_LIN][pos].contiguous(),
-            carry[tw.IDX_BUF_STATE][pos].contiguous(), seed_ok, cols,
-            len(e))
-
-
-def rollout_case(model, n_ops, crash_p, dev, R, reps):
-    """Hold the rollout kernel against its plain version at one shape."""
-    import torch
-    from jepsen_tpu_torch import models, simulate
-    from jepsen_tpu_torch.checker import rollout
-    spec = models.model_spec(model)
-    hist = simulate.random_history(random.Random(45100), model, 64, n_ops,
-                                   crash_p)
-    seed_lin, seed_st, seed_ok, cols, n_enc = search_seeds(spec, hist, dev)
-    args = (spec.step, seed_lin, seed_st, seed_ok, *cols, R)
-    j_k, st_k = rollout.run(*args)
-    j_p, st_p = rollout.plain(*args)
+    j_k, st_k = got
+    j_p, st_p = want
     torch.cuda.synchronize()
     if not (torch.equal(j_k, j_p) and torch.equal(st_k, st_p)):
         bad = int((j_k != j_p).sum())
         raise AssertionError(f"rollout kernel disagrees with its plain "
-                             f"version ({model}, n={cols[0].shape[0]}): "
-                             f"{bad} of {j_k.numel()} steps differ")
-    err = max(int((j_k - j_p).abs().max()), int((st_k - st_p).abs().max()))
-    kernel_ms = cuda_ms(lambda: rollout.run(*args), reps)
-    plain_ms = cuda_ms(lambda: rollout.plain(*args), 1)
+                             f"version ({name}): {bad} of {j_k.numel()} "
+                             f"steps differ")
+    return max(int((j_k - j_p).abs().max()), int((st_k - st_p).abs().max()))
+
+
+def rollout_case(model, n_ops, crash_p, dev, R, reps, step):
+    """Hold the rollout kernel against its plain version at one
+    main-path shape, and time both."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checker import rollout, rollout_cases
+    from jepsen_tpu_torch.checker.rollout_ab import cuda_ms
+    spec = models.model_spec(model)
+    xs, n_enc = rollout_cases.main_path(model, n_ops, crash_p, dev)
+    args = (spec.step, *xs, R)
+    want = rollout.plain(*args)
+    j_k, _ = got = rollout.run(*args)
+    seed_lin, seed_st, seed_ok = xs[:3]
     NS, B = seed_lin.shape
-    n = cols[0].shape[0]
+    n, A = xs[6].shape
     S = seed_st.shape[1]
-    A = cols[3].shape[1]
-    # bytes each input read once and each output written once; the work
-    # is what this run's chains did: one dozen-op pass over the n ops
-    # for every step a chain entered alive
-    nbytes = n * (3 + 2 * A) * 4 + NS * (B + S) * 4 + NS \
-        + NS * R * (1 + S) * 4
-    live = int((j_k >= 0).sum()) + int(
-        (seed_ok & (j_k < 0).any(dim=1)).sum())
-    ops = 12 * n * live
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT_OPS_PER_S * 1e3
     return {"name": "rollout", "replaces": ROLLOUT_REPLACES,
             "library_ms": None, "model": model, "history_ops": n_ops,
             "encoded_ops": n_enc,
             "shape": {"NS": NS, "R": R, "n": n, "S": S, "A": A},
-            "live_steps": live, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": err, "parity": "exact"}
+            "plan": rollout.plan(NS, n, B)._asdict(),
+            **bound(seed_lin, seed_ok, j_k, n, A, S, step),
+            "max_abs_err": same(f"{model}, n={n}", got, want),
+            "parity": "exact",
+            "kernel_ms": cuda_ms(lambda: rollout.run(*args), reps),
+            "plain_ms": cuda_ms(lambda: rollout.plain(*args), 1)}
+
+
+def adversarial_cases(dev, step, R=1024):
+    """The adversarial cases, at R = 1024, each held bit for bit against
+    the plain version under every launch plan: the default, every op
+    column read through L1/L2, and chain state in global scratch (the
+    last two forced by a smaller shared-memory budget); then timed under
+    the default plan."""
+    from jepsen_tpu_torch.checker import rollout, rollout_cases
+    from jepsen_tpu_torch.checker.rollout_ab import cuda_ms
+    rows = []
+    budget = rollout.SMEM_BUDGET
+    for case in rollout_cases.adversarial():
+        xs = case.tensors(dev)
+        args = (case.step, *xs, R)
+        want = rollout.plain(*args)
+        NS, B = case.seed_lin.shape
+        n = len(case.invoke)
+        sb = rollout.state_bytes(B)
+        plans = []
+        err = 0
+        for label, smem in (("default", budget),
+                            ("columns via L2", 24 * n + sb),
+                            ("state in global", sb - 16)):
+            rollout.SMEM_BUDGET = min(smem, budget)
+            try:
+                p, got = rollout.plan(NS, n, B), rollout.run(*args)
+                err = max(err, same(f"{case.name}, {label}", got, want))
+            finally:
+                rollout.SMEM_BUDGET = budget
+            plans.append({"plan": label, **p._asdict()})
+        rows.append({"case": case.name, "model": case.model, "NS": NS,
+                     "n": n, "R": R, "plans": plans, "max_abs_err": err,
+                     "kernel_ms": cuda_ms(lambda: rollout.run(*args), 5),
+                     **bound(xs[0], xs[2], want[0], n, case.args.shape[1],
+                             1, step)})
+    return rows
 
 
 def main_case(model, crash_p, kernel, n_ops=10_000):
@@ -206,8 +257,11 @@ def invalid_trials(dev):
     return rows
 
 
-def main():
+def main(argv):
     import torch
+    if argv:
+        print("usage: chip_smoke.py (no arguments)", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this smoke test needs one "
               "card", file=sys.stderr)
@@ -221,7 +275,7 @@ def main():
               f"script ({exc}); run it from a checkout", file=sys.stderr)
         return 2
     from jepsen_tpu_torch import _build
-    from jepsen_tpu_torch.checker import rollout
+    from jepsen_tpu_torch.checker import rollout, rollout_cases
     dev = torch.device("cuda")
 
     # -- 1. env ------------------------------------------------------------
@@ -235,15 +289,12 @@ def main():
 
     # -- 2. kernels against their plain versions ---------------------------
     t0 = time.monotonic()
-    # the main-path shape (NS=8, R=1024, n=8192) for each kernel model
-    # (7.5k register ops encode to 7.5k rows, 10k cas/mutex ops to fewer)
-    cases = [rollout_case(m, k, p, dev, 1024, 10)
-             for m, k, p in (("register", 7_500, 0.05),
-                             ("cas-register", 10_000, 0.05),
-                             ("mutex", 10_000, 0.02))]
-    cases.append(rollout_case("cas-register", 100_000, 0.05, dev, 1024, 3))
+    step = step_ns()
+    cases = [rollout_case(m, k, p, dev, 1024, 10 if k <= 10_000 else 3, step)
+             for m, k, p in rollout_cases.MAIN_SHAPES]
+    adversarial = adversarial_cases(dev, step)
     emit({"phase": "kernels", "seconds": time.monotonic() - t0,
-          "kernels": cases})
+          "step_ns": step, "kernels": cases, "adversarial": adversarial})
 
     # -- 3. the main path --------------------------------------------------
     rollout.launches = 0
@@ -275,12 +326,18 @@ def main():
         "source": "jepsen_tpu_torch/checker/csrc/rollout.cu",
         "replaces": ROLLOUT_REPLACES,
         "launches": main_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_abs_err": max(c["max_abs_err"] for c in cases + adversarial),
         "ms": main_shape["kernel_ms"], "kernel_ms": main_shape["kernel_ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
+        "bound_ms_sweep": main_shape["bound_ms_sweep"],
+        "latency_floor_ms": main_shape["latency_floor_ms"],
+        "step_ns": step,
         "shape": main_shape["shape"], "parity": "exact",
+        "adversarial_cases": len(adversarial),
+        "adversarial_max_abs_err": max(a["max_abs_err"]
+                                       for a in adversarial),
         "shapes": cases}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -289,4 +346,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -48,18 +48,17 @@ def nvcc_path():
     raise BuildError("nvcc not found on PATH or under /usr/local/cuda")
 
 
-def _target(name):
-    src = os.path.join(CSRC, SOURCES[name])
+def _target(src):
+    stem = os.path.splitext(os.path.basename(src))[0]
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return src, os.path.join(BUILD_DIR,
-                             f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def _start(name):
-    """Start nvcc for ``name`` unless its library exists; returns
+def _start(src):
+    """Start nvcc for ``src`` unless its library exists; returns
     (process or None, tmp path, final path)."""
-    src, out = _target(name)
+    out = _target(src)
     if os.path.exists(out):
         return None, None, out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -70,13 +69,13 @@ def _start(name):
     return proc, tmp, out
 
 
-def _finish(name, proc, tmp, out, t0):
+def _finish(name, src, proc, tmp, out, t0):
     import time
     if proc is not None:
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise BuildError(
-                f"nvcc failed on {SOURCES[name]} (exit "
+                f"nvcc failed on {os.path.basename(src)} (exit "
                 f"{proc.returncode}):\n{err}")
         os.replace(tmp, out)
     build_seconds[name] = time.monotonic() - t0 if proc else 0.0
@@ -89,12 +88,13 @@ def build_all():
     import time
     with _lock:
         t0 = time.monotonic()
-        todo = [n for n in SOURCES if n not in _libs]
-        started = [(n, *_start(n)) for n in todo]
+        todo = [(n, os.path.join(CSRC, SOURCES[n])) for n in SOURCES
+                if n not in _libs]
+        started = [(n, src, *_start(src)) for n, src in todo]
         errors = []
-        for name, proc, tmp, out in started:
+        for name, src, proc, tmp, out in started:
             try:   # every nvcc is waited for before any error is raised
-                _finish(name, proc, tmp, out, t0)
+                _finish(name, src, proc, tmp, out, t0)
             except BuildError as exc:
                 errors.append(str(exc))
         if errors:
@@ -110,3 +110,15 @@ def library(name):
         build_all()
         lib = _libs[name]
     return lib
+
+
+def library_of(src):
+    """The loaded library of a CUDA source outside the package, such as
+    an earlier version of one of its kernels to time against, built as
+    the package's own are."""
+    import time
+    src = os.path.abspath(src)
+    with _lock:
+        if src not in _libs:
+            _finish(src, src, *_start(src), time.monotonic())
+    return _libs[src]

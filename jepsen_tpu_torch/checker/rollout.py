@@ -1,5 +1,5 @@
-"""Greedy rollout of the single-key search: the CUDA kernel, its gate, its
-plain PyTorch version and its launch count.
+"""Greedy rollout of the single-key search: the CUDA kernel, its gate,
+its launch plan, its plain PyTorch version and its launch count.
 
 The counterpart of ``jepsen_tpu/checker/pallas_rollout.py``: the kernel
 (``csrc/rollout.cu``) replaces ``build_fused_rollout``. Contract, for NS
@@ -16,11 +16,16 @@ dead). The caller rebuilds the per-step bitsets and fingerprint sums.
 on a CUDA tensor it launches the kernel or raises -- there is no
 fallback. ``gate`` decides on the model and the shape alone whether the
 kernel applies; when it returns None the search keeps its scan path.
+``plan`` owns the kernel's layout for one launch: the chain's min tree,
+its state's size, and where the op columns and the state live (shared
+memory or a global scratch buffer); the kernel reads it and recomputes
+none of it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -35,8 +40,8 @@ INF32 = 2**31 - 1
 #: port's step functions; any other model keeps the scan path
 MODEL_IDS = {_register_step: 0, _cas_step: 1, _mutex_step: 2}
 
-#: shared memory one block may use on an H100 (232,448 bytes), less the
-#: kernel's static reduction scratch
+#: shared memory one block may use on an H100 (232,448 bytes), less 1 KB
+#: of slack
 SMEM_BUDGET = 232448 - 1024
 
 #: kernel launches since the count was last reset (set it to 0 to start
@@ -48,7 +53,10 @@ def gate(step_fn, NS, R, n, B, S, A):
     """The kernel's model id when it can roll this shape, else None (the
     caller keeps the scan path). Decides on the model and the shape
     alone: a model with a kernel step, one state word, ``n % 32 == 0``
-    with ``B == n / 32``, and the packed bitset within shared memory."""
+    with ``B == n / 32``, and ``B * 4 <= SMEM_BUDGET`` (n up to 1,851,392
+    ops). The kernel itself keeps a chain's state in global memory where
+    shared memory is short, so the last limit is only the one the gate
+    has always had."""
     model = MODEL_IDS.get(step_fn)
     if model is None or S != 1 or NS < 1 or R < 1:
         return None
@@ -57,6 +65,72 @@ def gate(step_fn, NS, R, n, B, S, A):
     if B * 4 > SMEM_BUDGET:
         return None
     return model
+
+
+def tree_sizes(B):
+    """Entries per level of a chain's min tree over B bitset words: B,
+    then ceil(/32) up to the first level of at most 32 entries."""
+    sizes = [B]
+    while sizes[-1] > 32:
+        sizes.append((sizes[-1] + 31) // 32)
+    return sizes
+
+
+def _pad(x):
+    return (x + 31) // 32 * 32
+
+
+def state_bytes(B):
+    """Bytes of one chain's state in the kernel: the min tree, two int32
+    per entry with each level padded to a multiple of 32 entries, then
+    the bitset padded to a multiple of 32 words."""
+    return 8 * sum(_pad(s) for s in tree_sizes(B)) + 4 * _pad(B)
+
+
+class Plan(NamedTuple):
+    staged: bool       # invoke/ret (bulk copy) and the step's fields in
+                       # shared memory, else read through L1/L2
+    state_smem: bool   # the chain's state in shared memory, else scratch
+    smem: int          # dynamic shared bytes per block
+    scratch: int       # global scratch bytes (0 when state_smem)
+    ops_off: int       # shared offset of the packed fields (staged)
+    state_off: int     # shared offset of the chain's state (state_smem)
+
+
+def plan(NS, n, B, aligned=True):
+    """Where one launch keeps its data: the invoke/ret columns (8 bytes
+    per op, after a 16-byte mbarrier) and the model step's fields packed
+    (16 bytes per op) in shared memory beside the chain's state when all
+    of it fits, else every column read through L1/L2. Staging needs both
+    columns 16-byte aligned, as the bulk copy does. The chain's state
+    goes to shared memory when it fits, else to a global scratch buffer
+    of ``NS * state_bytes(B)`` bytes."""
+    sb = state_bytes(B)
+    cols = 16 + 24 * n
+    if aligned and cols + sb <= SMEM_BUDGET:
+        return Plan(True, True, cols + sb, 0, 16 + 8 * n, cols)
+    if sb <= SMEM_BUDGET:
+        return Plan(False, True, sb, 0, 0, 0)
+    return Plan(False, False, 0, NS * sb, 0, 0)
+
+
+class _Layout(ctypes.Structure):
+    """``JtLayout`` of csrc/rollout.cu."""
+    _fields_ = [("size", ctypes.c_int * 4), ("pad", ctypes.c_int * 4),
+                ("off", ctypes.c_int * 4), ("lin_off", ctypes.c_longlong),
+                ("state_bytes", ctypes.c_longlong),
+                ("ops_off", ctypes.c_longlong),
+                ("state_off", ctypes.c_longlong)]
+
+
+def _layout(B, p):
+    sizes = tree_sizes(B)
+    pads = [_pad(x) for x in sizes]
+    offs = [sum(pads[:k]) for k in range(len(sizes))]
+    fill = [0] * (4 - len(sizes))
+    c4 = ctypes.c_int * 4
+    return _Layout(c4(*sizes, *fill), c4(*pads, *fill), c4(*offs, *fill),
+                   8 * sum(pads), state_bytes(B), p.ops_off, p.state_off)
 
 
 def plain(step_fn, seed_lin, seed_st, seed_ok, invoke, ret, fop, args,
@@ -135,8 +209,8 @@ def _launcher():
     from .. import _build
     fn = _build.library("rollout").jt_rollout_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.POINTER(_Layout)] \
+            + [ctypes.c_int] * 9 + [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -170,13 +244,20 @@ def run(step_fn, seed_lin, seed_st, seed_ok, invoke, ret, fop, args, rets,
             ("fop", fop, i32, (n,)), ("args", args, i32, (n, A)),
             ("rets", rets, i32, (n, A))):
         _check(name, x, dtype, shape, dev)
+    aligned = invoke.data_ptr() % 16 == 0 and ret.data_ptr() % 16 == 0
+    p = plan(NS, n, B, aligned)
     j = torch.empty((NS, R), dtype=i32, device=dev)
     st = torch.empty((NS, R, S), dtype=i32, device=dev)
+    scratch = (torch.empty(p.scratch, dtype=torch.uint8, device=dev)
+               if p.scratch else None)
     err = _launcher()(
         seed_lin.data_ptr(), seed_st.data_ptr(), seed_ok.data_ptr(),
         invoke.data_ptr(), ret.data_ptr(), fop.data_ptr(), args.data_ptr(),
-        rets.data_ptr(), j.data_ptr(), st.data_ptr(), NS, R, n, B, A,
-        model, torch.cuda.current_stream(dev).cuda_stream)
+        rets.data_ptr(), j.data_ptr(), st.data_ptr(),
+        scratch.data_ptr() if p.scratch else None,
+        ctypes.byref(_layout(B, p)), NS, R, n, B, A, model,
+        len(tree_sizes(B)), int(p.staged), int(p.state_smem), p.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed: CUDA error "
                            f"{err}")

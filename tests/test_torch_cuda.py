@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the rollout kernel against its plain version,
-the wrapper's checks, and the device search against the same search on
-the CPU. Every test is marked ``cuda`` and skips without a card (the
+"""The port on a CUDA card: the rollout kernel against its plain version
+(on real histories, and on the adversarial cases of rollout_cases.py
+under every launch plan), the wrapper's checks, and the device search
+against the same search on the CPU. Every test is marked ``cuda`` and skips without a card (the
 kernels have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
 
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from jepsen_tpu_torch import models, simulate
-from jepsen_tpu_torch.checker import rollout, torch_wgl
+from jepsen_tpu_torch.checker import rollout, rollout_cases, torch_wgl
 from jepsen_tpu_torch.history import NIL
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +70,41 @@ def test_kernel_equals_plain(dev, name, n_ops, R):
     j_p, st_p = rollout.plain(spec.step, *xs, R)
     assert torch.equal(j_k, j_p) and torch.equal(st_k, st_p)
     assert (j_k[~xs[2]] == -1).all() and (j_k >= 0).any()
+
+
+@pytest.fixture(scope="module")
+def adversarial():
+    """name -> (case, plain outputs at R = 1024 on the card), filled on
+    first use."""
+    return {c.name: [c, None] for c in rollout_cases.adversarial()}
+
+
+PLANS = ("default", "columns via L2", "state in global")
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("name", rollout_cases.NAMES)
+def test_kernel_equals_plain_adversarial(dev, adversarial, monkeypatch, name,
+                                         plan):
+    """Every adversarial case under every launch plan (a smaller
+    shared-memory budget forces the plans that read columns through
+    L1/L2 or keep the chains' state in global scratch)."""
+    c, want = adversarial[name]
+    R = 1024
+    xs = c.tensors(dev)
+    if want is None:
+        want = adversarial[name][1] = rollout.plain(c.step, *xs, R)
+    n = len(c.invoke)
+    sb = rollout.state_bytes(c.seed_lin.shape[1])
+    budget = {"columns via L2": 24 * n + sb,
+              "state in global": sb - 16}.get(plan, rollout.SMEM_BUDGET)
+    monkeypatch.setattr(rollout, "SMEM_BUDGET",
+                        min(budget, rollout.SMEM_BUDGET))
+    before = rollout.launches
+    j, st = rollout.run(c.step, *xs, R)
+    torch.cuda.synchronize()
+    assert rollout.launches == before + 1
+    assert torch.equal(j, want[0]) and torch.equal(st, want[1])
 
 
 def test_wrapper_refuses_bad_inputs(dev):
