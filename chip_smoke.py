@@ -32,15 +32,51 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
 4. ``invalid``: six corrupted 220-op cas-register histories; the device
    verdict must equal the CPU oracle's and every invalid verdict must
    carry a witness op.
+5. ``batch``: the JAX package's headline key batch at full width
+   (``simulate.bench_histories``, as ``bench.py`` rungs 2 and 2b draw
+   it): 256 cas-register keys, 8 processes, 200 ops per key, crash_p
+   0.02, every 8th key corrupted, through
+   ``parallel.check_batch_encoded`` on the card: one call under
+   ``torch.profiler``, which also warms up (kernel launches per
+   iteration, device idle share; ``profile_main.profile_batch``), then
+   one timed call (wall, ops/s, iterations, compactions, invalid keys).
+   Both calls must decide alike. No key may be
+   unknown, at least one must be invalid, and the first 32 verdicts must
+   equal the CPU oracle's (``wgl.check_encoded``, 2M configs).
+6. ``independent``: the first 64 of those keys wrapped in
+   ``independent.tuple_`` and merged into one history, through
+   ``independent.checker(compose({"linearizable": ..., "ok":
+   unbridled_optimism()}))``: exactly one call of
+   ``parallel.check_batch_encoded``, with 64 pairs, and ``failures``
+   equal to the corrupted keys.
+7. ``queues``: a 64-key fifo-queue batch and a 64-key unordered-queue
+   batch (150 ops and 6 processes per key, crash_p 0.02, every 8th key
+   corrupted) with the fast check off, so the device search with padded
+   queue states decides, within ``QUEUE_MAX_CONFIGS`` (256 iterations
+   at the batch's 64 lanes x 64 keys). The CPU oracle for queues is the
+   model's exact polynomial decision (the aspect fast check, which the
+   batch was denied), and, for every key the sequential WGL oracle
+   decides within 5,000 configurations, that oracle too. Every decided
+   verdict must equal the oracles', every valid key must be decided, and
+   a key may come back unknown only if the oracle finds it invalid: the
+   proof that a corrupted 150-op FIFO key has no linearization is an
+   exhaustive search, which for some keys outlasts any budget (the JAX
+   engine does not finish it for some of these keys either). Then
+   ``bench.py``'s rung-4 FIFO history through
+   ``checkers.linearizable``, fast check on.
 
+The batch, independent and queue paths run the search's scan rollout
+(the batch pins it, as the JAX package's does): each of them is run
+with the rollout kernel's launch count set to 0 and must leave it at 0.
 Then a ``{"kernels": [...]}`` line (with each kernel's launches in the
-main phase) and, last, ``{"ok": true, "device": {...}}``. Any failure
-raises and the script exits non-zero.
+main phase, and on every path) and, last, ``{"ok": true, "device":
+{...}}``. Any failure raises and the script exits non-zero.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import random
@@ -59,6 +95,14 @@ INT_OPS_PER_S = 67e12         # H100 SXM 32-bit rate outside tensor cores
 #: and the first-success select
 OPS_PER_OP = 12
 MAIN_HISTORIES = (("cas-register", 0.05), ("mutex", 0.02))
+QUEUES = ("fifo-queue", "unordered-queue")
+#: the batch phases' sizes: keys of the headline batch, of the
+#: independent history, and per queue batch, with each queue key's ops
+BATCH_KEYS, INDEPENDENT_KEYS, QUEUE_KEYS, QUEUE_OPS = 256, 64, 64, 150
+#: every batch here corrupts the history of one key in this many
+CORRUPT_EVERY = 8
+#: the queue batches' search budget: 256 iterations at 64 lanes x 64 keys
+QUEUE_MAX_CONFIGS = 256 * 64 * 64
 ROLLOUT_REPLACES = "jepsen_tpu/checker/pallas_rollout.py:179"
 
 
@@ -257,6 +301,207 @@ def invalid_trials(dev):
     return rows
 
 
+def scan_only(what):
+    """Fail unless the path just run left the rollout kernel's launch
+    count at 0 (set to 0 just before it): the batch rolls on the scan."""
+    from jepsen_tpu_torch.checker import rollout
+    if rollout.launches != 0:
+        raise AssertionError(f"{what}: the rollout kernel was launched "
+                             f"{rollout.launches} times on the batch path")
+    return rollout.launches
+
+
+def batch_phase():
+    """The 256-key headline batch: a profiled call (the warm-up), then a
+    timed call; the first 32 verdicts against the CPU oracle."""
+    import torch
+    from jepsen_tpu_torch import models, parallel, simulate
+    from jepsen_tpu_torch.checker import rollout, wgl
+    from jepsen_tpu_torch.profile_main import profile_batch
+    spec = models.cas_register_spec
+    keys, fifo = simulate.bench_histories(BATCH_KEYS)
+    pairs = [spec.encode(h) for h in keys]
+    n_ops = sum(len(e) for e, _ in pairs)
+    prof = profile_batch(spec, pairs)                   # warms up too
+    torch.cuda.synchronize()
+    rollout.launches = 0
+    t0 = time.monotonic()
+    res = parallel.check_batch_encoded(spec, pairs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = scan_only("batch")
+    unknown = [k for k, r in enumerate(res) if r["valid"] not in (True,
+                                                                 False)]
+    if unknown:
+        raise AssertionError(f"batch: keys {unknown} undecided")
+    invalid = [k for k, r in enumerate(res) if r["valid"] is False]
+    if not invalid:
+        raise AssertionError("batch: no invalid key: the phase checked "
+                             "nothing")
+    if prof["unknown_keys"] or prof["invalid_keys"] != len(invalid):
+        raise AssertionError(f"batch: the profiled call decided "
+                             f"differently: {prof['invalid_keys']} invalid, "
+                             f"{prof['unknown_keys']} unknown")
+    t0 = time.monotonic()
+    for k, (e, st) in enumerate(pairs[:32]):
+        want = wgl.check_encoded(spec, e, st, max_configs=2_000_000)
+        if res[k]["valid"] != want["valid"]:
+            raise AssertionError(f"batch key {k}: device {res[k]['valid']}"
+                                 f" != oracle {want['valid']}")
+    oracle_s = time.monotonic() - t0
+    searched = [r for r in res if r.get("engine") == "jax-wgl"]
+    row = {"phase": "batch", "model": "cas-register", "keys": len(pairs),
+           "history_ops": n_ops, "wall_s": wall, "ops_per_s": n_ops / wall,
+           "iterations": max(r.get("iterations") or 0 for r in res),
+           "compactions": max(r.get("compactions") or 0 for r in res),
+           "keys_searched": len(searched),
+           "keys_decided_on_host": len(res) - len(searched),
+           "invalid_keys": len(invalid), "rollout_launches": launches,
+           "oracle_keys": 32, "oracle_s": oracle_s,
+           "profiled": {k: v for k, v in prof.items()
+                        if k != "top_kernels"},
+           "top_kernels": prof["top_kernels"][:5]}
+    return row, keys, fifo
+
+
+def keyed_history(hists):
+    """One history of many keys: each key's ops wrapped in
+    ``independent.tuple_``, with processes disjoint across keys."""
+    from jepsen_tpu_torch import independent
+    out = []
+    for k, hist in enumerate(hists):
+        for o in hist:
+            o = dict(o)
+            o["process"] = o["process"] + 1000 * k
+            o["value"] = independent.tuple_(k, o.get("value"))
+            o["index"] = len(out)
+            out.append(o)
+    return out
+
+
+def independent_phase(keys):
+    """64 keys through ``independent.checker``: one batched call."""
+    from jepsen_tpu_torch import independent, parallel
+    from jepsen_tpu_torch.checker import checkers, core, rollout
+    hist = keyed_history(keys)
+    calls = []
+    real = parallel.check_batch_encoded
+
+    def counting(spec, pairs, **kw):
+        calls.append(len(pairs))
+        return real(spec, pairs, **kw)
+
+    chk = independent.checker(core.compose({
+        "linearizable": checkers.linearizable({"model": "cas-register"}),
+        "ok": core.unbridled_optimism()}))
+    parallel.check_batch_encoded = counting
+    rollout.launches = 0
+    try:
+        t0 = time.monotonic()
+        r = core.check(chk, {}, hist)
+        wall = time.monotonic() - t0
+    finally:
+        parallel.check_batch_encoded = real
+    launches = scan_only("independent")
+    corrupted = [k for k in range(len(keys))
+                 if k % CORRUPT_EVERY == CORRUPT_EVERY - 1]
+    if calls != [len(keys)]:
+        raise AssertionError(f"independent: batched calls {calls}, "
+                             f"expected one of {len(keys)} pairs")
+    if sorted(r["failures"]) != corrupted or r["valid"] is not False:
+        raise AssertionError(f"independent: failures {r['failures']} "
+                             f"(valid {r['valid']}), expected the "
+                             f"corrupted keys {corrupted}")
+    return {"phase": "independent", "keys": len(keys), "events": len(hist),
+            "batched_calls": calls, "wall_s": wall,
+            "failures": r["failures"], "rollout_launches": launches}
+
+
+def queue_oracle(spec, e, st):
+    """The CPU verdicts for a queue key: the model's exact polynomial
+    decision (its fast check; the sequential WGL oracle, 2M configs,
+    where that declines), and the sequential WGL oracle within 5,000
+    configurations (None where it does not decide in them)."""
+    from jepsen_tpu_torch.checker import torch_wgl, wgl
+    inv32, ret32, _ = torch_wgl._encode_arrays(e)
+    fast = spec.fast_check(e, inv32, ret32)
+    exact = (fast if fast is True else fast[0]) if fast is not None \
+        else wgl.check_encoded(spec, e, st, max_configs=2_000_000)["valid"]
+    bounded = wgl.check_encoded(spec, e, st, max_configs=5_000)["valid"]
+    return exact, (bounded if bounded in (True, False) else None)
+
+
+def queue_phase(fifo):
+    """64-key fifo-queue and unordered-queue batches with the fast check
+    off, against the CPU oracles; then rung 4's FIFO history through
+    ``checkers.linearizable``."""
+    import torch
+    from jepsen_tpu_torch import models, parallel, simulate
+    from jepsen_tpu_torch.checker import checkers, rollout
+    rows = []
+    for name in QUEUES:
+        spec = models.model_spec(name)
+        search = dataclasses.replace(spec, fast_check=None)
+        rng = random.Random(45100)
+        hists = []
+        for k in range(QUEUE_KEYS):
+            hist = simulate.random_history(rng, name, 6, QUEUE_OPS, 0.02)
+            hists.append(simulate.corrupt(rng, hist)
+                         if k % CORRUPT_EVERY == CORRUPT_EVERY - 1 else hist)
+        pairs = [search.encode(h) for h in hists]
+        rollout.launches = 0
+        t0 = time.monotonic()
+        res = parallel.check_batch_encoded(search, pairs,
+                                           max_configs=QUEUE_MAX_CONFIGS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = scan_only(name)
+        t0 = time.monotonic()
+        bounded_n = 0
+        undecided = []
+        for k, (e, st) in enumerate(pairs):
+            exact, bounded = queue_oracle(spec, e, st)
+            got = res[k]["valid"]
+            if got == "unknown" and exact is False:
+                undecided.append(k)     # an exhaustion proof out of budget
+            elif got != exact or (bounded is not None and got != bounded):
+                raise AssertionError(f"{name} key {k}: device {got!r}, "
+                                     f"oracle {exact!r} / {bounded!r}")
+            if got is False and "op" not in res[k]:
+                raise AssertionError(f"{name} key {k}: no witness op")
+            bounded_n += bounded is not None
+        if not any(r["valid"] is False for r in res):
+            raise AssertionError(f"{name}: no key decided invalid: the "
+                                 f"phase checked nothing")
+        rows.append({"model": name, "keys": len(pairs),
+                     "history_ops": sum(len(e) for e, _ in pairs),
+                     "wall_s": wall,
+                     "iterations": max(r.get("iterations") or 0
+                                       for r in res),
+                     "compactions": max(r.get("compactions") or 0
+                                        for r in res),
+                     "invalid_keys": sum(r["valid"] is False for r in res),
+                     "undecided_invalid_keys": undecided,
+                     "max_configs": QUEUE_MAX_CONFIGS,
+                     "wgl_oracle_decided": bounded_n,
+                     "oracle_s": time.monotonic() - t0,
+                     "rollout_launches": launches})
+    spec = models.fifo_queue_spec
+    t0 = time.monotonic()
+    r = checkers.linearizable({"model": "fifo-queue"}).check({}, fifo)
+    wall = time.monotonic() - t0
+    exact, bounded = queue_oracle(spec, *spec.encode(fifo))
+    if r["valid"] != exact or (bounded is not None and r["valid"] != bounded):
+        raise AssertionError(f"rung-4 fifo history: {r['valid']!r}, oracle "
+                             f"{exact!r} / {bounded!r}")
+    rows.append({"model": "fifo-queue", "check": "linearizable, fast check "
+                 "on", "history_ops": sum(1 for o in fifo
+                                          if o["type"] == "invoke"),
+                 "valid": r["valid"], "engine": r.get("engine"),
+                 "wall_s": wall})
+    return {"phase": "queues", "checks": rows}
+
+
 def main(argv):
     import torch
     if argv:
@@ -320,12 +565,24 @@ def main(argv):
     # -- 4. invalid histories against the CPU oracle -----------------------
     emit({"phase": "invalid", "trials": invalid_trials(dev)})
 
+    # -- 5-7. the key batch, independent, the queue models -----------------
+    row, keys, fifo = batch_phase()
+    emit(row)
+    ind = independent_phase(keys[:INDEPENDENT_KEYS])
+    emit(ind)
+    queues = queue_phase(fifo)
+    emit(queues)
+    by_path = {"main": main_launches, "batch": row["rollout_launches"],
+               "independent": ind["rollout_launches"],
+               **{c["model"]: c["rollout_launches"]
+                  for c in queues["checks"] if "rollout_launches" in c}}
+
     main_shape = cases[1]
     emit({"kernels": [{
         "name": "rollout", "route": "cuda",
         "source": "jepsen_tpu_torch/checker/csrc/rollout.cu",
         "replaces": ROLLOUT_REPLACES,
-        "launches": main_launches,
+        "launches": main_launches, "launches_by_path": by_path,
         "max_abs_err": max(c["max_abs_err"] for c in cases + adversarial),
         "ms": main_shape["kernel_ms"], "kernel_ms": main_shape["kernel_ms"],
         "plain_ms": main_shape["plain_ms"],

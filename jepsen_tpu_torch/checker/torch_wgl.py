@@ -1,17 +1,23 @@
 """Batched Wing-Gong-Lowe linearizability search in PyTorch, for the H100.
 
-The counterpart of ``jepsen_tpu/checker/jax_wgl.py`` at K=1 (one key):
-the same batched branch-and-bound over configurations (bitset of
-linearized ops, model state), the same dedup, witness tracking, greedy
-rollout and stack discipline, held bit for bit against the JAX engine by
-the tests. What changes is the machinery:
+The counterpart of ``jepsen_tpu/checker/jax_wgl.py``, over an explicit
+key axis K: ``check_encoded`` runs one key (K=1), and the key batch
+(``jepsen_tpu_torch.parallel``) runs K keys in one search, every key's
+fingerprints salted by its key id so that all keys share one claim array
+and one dedup table. The same batched branch-and-bound over
+configurations (bitset of linearized ops, model state), the same dedup,
+witness tracking, greedy rollout and stack discipline, held bit for bit
+against the JAX engine by the tests at K=1 and at K=4. What changes is
+the machinery:
 
 * ``lax.while_loop`` becomes a host loop over ``body``. Every masked
   update in ``body`` is a no-op once a key is no longer running, so the
   loop checks the status between iterations without changing a result.
 * The greedy rollout runs in the hand-written CUDA kernel of
-  ``rollout.py`` when its gate passes (``rollout_kernel="auto"`` on
-  CUDA, or ``"kernel"``), else in the scan path ``roll_step``.
+  ``rollout.py`` when the search has one key and the gate passes
+  (``rollout_kernel="auto"`` on CUDA, or ``"kernel"``), else in the scan
+  path ``roll_step`` (the key batch pins the scan, as the reference's
+  does).
 * uint32 words follow ``words.py``: bitsets are int32 bit patterns,
   fingerprint words int64 values in [0, 2^32).
 * ``mode="drop"`` scatters write to a sentinel row instead: the stack
@@ -27,7 +33,7 @@ the tests. What changes is the machinery:
 The result's ``engine`` stays ``"jax-wgl"``: it is the name test maps and
 the certifier (``jepsen_tpu.analysis.certify.DEVICE_ENGINES``) know this
 engine by. Not ported yet (ROADMAP.md queue A): checkpoint/resume, the
-obs phase and heartbeat hooks, the mesh block and the key batch.
+obs phase and heartbeat hooks and the mesh block.
 """
 
 from __future__ import annotations
@@ -69,6 +75,11 @@ CARRY_LAYOUT = (f"carry-v6:tab-interleaved,probes{PROBES},topk{TOPK},"
  IDX_ITS, IDX_IT, IDX_CLAIM, IDX_TFAIL) = range(15)
 
 N_CARRY = IDX_TFAIL + 1
+
+#: carry elements with a leading key axis (the stack buffers, flat
+#: ``(K*O+1, ...)`` here, count as keyed); the table, ``it``, the claim
+#: array and ``tfail`` are shared by every key
+KEYED = (0, 1, 2, 3, 5, 6, 7, 8, 9, 10, 11)
 
 #: twin-claim scratch size (fixed so carries are W-independent)
 TC = 1 << 16
@@ -788,17 +799,55 @@ def carry_from_numpy(arrays, device):
     return tuple(out)
 
 
+def make_batch_consts(cols, salts, device):
+    """The search's constant op columns for K keys, on ``device``:
+    ``cols`` holds each key's ``(invoke, ret, fop, args, rets,
+    ok_words)`` (ok_words uint32), ``salts`` each key's uint32 salt
+    (k+1 for a live key, 0 for a dummy one). Returns the six columns
+    stacked as int32 (K, ...) tensors, the salts as the int64 ``salt``
+    (K,) and each key's ok-op count as the int64 ``n_ok`` (K,)."""
+    def t(i):
+        x = np.stack([np.asarray(c[i]) for c in cols])
+        if x.dtype == np.uint32:
+            x = x.view(np.int32)
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32,
+                               device=device)
+    n_ok = [int(np.unpackbits(np.asarray(c[5], np.uint32).view(np.uint8))
+                .sum()) for c in cols]
+    return tuple(t(i) for i in range(6)) + (
+        torch.as_tensor(np.asarray(salts, np.uint32).astype(np.int64),
+                        device=device),
+        torch.as_tensor(n_ok, dtype=torch.int64, device=device))
+
+
 def make_consts(inv32, ret32, fop, args, rets, ok_words, device):
-    """The search's constant op columns for one key, on ``device``."""
-    def t(x):
-        return torch.as_tensor(np.ascontiguousarray(x)[None],
-                               dtype=torch.int32, device=device)
-    okw = np.asarray(ok_words, np.uint32)
-    n_ok = int(sum(bin(int(w)).count("1") for w in okw))
-    return (t(inv32), t(ret32), t(fop), t(args), t(rets),
-            t(okw.view(np.int32)),
-            torch.zeros(1, dtype=torch.int64, device=device),
-            torch.full((1,), n_ok, dtype=torch.int64, device=device))
+    """The search's constant op columns for one key (salt 0), on
+    ``device``."""
+    return make_batch_consts(
+        [(inv32, ret32, fop, args, rets, np.asarray(ok_words, np.uint32))],
+        [0], device)
+
+
+def compact(carry, consts, sel):
+    """Keep the key rows ``sel`` (an int64 tensor of row indices, rows
+    may repeat) of a K-key carry and its consts, in that order: the
+    counterpart of ``jnp.take(c, sel, axis=0)`` on every KEYED carry
+    array and every const (``keyshard.py:487-489``). The stack buffers
+    are stored flat as ``(K*O+1, ...)`` with a sentinel row, so each one
+    drops its sentinel, is viewed as ``(K, O, ...)``, keeps rows ``sel``
+    and gets a zero sentinel back. The shared arrays stay as they are."""
+    K = carry[IDX_TOP].shape[0]
+    out = []
+    for i, x in enumerate(carry):
+        if i in (IDX_BUF_LIN, IDX_BUF_STATE, IDX_BUF_FP):
+            rows = x[:-1].reshape((K, -1) + tuple(x.shape[1:]))
+            rows = rows.index_select(0, sel).reshape((-1,)
+                                                     + tuple(x.shape[1:]))
+            x = torch.cat([rows, torch.zeros_like(x[-1:])])
+        elif i in KEYED:
+            x = x.index_select(0, sel)
+        out.append(x)
+    return tuple(out), tuple(c.index_select(0, sel) for c in consts)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,12 @@
 """Consistency models: knossos.model equivalents with both Python oracle and
-tensor faces (see base.py). The register family and the mutex are ported;
-the queue models come with a later slice of the port and raise KeyError
-here."""
+tensor faces (see base.py): the register family, the mutex and the two
+queue models, as in ``jepsen_tpu.models``."""
 
 from .base import (Inconsistent, Interner, Model, ModelSpec, inconsistent,
-                   is_inconsistent, known_models, model_spec, not_ported,
-                   register_model)
+                   is_inconsistent, known_models, model_spec, register_model)
 from .mutex import Mutex, mutex_spec
+from .queues import (FIFOQueue, UnorderedQueue, fifo_queue_spec,
+                     unordered_queue_spec)
 from .registers import (CASRegister, MultiRegister, Register,
                         cas_register_spec, multi_register_spec, register_spec)
 
@@ -29,18 +29,20 @@ def multi_register(values=None):
 
 
 def fifo_queue(*items):
-    raise not_ported("fifo-queue")
+    return FIFOQueue(items)
 
 
 def unordered_queue(*items):
-    raise not_ported("unordered-queue")
+    return UnorderedQueue(items)
 
 
 __all__ = [
     "Inconsistent", "Interner", "Model", "ModelSpec", "inconsistent",
     "is_inconsistent", "known_models", "model_spec", "register_model",
-    "CASRegister", "MultiRegister", "Register", "Mutex", "register_spec",
-    "cas_register_spec", "multi_register_spec", "mutex_spec", "register",
+    "CASRegister", "MultiRegister", "Register", "Mutex", "FIFOQueue",
+    "UnorderedQueue", "register_spec", "cas_register_spec",
+    "multi_register_spec", "mutex_spec", "fifo_queue_spec",
+    "unordered_queue_spec", "register",
     "cas_register", "mutex", "multi_register", "fifo_queue",
     "unordered_queue",
 ]

@@ -185,22 +185,9 @@ def register_model(spec: ModelSpec):
     return spec
 
 
-#: models of the JAX package that later slices of the port bring
-#: (ROADMAP.md queue A, "queue models")
-NOT_PORTED = {"fifo-queue": "queue models", "unordered-queue": "queue models"}
-
-
-def not_ported(name):
-    """KeyError for a model the port does not carry yet."""
-    return KeyError(f"model {name!r} is not ported to jepsen_tpu_torch "
-                    f"yet: ROADMAP.md queue A, {NOT_PORTED[name]!r}")
-
-
 def model_spec(name_or_spec) -> ModelSpec:
     if isinstance(name_or_spec, ModelSpec):
         return name_or_spec
-    if name_or_spec in NOT_PORTED:
-        raise not_ported(name_or_spec)
     try:
         return _REGISTRY[name_or_spec]
     except KeyError:

@@ -1,4 +1,4 @@
-"""Where the main path's time goes on the card.
+"""Where the time goes on the card, for the main path and the key batch.
 
 ``python -m jepsen_tpu_torch.profile_main`` (from the root of a checkout,
 on a machine with one CUDA device) checks the two main-path histories of
@@ -12,6 +12,15 @@ time (the sum of kernel times: the search runs on one stream) and the
 device's idle share; the rollout kernel's share; and the kernels that
 take the most device time. ``--trace-dir DIR`` also writes the Chrome
 trace of each profiled check there (default: ``build/profile``).
+
+``--batch`` profiles the key batch of ``chip_smoke.py`` instead: the JAX
+package's headline batch (``simulate.bench_histories``: 256 cas-register
+keys of 200 ops) through ``parallel.check_batch_encoded``, one warm-up
+call and one profiled call, printed as one JSON line with the same
+fields but the host time before and after the search (iterations are
+the batch's: its longest-running key's), plus the compactions and the
+invalid keys. Its trace is not written: it holds hundreds of thousands
+of kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +33,44 @@ import sys
 import time
 
 HISTORIES = (("cas-register", 0.05), ("mutex", 0.02))
+
+
+def split(events, iterations):
+    """The profiled run's time split from its events, each ``(start_us,
+    end_us, name, is_kernel)``: the span from the first to the last
+    event split at the first and last kernel, kernel launches (per
+    iteration), device busy time and idle share, and the kernels that
+    take the most device time."""
+    start = min(e[0] for e in events)
+    span = max(e[1] for e in events) - start
+    kern = sorted((e for e in events if e[3]), key=lambda e: e[0])
+    first = kern[0][0] - start
+    last = kern[-1][1] - start
+    busy = sum(e[1] - e[0] for e in kern)
+    by_name = {}
+    for e in kern:
+        us, c = by_name.get(e[2], (0.0, 0))
+        by_name[e[2]] = (us + e[1] - e[0], c + 1)
+    roll = sum(us for k, (us, _) in by_name.items()
+               if "jt_rollout_kernel" in k)
+    its = iterations or 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"iterations": iterations, "trace_span_s": span / 1e6,
+            # host encode and prepare before the first kernel, the search
+            # loop between, the witness decode and replay after the last
+            "host_before_first_kernel_s": first / 1e6,
+            "search_loop_s": (last - first) / 1e6,
+            "host_after_last_kernel_s": (span - last) / 1e6,
+            "search_loop_per_iteration_s": (last - first) / 1e6 / its,
+            "kernel_launches": len(kern),
+            "kernel_launches_per_iteration": len(kern) / its,
+            "device_busy_s": busy / 1e6,
+            "device_idle_share": 1 - busy / span,
+            "device_idle_share_in_search_loop": 1 - busy / (last - first),
+            "rollout_kernel_s": roll / 1e6,
+            "rollout_share_of_busy": roll / busy,
+            "top_kernels": [{"name": k[:90], "device_s": us / 1e6,
+                             "count": c} for k, (us, c) in top]}
 
 
 def profile_case(model, crash_p, out_dir):
@@ -48,45 +95,48 @@ def profile_case(model, crash_p, out_dir):
     path = os.path.join(out_dir, f"trace-{model}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
-        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    start = min(e["ts"] for e in ev)
-    span_us = max(e["ts"] + e["dur"] for e in ev) - start
-    kern = sorted((e for e in ev if e.get("cat") == "kernel"),
-                  key=lambda e: e["ts"])
-    first_us = kern[0]["ts"] - start
-    last_us = kern[-1]["ts"] + kern[-1]["dur"] - start
-    busy_us = sum(e["dur"] for e in kern)
-    by_name = {}
-    for e in kern:
-        us, c = by_name.get(e["name"], (0.0, 0))
-        by_name[e["name"]] = (us + e["dur"], c + 1)
-    roll_us = sum(us for k, (us, _) in by_name.items()
-                  if "jt_rollout_kernel" in k)
-    its = r.get("iterations") or 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        ev = [(e["ts"], e["ts"] + e["dur"], e["name"],
+               e.get("cat") == "kernel")
+              for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     return {"model": model, "valid": r["valid"],
-            "iterations": r.get("iterations"),
             "configs_explored": r.get("configs_explored"),
             "rollout_launches": rollout.launches, "wall_s": wall,
-            "trace_span_s": span_us / 1e6,
-            # the trace split at the first and last kernel: host encode
-            # and prepare before, the search loop between, the witness
-            # decode and replay after
-            "host_before_first_kernel_s": first_us / 1e6,
-            "search_loop_s": (last_us - first_us) / 1e6,
-            "host_after_last_kernel_s": (span_us - last_us) / 1e6,
-            "search_loop_per_iteration_s": (last_us - first_us) / 1e6
-            / its,
-            "kernel_launches": len(kern),
-            "kernel_launches_per_iteration": len(kern) / its,
-            "device_busy_s": busy_us / 1e6,
-            "device_idle_share": 1 - busy_us / span_us,
-            "device_idle_share_in_search_loop":
-                1 - busy_us / (last_us - first_us),
-            "rollout_kernel_s": roll_us / 1e6,
-            "rollout_share_of_busy": roll_us / busy_us,
-            "top_kernels": [{"name": k[:90], "device_s": us / 1e6,
-                             "count": c} for k, (us, c) in top]}
+            **split(ev, r.get("iterations"))}
+
+
+def profile_batch(spec, pairs):
+    """One profiled call of the key batch on ``pairs``: kernel launches
+    (per iteration), device busy time and idle share, the search loop
+    (first to last kernel) and the top kernels, plus the batch's
+    compactions and verdict counts. Its trace (hundreds of thousands of
+    kernels) is read from the profiler's events, not written; those
+    events' device timestamps are not aligned with the host's as the
+    Chrome trace's are, so the host time before and after the search is
+    not split out here."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import parallel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        res = parallel.check_batch_encoded(spec, pairs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    ev = [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name(),
+           e.device_type() == DeviceType.CUDA
+           and not e.name().startswith(("Memcpy", "Memset")))
+          for e in prof.profiler.kineto_results.events()]
+    out = split(ev, max((r.get("iterations") or 0) for r in res))
+    del out["host_before_first_kernel_s"], out["host_after_last_kernel_s"]
+    return {"keys": len(pairs),
+            "history_ops": sum(len(e) for e, _ in pairs),
+            "compactions": max((r.get("compactions") or 0) for r in res),
+            "invalid_keys": sum(r["valid"] is False for r in res),
+            "unknown_keys": sum(r["valid"] == "unknown" for r in res),
+            "wall_s": wall, **out}
 
 
 def main(argv=None):
@@ -96,6 +146,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m jepsen_tpu_torch.profile_main")
     ap.add_argument("--trace-dir", default=os.path.join("build", "profile"))
+    ap.add_argument("--batch", action="store_true",
+                    help="profile the 256-key batch instead of the main "
+                    "path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: needs a CUDA device", file=sys.stderr)
@@ -106,6 +159,14 @@ def main(argv=None):
         timeout=60).stdout.strip()
     print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
+    if args.batch:
+        from . import models, parallel, simulate
+        spec = models.cas_register_spec
+        pairs = [spec.encode(h) for h in simulate.bench_histories()[0]]
+        parallel.check_batch_encoded(spec, pairs)       # warm-up
+        print(json.dumps({"batch": "cas-register",
+                          **profile_batch(spec, pairs)}), flush=True)
+        return 0
     for model, crash_p in HISTORIES:
         print(json.dumps(profile_case(model, crash_p, args.trace_dir)),
               flush=True)

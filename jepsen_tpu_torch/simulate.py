@@ -119,3 +119,26 @@ def corrupt(rng: random.Random, hist):
     i = rng.choice(cands)
     hist[i]["value"] = (hist[i]["value"] or 0) + rng.randrange(1, 5)
     return hist
+
+
+def bench_histories(n_keys=256):
+    """The JAX package's headline key batch (``bench.py`` rungs 2 and 2b)
+    and its rung-4 FIFO history, drawn as ``bench.py`` draws them: the
+    first 32 cas-register keys (200 ops, 8 processes, crash_p 0.02, every
+    8th key corrupted) from ``random.Random(45100)``, which then draws
+    rung 3's 10k-op mutex history (discarded here) and rung 4's 150-op,
+    6-process FIFO history; the remaining keys from
+    ``random.Random(20260730)``. Returns (the first ``n_keys`` keys, the
+    FIFO history)."""
+    rng = random.Random(45100)
+    keys = []
+    for k in range(32):
+        hist = random_history(rng, "cas-register", 8, 200, 0.02)
+        keys.append(corrupt(rng, hist) if k % 8 == 7 else hist)
+    random_history(rng, "mutex", 64, 10_000, 0.02)
+    fifo = random_history(rng, "fifo-queue", 6, 150, 0.02)
+    rng2 = random.Random(20260730)
+    for k in range(32, n_keys):
+        hist = random_history(rng2, "cas-register", 8, 200, 0.02)
+        keys.append(corrupt(rng2, hist) if k % 8 == 7 else hist)
+    return keys[:n_keys], fifo

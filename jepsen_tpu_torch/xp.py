@@ -14,7 +14,18 @@ The same function runs
 Both faces agree on the component axis: ``stack`` builds it at axis 0
 and ``all``/``any`` without an axis reduce it (for the host's 1-D
 vectors that is the whole array, as numpy does). ``astype`` replaces the
-``ndarray.astype`` method, which torch tensors lack.
+``ndarray.astype`` method, which torch tensors lack. The queue models'
+steps add the rest, all along the component axis:
+
+* ``arange(n, like)``: ``0..n-1`` down the component axis, shaped to
+  broadcast against ``like`` (``(n, 1, ...)`` under ``TORCH``);
+* ``roll(x, shift)``, ``sort(x)``: along axis 0 (``sort`` ascending,
+  values only);
+* ``argmax(x)``: along axis 0, the first maximum; a bool plane is cast
+  to an integer first, so an all-false column gives 0, as ``jnp.argmax``
+  does;
+* ``concatenate(xs)``: along axis 0, each part first broadcast to the
+  common shape of the others' trailing axes.
 """
 
 from __future__ import annotations
@@ -34,6 +45,29 @@ class _NumpyXP:
     @staticmethod
     def astype(x, dtype):
         return np.asarray(x).astype(dtype)
+
+    @staticmethod
+    def arange(n, like):
+        return np.arange(n)
+
+    @staticmethod
+    def roll(x, shift):
+        return np.roll(x, shift, axis=0)
+
+    @staticmethod
+    def sort(x):
+        return np.sort(x, axis=0)
+
+    @staticmethod
+    def argmax(x):
+        return np.argmax(x, axis=0)
+
+    @staticmethod
+    def concatenate(xs):
+        xs = [np.asarray(x) for x in xs]
+        tail = np.broadcast_shapes(*(x.shape[1:] for x in xs))
+        return np.concatenate(
+            [np.broadcast_to(x, x.shape[:1] + tail) for x in xs])
 
 
 class _TorchXP:
@@ -56,6 +90,30 @@ class _TorchXP:
     @staticmethod
     def astype(x, dtype):
         return x.to(dtype)
+
+    @staticmethod
+    def arange(n, like):
+        return torch.arange(n, device=like.device).reshape(
+            (n,) + (1,) * (like.dim() - 1))
+
+    @staticmethod
+    def roll(x, shift):
+        return torch.roll(x, shift, dims=0)
+
+    @staticmethod
+    def sort(x):
+        return torch.sort(x, dim=0).values
+
+    @staticmethod
+    def argmax(x):
+        if x.dtype == torch.bool:
+            x = x.to(torch.uint8)
+        return torch.argmax(x, dim=0)
+
+    @staticmethod
+    def concatenate(xs):
+        tail = torch.broadcast_shapes(*(x.shape[1:] for x in xs))
+        return torch.cat([x.expand(x.shape[:1] + tail) for x in xs])
 
 
 NP = _NumpyXP()

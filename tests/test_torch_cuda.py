@@ -1,7 +1,9 @@
 """The port on a CUDA card: the rollout kernel against its plain version
 (on real histories, and on the adversarial cases of rollout_cases.py
-under every launch plan), the wrapper's checks, and the device search
-against the same search on the CPU. Every test is marked ``cuda`` and skips without a card (the
+under every launch plan), the wrapper's checks, the device search
+against the same search on the CPU, and the key batch (cas-register and
+the queue models) and a single-key queue check against the same on the
+CPU. Every test is marked ``cuda`` and skips without a card (the
 kernels have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
 
@@ -16,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from jepsen_tpu_torch import models, simulate
-from jepsen_tpu_torch.checker import rollout, rollout_cases, torch_wgl
+from jepsen_tpu_torch import models, parallel, simulate
+from jepsen_tpu_torch.checker import (checkers, rollout, rollout_cases,
+                                      torch_wgl)
 from jepsen_tpu_torch.history import NIL
 
 pytestmark = pytest.mark.cuda
@@ -148,3 +151,52 @@ def test_device_search_equals_cpu_search(dev, name):
             assert got.get(k) == want.get(k), (trial, k)
         if got.get("engine") == "jax-wgl" and got.get("iterations"):
             assert rollout.launches > before
+
+
+_BATCH_FIELDS = ("valid", "iterations", "configs_explored", "compactions",
+                 "engine", "table_load", "table_insert_failures")
+
+
+@pytest.mark.parametrize("name,n_ops", [("cas-register", 100),
+                                        ("fifo-queue", 60),
+                                        ("unordered-queue", 60)])
+def test_batch_equals_cpu_batch(dev, name, n_ops):
+    """A short key batch on the card, every 4th key corrupted (queues
+    without their fast check, so the search with pad_state decides):
+    one iteration per chunk, so compaction points do not depend on the
+    clock, and the per-key results equal the CPU run's. The batch rolls
+    on the scan path: the rollout kernel is not launched."""
+    import dataclasses
+    spec = models.model_spec(name)
+    if name != "cas-register":
+        spec = dataclasses.replace(spec, fast_check=None)
+    rng = random.Random(45100)
+    hists = []
+    for k in range(12):
+        hist = simulate.random_history(rng, name, 6, n_ops, 0.05)
+        hists.append(simulate.corrupt(rng, hist) if k % 4 == 3 else hist)
+    before = rollout.launches
+    got = parallel.check_batch_histories(spec, hists, chunk_iters=1)
+    want = parallel.check_batch_histories(spec, hists, chunk_iters=1,
+                                          device="cpu")
+    assert rollout.launches == before
+    for k, (g, w) in enumerate(zip(got, want)):
+        for field in _BATCH_FIELDS:
+            assert g.get(field) == w.get(field), (k, field)
+    assert any(g.get("engine") == "jax-wgl" for g in got)
+
+
+@pytest.mark.parametrize("name", ["fifo-queue", "unordered-queue"])
+def test_queue_check_equals_cpu(dev, name):
+    """checkers.linearizable on a 150-op queue history, fast check on,
+    and the device search alone (fast check off), card against CPU."""
+    import dataclasses
+    hist = simulate.random_history(random.Random(7), name, 6, 150, 0.02)
+    lin = checkers.linearizable({"model": name})
+    assert lin.check({}, hist)["valid"] is True
+    spec = dataclasses.replace(models.model_spec(name), fast_check=None)
+    e, st = spec.encode(hist)
+    got = torch_wgl.check_encoded(spec, e, st)
+    want = torch_wgl.check_encoded(spec, e, st, device="cpu")
+    for k in ("valid", "iterations", "configs_explored", "engine"):
+        assert got.get(k) == want.get(k), k

@@ -67,3 +67,33 @@ def test_chip_smoke_refuses_without_a_card():
         env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+def test_key_batch_and_queue_modules_import_without_jax():
+    """The key batch, the independent checker, the queue models, the
+    checker combinators and the utilities stand alone too, and
+    ``parallel`` and ``independent`` export their entry points."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+from jepsen_tpu_torch import independent, parallel, util
+from jepsen_tpu_torch.checker import core
+from jepsen_tpu_torch.models import queues
+from jepsen_tpu_torch import models
+assert callable(parallel.check_batch_encoded)
+assert callable(parallel.check_batch_histories)
+assert callable(independent.checker) and callable(independent.tuple_)
+assert models.model_spec("fifo-queue") is queues.fifo_queue_spec
+assert models.model_spec("unordered-queue") is queues.unordered_queue_spec
+for name in ("check", "check_safe", "compose", "noop",
+             "unbridled_optimism", "merge_valid", "valid_prio"):
+    assert name in core.__all__, name
+assert callable(util.bounded_pmap) and callable(util.op_str)
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -124,8 +124,12 @@ def test_oracles_match():
 
 
 def test_queue_models_wait_for_a_later_slice():
+    """The queue models were a later slice; they are ported now: both
+    specs resolve and the constructor aliases build the oracles (the
+    steps and host analyses are held against the JAX package in
+    test_torch_queues.py)."""
     for name in ("fifo-queue", "unordered-queue"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            tm.model_spec(name)
-    with pytest.raises(KeyError, match="queue models"):
-        tm.fifo_queue(1, 2)
+        assert tm.model_spec(name).name == name
+        assert jm.model_spec(name).arg_width == tm.model_spec(name).arg_width
+    assert tm.fifo_queue(1, 2).items == (1, 2)
+    assert tm.unordered_queue(2, 1).items == (1, 2)
