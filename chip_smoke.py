@@ -65,12 +65,46 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``bench.py``'s rung-4 FIFO history through
    ``checkers.linearizable``, fast check on.
 
-The batch, independent and queue paths run the search's scan rollout
-(the batch pins it, as the JAX package's does): each of them is run
-with the rollout kernel's launch count set to 0 and must leave it at 0.
-Then a ``{"kernels": [...]}`` line (with each kernel's launches in the
-main phase, and on every path) and, last, ``{"ok": true, "device":
-{...}}``. Any failure raises and the script exits non-zero.
+8. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
+   torch ops) on keys of the batch above: (a) the offline face at the
+   hard frontier cap on ``OFFLINE_KEYS`` (two of them corrupted), each
+   verdict equal to the CPU sweep's (``linear``) and each violating op
+   the return at which the sweep fails; (b) one lane-batched fold of
+   ``FOLD_BATCH_KEYS`` keys' whole histories at ``FOLD_BATCH_F`` rows
+   under ``torch.profiler`` (card activity only), every lane equal to
+   its solo fold, only corrupted keys invalid, the lanes that
+   overflowed listed: seconds, kernel launches, host syncs and device
+   idle share per event step; (c) ``StreamCheck`` on ``STREAM_KEYS``
+   fed op by op, checked every ``STREAM_CHUNK`` completions, each
+   verdict equal to the CPU WGL oracle's on the same prefix, no
+   fall-back, the corrupted keys caught by the frontier and confirmed
+   by the port's WGL engine: seconds, host syncs, passes and frontier
+   peak per event. (c) is not profiled: gathering the profiler's
+   events costs more than the run itself (PERF.md).
+9. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
+   serial list-append history of 16,384 txns (1 read + 7 appends, 8
+   processes; ``simulate.txn_append_history``): ``cycle.append.check``
+   decides it valid on the card (one profiled call: squarings, closure
+   device seconds, launches, idle share, peak device memory); a copy
+   with one injected G1c cycle is decided invalid with G1c; ``TxnCheck``
+   at chunks of 1,024 txns agrees with the offline check of the prefix
+   at the chunks of ``TXN_OFFLINE_AT`` txns and at the last;
+   one closure at n=2048 and a seeded 2,048-txn wr check equal the
+   same on the CPU; one squaring at n=16384 timed in float32, TF32 and
+   bf16, all three boolean-identical.
+
+The batch, independent, queue, streamlin and txn paths do not run the
+rollout kernel: each of them is run with the rollout kernel's launch
+count set to 0 and must leave it at 0. The batch pins the scan rollout,
+as the JAX package's does; the txn path has no linearizability search;
+the streamlin path's only search is the confirm of a frontier
+violation, and on the corrupted keys here ``torch_wgl``'s host
+pre-check (``_state_abstraction_check``: a read of a value no reachable
+state holds) decides it before any search starts, so its
+``confirmed_by`` is ``aspect``. Then a ``{"kernels": [...]}`` line (with each
+kernel's launches in the main phase, and on every path) and, last,
+``{"ok": true, "device": {...}}``. Any failure raises and the script
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -104,6 +138,37 @@ CORRUPT_EVERY = 8
 #: the queue batches' search budget: 256 iterations at 64 lanes x 64 keys
 QUEUE_MAX_CONFIGS = 256 * 64 * 64
 ROLLOUT_REPLACES = "jepsen_tpu/checker/pallas_rollout.py:179"
+#: the streamlin phase. The offline face runs key 0 and the corrupted
+#: keys 7 and 15 of the batch, the stream the corrupted keys (each is
+#: checked about 20 times before its violation), both at the hard
+#: frontier cap (with crashed ops left open, a 200-op key's closure can
+#: outgrow the default cap of 4,096 configs); the lane batch runs the
+#: first FOLD_BATCH_KEYS keys at FOLD_BATCH_F rows each, every lane held
+#: against its solo fold; the stream is checked every STREAM_CHUNK
+#: completions. Fewer keys than the batch's 256: the fold is a host
+#: loop of torch ops, about 800 launches and 4 host reads per event
+#: (PERF.md), so each key costs seconds, and the two phases together
+#: are to take about two minutes of the run. FOLD_BATCH_F holds every
+#: one of the first 8 keys' closures but key 4's: the CPU sweep's
+#: largest config set per return is 8,168 configs for key 0 and 49,280
+#: for key 4, so lane 4 overflows (status 2) and the batch says which.
+#: The device time of a pass grows with lanes x rows (PERF.md)
+OFFLINE_KEYS, STREAM_KEYS = (0, 7, 15), (7, 15)
+FOLD_BATCH_KEYS, FOLD_BATCH_F = 8, 8192
+STREAM_CHUNK = 8
+#: the txn phase at bench.py rung 15's shape: 16,384 txns of 1 read and
+#: 7 appends over 8 processes, TxnCheck chunks of 1,024 txns; the G1c
+#: copy ties the first txns of keys 1024 and 1025; the closure and the
+#: wr history compared with the CPU
+TXN_TXNS, TXN_APPENDS, TXN_PROCS, TXN_CHUNK = 16384, 7, 8, 1024
+TXN_G1C = (8192, 8200)
+#: TxnCheck's chunk verdicts are held against the offline check of the
+#: same prefix at these txn counts (powers of two) and at the last chunk
+#: (the whole history): each offline check costs up to the whole
+#: history's (mostly host work on n^2 arrays), which the phase cannot
+#: afford at every chunk
+TXN_OFFLINE_AT = (1024, 2048, 4096, 8192)
+CLOSURE_N, WR_TXNS = 2048, 2048
 
 
 def emit(obj):
@@ -307,7 +372,7 @@ def scan_only(what):
     from jepsen_tpu_torch.checker import rollout
     if rollout.launches != 0:
         raise AssertionError(f"{what}: the rollout kernel was launched "
-                             f"{rollout.launches} times on the batch path")
+                             f"{rollout.launches} times on that path")
     return rollout.launches
 
 
@@ -502,6 +567,318 @@ def queue_phase(fifo):
     return {"phase": "queues", "checks": rows}
 
 
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
+                    stream_keys=STREAM_KEYS, batch_keys=FOLD_BATCH_KEYS,
+                    batch_f=FOLD_BATCH_F):
+    """The streaming frontier fold on the batch keys: (a) the offline
+    face on ``offline_keys`` against the CPU sweep (``linear``): equal
+    verdicts, and on the corrupted keys the violating op is the return
+    at which the sweep fails; (b) one lane-batched fold over the first
+    ``batch_keys`` keys' whole histories at ``batch_f`` rows, one
+    profiled call, each lane equal to its solo fold; (c)
+    ``StreamCheck`` fed ``stream_keys`` op by op, checked every
+    STREAM_CHUNK completions, each verdict equal to the CPU WGL oracle's
+    on the same prefix, the corrupted keys caught by the frontier and
+    confirmed by the port's WGL engine (``torch_wgl``). The stream's
+    seconds are those of its own offers and checks, without the
+    oracle's."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checker import linear, streamlin
+    from jepsen_tpu_torch.monitor import StreamCheck
+    from jepsen_tpu_torch.monitor import engine as mengine
+    from jepsen_tpu_torch.profile_main import kernel_stats, profile_call
+    spec = models.cas_register_spec
+    def corrupted(ks):
+        return [k for k in ks if k % CORRUPT_EVERY == CORRUPT_EVERY - 1]
+    pairs = [spec.encode(h) for h in
+             keys[:max(batch_keys, *offline_keys, *stream_keys) + 1]]
+
+    # (a) the offline face
+    t_start = time.monotonic()
+    offline, offline_s, oracle_s = [], 0.0, 0.0
+    for k in offline_keys:
+        e, st = pairs[k]
+        t0 = time.monotonic()
+        got = streamlin.check_encoded(
+            spec, e, st, max_configs=streamlin.FRONTIER_CAP_MAX, device=dev)
+        sync(dev)
+        offline_s += time.monotonic() - t0
+        t0 = time.monotonic()
+        if got["valid"] is False:
+            # the violating op is the one whose return empties the CPU
+            # sweep's config set: the sweep accepts the history cut just
+            # before that return and rejects it cut just after. A
+            # history is linearizable only if its prefixes are, so the
+            # second also gives the whole history's CPU verdict: False
+            cut = got["op"]["index"]
+            for upto, ok in ((cut, True), (cut + 1, False)):
+                pre = [o for o in keys[k] if o["index"] < upto]
+                if linear.check_encoded(spec, *spec.encode(pre))["valid"] \
+                        is not ok:
+                    raise AssertionError(f"streamlin offline key {k}: op "
+                                         f"{cut} is not where the CPU sweep "
+                                         f"fails")
+        else:
+            want = linear.check_encoded(spec, e, st)
+            if got["valid"] != want["valid"]:
+                raise AssertionError(f"streamlin offline key {k}: "
+                                     f"{got['valid']!r} != linear "
+                                     f"{want['valid']!r}")
+        oracle_s += time.monotonic() - t0
+        offline.append({"key": k, "valid": got["valid"],
+                        "configs_explored": got["configs_explored"],
+                        "op_index": got.get("op", {}).get("index")})
+    if sorted(r["key"] for r in offline if r["valid"] is False) \
+            != corrupted(offline_keys):
+        raise AssertionError(f"streamlin offline: invalid keys "
+                             f"{offline}, expected "
+                             f"{corrupted(offline_keys)}")
+
+    # (b) one lane-batched fold over the first batch_keys whole histories
+    jobs = [streamlin.history_job(spec, e, st, batch_f, dev)
+            for e, st in pairs[:batch_keys]]
+    C = max(j.C for j in jobs)
+    for j in jobs:
+        j.C = C                      # one shape: one fold of K lanes
+    streamlin.syncs = 0
+    t0 = time.monotonic()
+    res, wall, ev = profile_call(lambda: streamlin.batch_fold(jobs),
+                                 host_ops=False)
+    prof_cost = time.monotonic() - t0 - wall
+    syncs = streamlin.syncs
+    fields = ("status", "viol_slot", "passes", "steps", "n_live")
+    t0 = time.monotonic()
+    for k, job in enumerate(jobs):
+        solo = streamlin.solo_fold(job)
+        if [solo[f] for f in fields] != [res[k][f] for f in fields]:
+            raise AssertionError(f"batch fold lane {k}: "
+                                 f"{[res[k][f] for f in fields]} != solo "
+                                 f"{[solo[f] for f in fields]}")
+    solo_s = time.monotonic() - t0
+    E = max(j.E for j in jobs)
+    lane_events = sum(len(j) for j in jobs)
+    invalid = [k for k, r in enumerate(res) if r["status"] == 1]
+    if not invalid or any(k % CORRUPT_EVERY != CORRUPT_EVERY - 1
+                          for k in invalid):
+        raise AssertionError(f"batch fold: invalid lanes {invalid}; only "
+                             f"corrupted keys may be")
+    overflowed = [k for k, r in enumerate(res) if r["status"] == 2]
+    held = [r for r in res if r["status"] != 2]
+    stats = kernel_stats(ev, wall, top=5)
+    batch = {"keys": len(jobs), "K": len(jobs), "F": jobs[0].F,
+             "B": jobs[0].B, "C": C, "E": E, "lane_events": lane_events,
+             "groups": len({j.shape_key() for j in jobs}),
+             "profiled_wall_s": wall, "s_per_event": wall / E,
+             "launches_per_event": stats["kernel_launches"] / E,
+             "launches_per_lane_event": stats["kernel_launches"]
+             / lane_events,
+             "syncs": syncs, "syncs_per_event": syncs / E,
+             # over the lanes whose frontier held (an overflowed lane
+             # stops at its overflow)
+             "passes_max": max(r["passes"] for r in held),
+             "passes_total": sum(r["passes"] for r in held),
+             "final_frontier_max": max(r["n_live"] for r in held),
+             "invalid_lanes": invalid, "overflowed_lanes": overflowed,
+             "solo_s": solo_s, "profiler_gather_s": prof_cost, **stats}
+
+    # (c) StreamCheck op by op
+    streamlin.syncs = 0
+    rows = []
+
+    def stream():
+        for k in stream_keys:
+            sc = StreamCheck(spec, device=dev, opts={
+                "frontier-cap": streamlin.FRONTIER_CAP_MAX})
+            checks, caught, confirm, n, own = 0, None, None, 0, 0.0
+            for i, op in enumerate(keys[k]):
+                t0 = time.monotonic()
+                done = sc.offer(op, i)
+                r = sc.check() if done and (n + 1) % STREAM_CHUNK == 0 \
+                    else None
+                own += time.monotonic() - t0
+                n += done
+                if r is None:
+                    continue
+                e, st = sc.materialize()
+                want = mengine.check_prefix(spec, e, st, engine="wgl")
+                checks += 1
+                if r["valid"] != want["valid"]:
+                    raise AssertionError(f"StreamCheck key {k}, check "
+                                         f"{checks}: {r['valid']!r} != "
+                                         f"offline {want['valid']!r}")
+                if r["valid"] is False:
+                    caught, confirm = i, r.get("engine")
+                    if r.get("detected_by") != "streamlin":
+                        raise AssertionError(f"StreamCheck key {k}: not "
+                                             f"detected by the frontier")
+                    break
+            s = sc.stream_summary()
+            if sc.fallback is not None or sc.flat_checks:
+                raise AssertionError(f"StreamCheck key {k}: fell back "
+                                     f"({sc.fallback}, {sc.flat_checks} "
+                                     f"flat checks)")
+            if (caught is not None) != (k in corrupted(stream_keys)):
+                raise AssertionError(f"StreamCheck key {k}: caught at "
+                                     f"{caught}")
+            rows.append({"key": k, "events": i + 1, "checks": checks,
+                         "caught_at": caught, "confirmed_by": confirm,
+                         "stream_s": own, **s})
+
+    t0 = time.monotonic()
+    stream()
+    stream_wall = time.monotonic() - t0
+    events = sum(r["events"] for r in rows)
+    own = sum(r["stream_s"] for r in rows)
+    streaming = {"keys": len(rows), "events": events,
+                 "wall_s": stream_wall, "stream_s": own,
+                 "s_per_event": own / events,
+                 "syncs": streamlin.syncs,
+                 "syncs_per_event": streamlin.syncs / events,
+                 "passes_per_event": sum(r["fold_passes"] for r in rows)
+                 / events,
+                 "frontier_peak": max(r["frontier_peak"] for r in rows),
+                 "streams": rows}
+    return {"phase": "streamlin", "seconds": time.monotonic() - t_start,
+            "offline": offline, "offline_s": offline_s,
+            "offline_oracle_s": oracle_s, "batch": batch,
+            "streaming": streaming}
+
+
+def squaring_ms(n, dev):
+    """One closure squaring of an n-node 0/1 matrix (a random DAG plus
+    cycles) timed with CUDA events in float32, in TF32 and in bf16;
+    each boolean result must equal float32's."""
+    import torch
+    from jepsen_tpu_torch.checker.rollout_ab import cuda_ms
+    g = torch.Generator(device=dev).manual_seed(n)
+    r = (torch.rand((n, n), generator=g, device=dev) < 4.0 / n).float()
+    want = torch.addmm(r, r, r) > 0
+    out = {}
+    for name, dtype, tf32 in (("float32", torch.float32, False),
+                              ("tf32", torch.float32, True),
+                              ("bf16", torch.bfloat16, False)):
+        x = r.to(dtype)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            if not torch.equal(torch.addmm(x, x, x) > 0, want):
+                raise AssertionError(f"{name} squaring differs")
+            out[name] = cuda_ms(lambda: torch.addmm(x, x, x), 3)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+def txn_phase(dev, n_txns=TXN_TXNS, chunk=TXN_CHUNK, closure_n=CLOSURE_N,
+              wr_txns=WR_TXNS, g1c=TXN_G1C, offline_at=TXN_OFFLINE_AT):
+    """The txn cycle checkers at bench.py rung 15's shape on the card:
+    the offline list-append check of the serial history (one profiled
+    call), the G1c copy, TxnCheck chunk by chunk against the offline
+    verdict of the prefix at the chunks of ``offline_at`` txns (and at
+    the last), one closure and one wr check against the CPU, and one
+    squaring's time by matmul dtype."""
+    import numpy as np
+    import torch
+    from jepsen_tpu_torch import cycle, simulate
+    from jepsen_tpu_torch.cycle import append, wr
+    from jepsen_tpu_torch.monitor import TxnCheck
+    from jepsen_tpu_torch.monitor import engine as mengine
+    from jepsen_tpu_torch.profile_main import kernel_stats, profile_call
+    t_start = time.monotonic()
+    hist = simulate.txn_append_history(n_txns, TXN_APPENDS, TXN_PROCS)
+    micro_ops = n_txns * (TXN_APPENDS + 1)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    p0, b0 = cycle.closure_passes(), cycle.closure_busy_s()
+    res, wall, ev = profile_call(lambda: append.check(hist, device=dev),
+                                 host_ops=False)
+    passes = cycle.closure_passes() - p0
+    if res["valid"] is not True:
+        raise AssertionError(f"txn: the serial history decided "
+                             f"{res['valid']!r} {res['anomaly_types']}")
+    stats = kernel_stats(ev, wall, top=5)
+    offline = {"txns": n_txns, "micro_ops": micro_ops, "valid": True,
+               "profiled_wall_s": wall, "txns_per_s": n_txns / wall,
+               "micro_ops_per_s": micro_ops / wall,
+               "squarings": passes,
+               "closure_device_s": cycle.closure_busy_s() - b0,
+               "launches_per_squaring": stats["kernel_launches"] / passes,
+               **stats}
+    bad = simulate.txn_append_history(n_txns, TXN_APPENDS, TXN_PROCS,
+                                      g1c=g1c)
+    t0 = time.monotonic()
+    rb = append.check(bad, device=dev)
+    if rb["valid"] is not False or "G1c" not in rb["anomaly_types"]:
+        raise AssertionError(f"txn: the G1c copy decided {rb['valid']!r} "
+                             f"{rb['anomaly_types']}")
+    invalid = {"wall_s": time.monotonic() - t0,
+               "anomaly_types": rb["anomaly_types"],
+               "g1c_nodes": rb["anomalies"]["G1c"][0]["nodes"]}
+    core = TxnCheck(device=dev)
+    p0, b0 = cycle.closure_passes(), cycle.closure_busy_s()
+    chunks, off_s = [], 0.0
+    t0 = time.monotonic()
+    for start in range(0, len(hist), 2 * chunk):
+        for op in hist[start:start + 2 * chunk]:
+            core.offer(op)
+        c0, q0 = time.monotonic(), cycle.closure_passes()
+        r = core.check()
+        dt, dq = time.monotonic() - c0, cycle.closure_passes() - q0
+        o0 = time.monotonic()
+        if start + 2 * chunk >= len(hist):
+            want = res                  # the whole history, checked above
+        elif core.n_txns in offline_at:
+            want = mengine.check_txn_prefix(hist[:start + 2 * chunk],
+                                            "append", {"device": dev})
+        else:
+            want = None
+        off_s += time.monotonic() - o0
+        if r["valid"] is not True or (want is not None
+                                      and want["valid"] != r["valid"]):
+            raise AssertionError(f"TxnCheck chunk {len(chunks)}: "
+                                 f"{r['valid']!r} != offline "
+                                 f"{want['valid']!r}")
+        chunks.append({"txns": core.n_txns, "s": dt, "passes": dq,
+                       "offline": None if want is None else want["valid"]})
+    streaming = {"chunk_txns": chunk, "chunks": len(chunks),
+                 "offline_compared": sum(c["offline"] is not None
+                                         for c in chunks),
+                 "wall_s": time.monotonic() - t0 - off_s,
+                 "offline_checks_s": off_s,
+                 "closure_passes": sum(c["passes"] for c in chunks),
+                 "closure_device_s": cycle.closure_busy_s() - b0,
+                 "closure_rebuilds": core.frontier.rebuilds,
+                 "per_chunk": chunks}
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    rng = np.random.default_rng(closure_n)
+    adj = rng.random((closure_n, closure_n)) < 2.0 / closure_n
+    np.fill_diagonal(adj, False)
+    if not np.array_equal(cycle.transitive_closure(adj, device=dev),
+                          cycle.transitive_closure(adj, device="cpu")):
+        raise AssertionError("txn: the card's closure != the CPU's")
+    wh = simulate.txn_wr_history(random.Random(45100), wr_txns)
+    t0 = time.monotonic()
+    w_card = wr.check(wh, device=dev)
+    w_s = time.monotonic() - t0
+    w_cpu = wr.check(wh, device="cpu")
+    if w_card != w_cpu or w_card["valid"] is not True:
+        raise AssertionError(f"txn: wr check {w_card['valid']!r} != CPU "
+                             f"{w_cpu['valid']!r}")
+    squaring = squaring_ms(n_txns, dev) if dev.type == "cuda" else None
+    return {"phase": "txn", "seconds": time.monotonic() - t_start,
+            "offline": offline, "invalid": invalid,
+            "streaming": streaming, "peak_device_bytes": peak,
+            "closure_vs_cpu": {"n": closure_n, "equal": True},
+            "wr": {"txns": wr_txns, "valid": True, "wall_s": w_s},
+            "squaring_ms": squaring}
+
+
 def main(argv):
     import torch
     if argv:
@@ -572,10 +949,19 @@ def main(argv):
     emit(ind)
     queues = queue_phase(fifo)
     emit(queues)
+
+    # -- 8-9. the streaming fold and the txn closure -----------------------
+    rollout.launches = 0
+    emit(streamlin_phase(keys, dev))
+    stream_launches = scan_only("streamlin")
+    rollout.launches = 0
+    emit(txn_phase(dev))
+    txn_launches = scan_only("txn")
     by_path = {"main": main_launches, "batch": row["rollout_launches"],
                "independent": ind["rollout_launches"],
                **{c["model"]: c["rollout_launches"]
-                  for c in queues["checks"] if "rollout_launches" in c}}
+                  for c in queues["checks"] if "rollout_launches" in c},
+               "streamlin": stream_launches, "txn": txn_launches}
 
     main_shape = cases[1]
     emit({"kernels": [{

@@ -3,10 +3,11 @@ jepsen/src/jepsen/checker.clj:185-216, mirroring
 ``jepsen_tpu.checker.checkers.Linearizable``).
 
 ``linearizable`` dispatches on "algorithm" as the reference dispatches to
-knossos (checker.clj:199-202): "wgl" runs the sequential CPU oracle and
+knossos (checker.clj:199-202): "wgl" runs the sequential CPU oracle,
+"linear" just-in-time linearization on the CPU (``linear``), and
 "jax-wgl" the batched device search (``torch_wgl``; the name is the JAX
-package's, so test maps carry over). "linear" and "competition" come
-with a later slice of the port (ROADMAP.md queue A) and raise
+package's, so test maps carry over). "competition" comes with a later
+slice of the port (ROADMAP.md queue A.8) and raises
 NotImplementedError. There is no search-plan path yet: a check here is
 what the JAX package does with ``test["searchplan?"] = False``.
 """
@@ -20,14 +21,14 @@ from .core import Checker
 __all__ = ["Linearizable", "linearizable"]
 
 #: algorithms of the JAX package that a later slice brings
-_LATER = {"linear": "checker/linear.py",
-          "competition": "checker/linear.py and competition"}
+_LATER = {"competition": "A.8, competition"}
 
 
 class Linearizable(Checker):
     """THE gate to the linearizability engines (checker.clj:185-216).
-    algorithm: "wgl" (sequential CPU oracle) or "jax-wgl" (the default
-    here: the batched device search). ``engine_opts`` go to
+    algorithm: "wgl" (sequential CPU oracle), "linear" (JIT
+    linearization on the CPU) or "jax-wgl" (the default here: the
+    batched device search). ``engine_opts`` go to
     ``torch_wgl.check_encoded`` (``device``, ``rollout_kernel``,
     budgets); ``init_ops`` establish the initial state as in the JAX
     package."""
@@ -42,7 +43,7 @@ class Linearizable(Checker):
                 f"algorithm {algorithm!r} is not ported to "
                 f"jepsen_tpu_torch yet: ROADMAP.md queue A, "
                 f"{_LATER[algorithm]}")
-        if algorithm not in ("wgl", "jax-wgl"):
+        if algorithm not in ("wgl", "linear", "jax-wgl"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
         self.algorithm = algorithm
         self.engine_opts = engine_opts or {}
@@ -66,11 +67,13 @@ class Linearizable(Checker):
         return synth + client_hist
 
     def check(self, test, hist, opts=None):
-        from . import torch_wgl, wgl
+        from . import linear, torch_wgl, wgl
         client_hist = self.prepare_history(h.client_ops(hist))
         e, init_state = self.spec.encode(client_hist)
         if self.algorithm == "wgl":
             a = wgl.check_encoded(self.spec, e, init_state)
+        elif self.algorithm == "linear":
+            a = linear.check_encoded(self.spec, e, init_state)
         else:
             a = torch_wgl.check_encoded(self.spec, e, init_state,
                                         **self.engine_opts)

@@ -46,6 +46,7 @@ import torch
 
 from .. import resolve_device
 from ..history import INF_TIME
+from ..util import DEFAULT_N_FLOOR
 from ..xp import NP, TORCH
 from . import rollout, words
 from .words import M32, u32
@@ -57,10 +58,6 @@ PROBES = 4
 
 #: deepest-distinct-config witness slots per key
 TOPK = 8
-
-#: minimum op-count bucket (``jax_wgl`` reads it from the campaign
-#: compile cache, whose default this is)
-DEFAULT_N_FLOOR = 64
 
 # status codes
 RUNNING, VALID = np.int32(0), np.int32(1)

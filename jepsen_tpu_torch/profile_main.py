@@ -47,14 +47,8 @@ def split(events, iterations):
     first = kern[0][0] - start
     last = kern[-1][1] - start
     busy = sum(e[1] - e[0] for e in kern)
-    by_name = {}
-    for e in kern:
-        us, c = by_name.get(e[2], (0.0, 0))
-        by_name[e[2]] = (us + e[1] - e[0], c + 1)
-    roll = sum(us for k, (us, _) in by_name.items()
-               if "jt_rollout_kernel" in k)
+    roll = sum(e[1] - e[0] for e in kern if "jt_rollout_kernel" in e[2])
     its = iterations or 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"iterations": iterations, "trace_span_s": span / 1e6,
             # host encode and prepare before the first kernel, the search
             # loop between, the witness decode and replay after the last
@@ -62,15 +56,29 @@ def split(events, iterations):
             "search_loop_s": (last - first) / 1e6,
             "host_after_last_kernel_s": (span - last) / 1e6,
             "search_loop_per_iteration_s": (last - first) / 1e6 / its,
-            "kernel_launches": len(kern),
             "kernel_launches_per_iteration": len(kern) / its,
-            "device_busy_s": busy / 1e6,
-            "device_idle_share": 1 - busy / span,
+            **kernel_stats(events, span / 1e6),
             "device_idle_share_in_search_loop": 1 - busy / (last - first),
             "rollout_kernel_s": roll / 1e6,
-            "rollout_share_of_busy": roll / busy,
+            "rollout_share_of_busy": roll / busy}
+
+
+def kernel_stats(events, wall_s, top=10):
+    """Kernel launches, device busy seconds (the sum of kernel times:
+    the port runs on one stream), the device's idle share of ``wall_s``
+    and the ``top`` kernels by device time, from events shaped as
+    ``split``'s."""
+    kern = [e for e in events if e[3]]
+    busy = sum(e[1] - e[0] for e in kern) / 1e6
+    by_name = {}
+    for e in kern:
+        us, c = by_name.get(e[2], (0.0, 0))
+        by_name[e[2]] = (us + e[1] - e[0], c + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"kernel_launches": len(kern), "device_busy_s": busy,
+            "device_idle_share": 1 - busy / wall_s if wall_s else None,
             "top_kernels": [{"name": k[:90], "device_s": us / 1e6,
-                             "count": c} for k, (us, c) in top]}
+                             "count": c} for k, (us, c) in ranked]}
 
 
 def profile_case(model, crash_p, out_dir):
@@ -104,31 +112,47 @@ def profile_case(model, crash_p, out_dir):
             **split(ev, r.get("iterations"))}
 
 
-def profile_batch(spec, pairs):
-    """One profiled call of the key batch on ``pairs``: kernel launches
-    (per iteration), device busy time and idle share, the search loop
-    (first to last kernel) and the top kernels, plus the batch's
-    compactions and verdict counts. Its trace (hundreds of thousands of
-    kernels) is read from the profiler's events, not written; those
-    events' device timestamps are not aligned with the host's as the
-    Chrome trace's are, so the host time before and after the search is
-    not split out here."""
+def profile_call(fn, host_ops=True):
+    """Run ``fn()`` once under ``torch.profiler`` and return ``(result,
+    wall seconds, events)``, each event ``(start_us, end_us, name,
+    is_kernel)`` from the profiler's raw events (a kernel is a CUDA
+    device event other than a memcpy or memset). Raw events are read,
+    not a Chrome trace, so calls of hundreds of thousands of kernels
+    fit; their device timestamps are not aligned with the host's as the
+    Chrome trace's are, so host time before and after the first and
+    last kernel is not meaningful from them. ``host_ops=False`` records
+    the card's activity alone, without the host's operator events: a
+    call of hundreds of thousands of launches then leaves the profiler
+    fewer events to gather when it stops (without a card, where the
+    profiler has no device activity, host events are recorded all the
+    same)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from . import parallel
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops or not torch.cuda.is_available():
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.monotonic()
-        res = parallel.check_batch_encoded(spec, pairs)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     ev = [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name(),
            e.device_type() == DeviceType.CUDA
            and not e.name().startswith(("Memcpy", "Memset")))
           for e in prof.profiler.kineto_results.events()]
+    return out, wall, ev
+
+
+def profile_batch(spec, pairs):
+    """One profiled call of the key batch on ``pairs``: kernel launches
+    (per iteration), device busy time and idle share, the search loop
+    (first to last kernel) and the top kernels, plus the batch's
+    compactions and verdict counts (``profile_call``)."""
+    from . import parallel
+    res, wall, ev = profile_call(
+        lambda: parallel.check_batch_encoded(spec, pairs))
     out = split(ev, max((r.get("iterations") or 0) for r in res))
     del out["host_before_first_kernel_s"], out["host_after_last_kernel_s"]
     return {"keys": len(pairs),

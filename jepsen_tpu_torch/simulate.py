@@ -142,3 +142,66 @@ def bench_histories(n_keys=256):
         hist = random_history(rng2, "cas-register", 8, 200, 0.02)
         keys.append(corrupt(rng2, hist) if k % 8 == 7 else hist)
     return keys[:n_keys], fifo
+
+
+def txn_append_history(n_txns, appends_per_txn=7, procs=8, txns_per_key=8,
+                       g1c=None):
+    """A serial list-append history of ``n_txns`` txns of one read and
+    ``appends_per_txn`` appends, as ``bench.py``'s rung 15 builds it
+    (``_txn_scale_rung``): each txn reads its key's committed prefix then
+    appends; keys retire after ``txns_per_key`` txns; txn i runs over
+    [2i, 2i+1] on process i % procs. Valid (strictly serializable) by
+    construction.
+
+    ``g1c=(a, b)``, with a < b the first txns of two keys, injects one
+    G1c cycle: txn a also reads b's whole append to b's key (a read of
+    the future, WR b -> a) and txn b reads a's appends to a's key
+    (WR a -> b)."""
+    events = []
+    for i in range(n_txns):
+        k = f"k{i // txns_per_key}"
+        base = (i % txns_per_key) * appends_per_txn
+        mops = ([["r", k, None]]
+                + [["append", k, base + j + 1]
+                   for j in range(appends_per_txn)])
+        done = [list(m) for m in mops]
+        done[0] = ["r", k, list(range(1, base + 1))]
+        events.append({"type": "invoke", "f": "txn", "process": i % procs,
+                       "time": 2 * i, "value": mops})
+        events.append({"type": "ok", "f": "txn", "process": i % procs,
+                       "time": 2 * i + 1, "value": done})
+    if g1c is not None:
+        a, b = g1c
+        seen = list(range(1, appends_per_txn + 1))
+        for x, y in ((a, b), (b, a)):
+            ky = f"k{y // txns_per_key}"
+            events[2 * x]["value"].append(["r", ky, None])
+            events[2 * x + 1]["value"].append(["r", ky, list(seen)])
+    return h.index(events)
+
+
+def txn_wr_history(rng: random.Random, n_txns, n_keys=64, procs=8):
+    """A serial rw-register history of ``n_txns`` txns, each of two to
+    four reads and writes of random keys with unique written values; a
+    read returns the key's latest write (None before any). Valid by
+    construction."""
+    value = {}
+    nxt = 0
+    events = []
+    for i in range(n_txns):
+        mops, done = [], []
+        for _ in range(rng.randint(2, 4)):
+            k = rng.randrange(n_keys)
+            if rng.random() < 0.5:
+                mops.append(["r", k, None])
+                done.append(["r", k, value.get(k)])
+            else:
+                nxt += 1
+                value[k] = nxt
+                mops.append(["w", k, nxt])
+                done.append(["w", k, nxt])
+        events.append({"type": "invoke", "f": "txn", "process": i % procs,
+                       "time": 2 * i, "value": mops})
+        events.append({"type": "ok", "f": "txn", "process": i % procs,
+                       "time": 2 * i + 1, "value": done})
+    return h.index(events)

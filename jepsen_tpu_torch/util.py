@@ -1,9 +1,11 @@
 """The utilities the port's checkers need (reference
 jepsen/src/jepsen/util.clj): parallel maps that raise real exceptions
-(real-pmap, util.clj:65-77; bounded-pmap, used by independent.clj:285)
-and the op printer (util.clj:177-238). A copy of the part of
-``jepsen_tpu.util`` the port needs: it imports nothing of the JAX
-package."""
+(real-pmap, util.clj:65-77; bounded-pmap, used by independent.clj:285),
+the op printer (util.clj:177-238), and the pow-2 shape bucket the
+streaming fold grows its frontier along (a copy of
+``jepsen_tpu.campaign.compile_cache``'s ``bucket``, without its compile
+ledger or its settable floor). A copy of the part of the JAX package
+the port needs: it imports nothing of it."""
 
 from __future__ import annotations
 
@@ -16,6 +18,15 @@ import threading
 #: core_test.clj most-interesting-exception-test).
 BORING_EXCEPTIONS = (threading.BrokenBarrierError, InterruptedError,
                      TimeoutError)
+
+#: minimum op-count bucket (the JAX package reads it from its campaign
+#: compile cache, whose default this is; the port never changes it)
+DEFAULT_N_FLOOR = 64
+
+
+def bucket(x, lo=1):
+    """Round up to a power of two (>= lo): the shared shape-bucket rule."""
+    return max(lo, 1 << (max(1, int(x)) - 1).bit_length())
 
 
 def real_pmap(f, coll):

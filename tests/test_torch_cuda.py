@@ -1,10 +1,13 @@
 """The port on a CUDA card: the rollout kernel against its plain version
 (on real histories, and on the adversarial cases of rollout_cases.py
 under every launch plan), the wrapper's checks, the device search
-against the same search on the CPU, and the key batch (cas-register and
+against the same search on the CPU, the key batch (cas-register and
 the queue models) and a single-key queue check against the same on the
-CPU. Every test is marked ``cuda`` and skips without a card (the
-kernels have no CPU mode). This file imports neither JAX nor the JAX
+CPU, and the two incremental monitors card against CPU: the streaming
+fold (solo and lane-batched, every carry array), ``StreamCheck``, the
+closures (bf16 on the card, float32 on the CPU) and the txn checkers.
+Every test is marked ``cuda`` and skips without a card (the kernels
+have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -200,3 +203,105 @@ def test_queue_check_equals_cpu(dev, name):
     want = torch_wgl.check_encoded(spec, e, st, device="cpu")
     for k in ("valid", "iterations", "configs_explored", "engine"):
         assert got.get(k) == want.get(k), k
+
+
+def _fold_job(name, seed, corrupt, dev):
+    """The whole-history fold job of one seeded 200-op history on
+    ``dev``."""
+    from jepsen_tpu_torch.checker import streamlin
+    spec = models.model_spec(name)
+    rng = random.Random(seed)
+    hist = simulate.random_history(rng, name, 8, 200, 0.02)
+    if corrupt:
+        hist = simulate.corrupt(rng, hist)
+    e, init = spec.encode(hist)
+    job = streamlin.history_job(spec, e, init, device=dev)
+    job.C = 16           # one shape for every key: one lane batch
+    return job
+
+
+def _same_fold(got, want):
+    for k in ("status", "viol_slot", "passes", "steps", "n_live"):
+        assert got[k] == want[k], k
+    for k in ("lin", "st", "live", "open_w"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("name", SPECS)
+def test_fold_equals_cpu_fold(dev, name):
+    """The streaming fold of 200-op keys on the card, solo and as one
+    lane batch of four, equals the same folds on the CPU array for
+    array (the sort-based dedup and the scatters are deterministic)."""
+    from jepsen_tpu_torch.checker import streamlin
+    jobs = [(_fold_job(name, s, s % 2 == 1, dev),
+             _fold_job(name, s, s % 2 == 1, "cpu")) for s in range(4)]
+    for g, c in jobs:
+        _same_fold(streamlin.solo_fold(g), streamlin.solo_fold(c))
+    got = streamlin.batch_fold([g for g, _ in jobs])
+    want = streamlin.batch_fold([c for _, c in jobs])
+    for g, w in zip(got, want):
+        _same_fold(g, w)
+
+
+def test_stream_check_equals_cpu(dev):
+    """StreamCheck fed a corrupted cas-register key op by op, checked
+    every 8 completions, on the card and on the CPU: equal verdicts and
+    fold counters at every check."""
+    from jepsen_tpu_torch.monitor import StreamCheck
+    rng = random.Random(3)
+    hist = simulate.corrupt(rng, simulate.random_history(
+        rng, "cas-register", 8, 120, 0.02))
+    spec = models.cas_register_spec
+    sc, cc = StreamCheck(spec), StreamCheck(spec, device="cpu")
+    n = 0
+    for i, op in enumerate(hist):
+        if sc.offer(op, i) & cc.offer(op, i):
+            n += 1
+            if n % 8 == 0:
+                assert sc.check()["valid"] == cc.check()["valid"]
+                assert sc.stream_summary()["fold_cells"] \
+                    == cc.stream_summary()["fold_cells"]
+    assert sc.check()["valid"] == cc.check()["valid"]
+
+
+@pytest.mark.parametrize("n", [300, 2048])
+def test_closure_equals_cpu(dev, n):
+    """Transitive closures and a batched probe by float32 squarings on
+    the card equal the CPU's bit for bit; the incremental frontier takes
+    the same passes."""
+    from jepsen_tpu_torch import cycle
+    rng = np.random.default_rng(n)
+    adj = rng.random((n, n)) < 2.0 / n
+    np.fill_diagonal(adj, False)
+    assert np.array_equal(cycle.transitive_closure(adj),
+                          cycle.transitive_closure(adj, device="cpu"))
+    dag = np.triu(adj, 1)
+    assert cycle.batch_closure_probe([adj, dag]) \
+        == cycle.batch_closure_probe([adj, dag], device="cpu")
+    inc, cinc = cycle.IncrementalClosure(), \
+        cycle.IncrementalClosure(device="cpu")
+    for m in (n // 3, n // 2, n):
+        p0 = cycle.closure_passes()
+        inc.update(dag[:m, :m])
+        p1 = cycle.closure_passes()
+        cinc.update(dag[:m, :m])
+        assert p1 - p0 == cycle.closure_passes() - p1
+        assert np.array_equal(inc.closure(), cinc.closure())
+
+
+def test_txn_checks_equal_cpu(dev):
+    """append and wr checks of seeded histories of 300 txns, valid and
+    with an injected G1c cycle, and TxnCheck at chunk 64: card == CPU."""
+    from jepsen_tpu_torch.cycle import append, wr
+    from jepsen_tpu_torch.monitor import TxnCheck
+    for g1c in (None, (80, 160)):
+        hist = simulate.txn_append_history(300, 3, g1c=g1c)
+        assert append.check(hist) == append.check(hist, device="cpu")
+        core, ccore = TxnCheck(), TxnCheck(device="cpu")
+        for i, op in enumerate(hist):
+            core.offer(op)
+            ccore.offer(op)
+            if (i + 1) % 64 == 0 or i == len(hist) - 1:
+                assert core.check() == ccore.check()
+    hist = simulate.txn_wr_history(random.Random(5), 300, 32)
+    assert wr.check(hist) == wr.check(hist, device="cpu")

@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax_or_jepsen_tpu():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15    # every module of the slice
+    assert int(out.stdout.strip()) >= 36    # every module of the slices
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -97,3 +97,48 @@ print("ok")
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_monitor_and_cycle_modules_import_without_jax():
+    """The streaming fold and StreamCheck, the txn closure and its
+    checkers, the linear engine and the buckets stand alone and export
+    their entry points."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+from jepsen_tpu_torch import cycle, monitor, txn, util
+from jepsen_tpu_torch.checker import linear, streamlin
+from jepsen_tpu_torch.cycle import append, wr
+from jepsen_tpu_torch.monitor import engine, stream, wgl_stream
+from jepsen_tpu_torch.monitor.txn import TxnCheck
+assert monitor.StreamCheck is wgl_stream.StreamCheck
+assert monitor.TxnCheck is TxnCheck
+assert monitor.StreamEncoder is stream.StreamEncoder
+for f in (streamlin.solo_fold, streamlin.batch_fold,
+          streamlin.check_encoded, linear.check_encoded,
+          engine.check_prefix, engine.check_txn_prefix,
+          cycle.transitive_closure, cycle.batch_closure_probe,
+          cycle.check_graph, append.check, wr.check, txn.ext_reads,
+          util.bucket):
+    assert callable(f)
+assert engine.ENGINES == ("jax-wgl", "linear", "wgl", "streamlin")
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_monitor_entry_points_default_to_cuda(monkeypatch):
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.monitor import StreamCheck, TxnCheck
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamCheck(models.register_spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TxnCheck()
+    assert StreamCheck(models.register_spec, device="cpu").device.type \
+        == TxnCheck(device="cpu").device.type == "cpu"

@@ -130,7 +130,7 @@ def test_table_diagnostics_match_reference():
 
 def test_linearizable_checker():
     hist = H(CANNED[1][1])
-    for algo in ("wgl", "jax-wgl"):
+    for algo in ("wgl", "linear", "jax-wgl"):
         r = checkers.linearizable(
             {"model": "register", "algorithm": algo,
              "engine_opts": {"device": "cpu"} if algo == "jax-wgl"
@@ -143,6 +143,6 @@ def test_linearizable_checker():
         .check({}, H([("invoke", 0, "cas", (0, 1)),
                       ("ok", 0, "cas", (0, 1))]))
     assert r["valid"] is True
-    for algo in ("linear", "competition"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            checkers.linearizable({"model": "register", "algorithm": algo})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        checkers.linearizable({"model": "register",
+                               "algorithm": "competition"})
