@@ -32,7 +32,33 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
 4. ``invalid``: six corrupted 220-op cas-register histories; the device
    verdict must equal the CPU oracle's and every invalid verdict must
    carry a witness op.
-5. ``batch``: the JAX package's headline key batch at full width
+5. ``gate``: the linearizable gate at the JAX package's defaults. (a)
+   The two main-path histories through ``core.check`` with
+   ``checkers.linearizable({"model": m})``, whose default is now
+   "competition": both decide valid; the winner, each racer's wall and
+   verdict (the device racer's launches of the rollout kernel, which
+   must be more than 0), the seconds the last racer took to exit after
+   the verdict (every racer is waited for before the counts are read),
+   beside the flat "jax-wgl" wall of phase 3. (b) The first 64 keys of
+   the batch below through ``independent.checker(linearizable(
+   {"algorithm": "jax-wgl"}))`` once planned and once with
+   ``searchplan?`` off, each one batched call: verdicts equal key for
+   key and equal to the CPU oracle (``wgl``, 2M configs, in worker
+   processes beside the card's runs); the port's planner must split the
+   keys into ``GATE_SEGMENTS``, the JAX planner's counts; one segmented
+   key through ``Linearizable`` directly; the planned and unplanned
+   batches' walls, and one profiled iteration of each. (c) The
+   cas-register main-path history with ``checkpoint=``, stopped by
+   ``max_configs`` after ``CKPT_ITERS`` iterations and resumed: verdict
+   and iterations equal to an uninterrupted run at the same
+   ``chunk_iters``; the snapshot's size and load/save seconds; the same
+   for the 64-key unplanned batch against (b)'s run. (d) Every verdict
+   of (a) and the six ``invalid`` trials certified by ``core.check``
+   (``analysis/certify.py``): no VC error, every invalid verdict
+   confirmed by the cross-check, every device replay of the
+   differential decided (the trials sample one segment each; the main
+   histories' certificates are their witness replays, ``GATE_CERTIFY``).
+6. ``batch``: the JAX package's headline key batch at full width
    (``simulate.bench_histories``, as ``bench.py`` rungs 2 and 2b draw
    it): 256 cas-register keys, 8 processes, 200 ops per key, crash_p
    0.02, every 8th key corrupted, through
@@ -42,18 +68,19 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    one timed call (wall, ops/s, iterations, compactions, invalid keys).
    Both calls must decide alike. No key may be
    unknown, at least one must be invalid, and the first 32 verdicts must
-   equal the CPU oracle's (``wgl.check_encoded``, 2M configs).
-6. ``independent``: the first 64 of those keys wrapped in
+   equal the CPU oracle's (the gate phase's).
+7. ``independent``: the first 64 of those keys wrapped in
    ``independent.tuple_`` and merged into one history, through
    ``independent.checker(compose({"linearizable": ..., "ok":
-   unbridled_optimism()}))``: exactly one call of
-   ``parallel.check_batch_encoded``, with 64 pairs, and ``failures``
-   equal to the corrupted keys.
-7. ``queues``: a 64-key fifo-queue batch and a 64-key unordered-queue
+   unbridled_optimism()}))`` with the default gate and planning on:
+   exactly one call of ``parallel.check_batch_encoded``, with every
+   key's segments (92 pairs), and ``failures`` equal to the corrupted
+   keys.
+8. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
    batch (150 ops and 6 processes per key, crash_p 0.02, every 8th key
    corrupted) with the fast check off, so the device search with padded
-   queue states decides, within ``QUEUE_MAX_CONFIGS`` (256 iterations
-   at the batch's 64 lanes x 64 keys). The CPU oracle for queues is the
+   queue states decides, within ``QUEUE_MAX_CONFIGS`` (128 iterations of
+   128 lanes). The CPU oracle for queues is the
    model's exact polynomial decision (the aspect fast check, which the
    batch was denied), and, for every key the sequential WGL oracle
    decides within 5,000 configurations, that oracle too. Every decided
@@ -65,36 +92,37 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``bench.py``'s rung-4 FIFO history through
    ``checkers.linearizable``, fast check on.
 
-8. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
+9. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
    torch ops) on keys of the batch above: (a) the offline face at the
-   hard frontier cap on ``OFFLINE_KEYS`` (two of them corrupted), each
+   hard frontier cap on ``OFFLINE_KEYS`` (one of them corrupted), each
    verdict equal to the CPU sweep's (``linear``) and each violating op
    the return at which the sweep fails; (b) one lane-batched fold of
-   ``FOLD_BATCH_KEYS`` keys' whole histories at ``FOLD_BATCH_F`` rows
-   under ``torch.profiler`` (card activity only), every lane equal to
-   its solo fold, only corrupted keys invalid, the lanes that
-   overflowed listed: seconds, kernel launches, host syncs and device
-   idle share per event step; (c) ``StreamCheck`` on ``STREAM_KEYS``
-   fed op by op, checked every ``STREAM_CHUNK`` completions, each
+   ``FOLD_BATCH_KEYS`` keys' whole histories at ``FOLD_BATCH_F`` rows,
+   every lane equal to its solo fold, only corrupted keys invalid, the
+   lanes that overflowed listed: seconds and host syncs per event step;
+   (c) ``StreamCheck`` on ``STREAM_KEYS`` fed op by op, checked every ``STREAM_CHUNK`` completions, each
    verdict equal to the CPU WGL oracle's on the same prefix, no
    fall-back, the corrupted keys caught by the frontier and confirmed
    by the port's WGL engine: seconds, host syncs, passes and frontier
-   peak per event. (c) is not profiled: gathering the profiler's
-   events costs more than the run itself (PERF.md).
-9. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
+   peak per event. (b) and (c) are not profiled: gathering the
+   profiler's events costs more than the run itself (PERF.md).
+10. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
    serial list-append history of 16,384 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
    decides it valid on the card (one profiled call: squarings, closure
-   device seconds, launches, idle share, peak device memory); a copy
-   with one injected G1c cycle is decided invalid with G1c; ``TxnCheck``
+   device seconds, launches, idle share, peak device memory); a 2,048-txn
+   copy with one injected G1c cycle is decided invalid with G1c;
+   ``TxnCheck``
    at chunks of 1,024 txns agrees with the offline check of the prefix
    at the chunks of ``TXN_OFFLINE_AT`` txns and at the last;
    one closure at n=2048 and a seeded 2,048-txn wr check equal the
    same on the CPU; one squaring at n=16384 timed in float32, TF32 and
    bf16, all three boolean-identical.
 
-The batch, independent, queue, streamlin and txn paths do not run the
-rollout kernel: each of them is run with the rollout kernel's launch
+The competition, checkpoint and certify paths run the rollout kernel
+(each counted). The planned, batch, independent, queue, streamlin and
+txn paths do not run it: each of them is run with the rollout kernel's
+launch
 count set to 0 and must leave it at 0. The batch pins the scan rollout,
 as the JAX package's does; the txn path has no linearizability search;
 the streamlin path's only search is the confirm of a frontier
@@ -132,14 +160,37 @@ MAIN_HISTORIES = (("cas-register", 0.05), ("mutex", 0.02))
 QUEUES = ("fifo-queue", "unordered-queue")
 #: the batch phases' sizes: keys of the headline batch, of the
 #: independent history, and per queue batch, with each queue key's ops
-BATCH_KEYS, INDEPENDENT_KEYS, QUEUE_KEYS, QUEUE_OPS = 256, 64, 64, 150
+BATCH_KEYS, INDEPENDENT_KEYS, QUEUE_KEYS, QUEUE_OPS = 256, 64, 32, 150
 #: every batch here corrupts the history of one key in this many
 CORRUPT_EVERY = 8
-#: the queue batches' search budget: 256 iterations at 64 lanes x 64 keys
-QUEUE_MAX_CONFIGS = 256 * 64 * 64
+#: the queue batches' search budget. The fifo batch's corrupted keys that
+#: the search cannot exhaust run to it, and each iteration is a host loop
+#: of about 11,000 launches, so the budget sets the phase's length: 64
+#: keys at 256 iterations of 64 lanes took 120 s of the run (PERF.md);
+#: cut to 32 keys at 128 iterations of 128 lanes, the same 16,384
+#: configs per key (16 keys at 64 iterations decided no key invalid)
+QUEUE_MAX_CONFIGS = 128 * 128 * QUEUE_KEYS
+#: the gate phase: the first GATE_KEYS batch keys through the planner,
+#: which splits GATE_SEGMENTS[k] searches out of key k (the JAX planner's
+#: counts, which tests/test_torch_searchplan.py pins), the CPU oracle in
+#: ORACLE_WORKERS processes beside the card's runs, and checkpointed runs
+#: stopped after CKPT_ITERS iterations
+GATE_KEYS, ORACLE_WORKERS, CKPT_ITERS = INDEPENDENT_KEYS, 4, 3
+#: the certifier's settings for the 10k-op main-path verdicts: the
+#: witness replay, and no differential sample. Its CPU replays cannot
+#: decide a 10k-op, 64-process history within any budget the run
+#: affords: at 20,000 configs they ran out after 167 s (cas-register)
+#: and 43 s (mutex) in one H100 run (PERF.md). The six 220-op trials
+#: keep the defaults (one sample, 100,000 configs)
+GATE_CERTIFY = {"samples": 0}
+GATE_SEGMENTS = (1, 1, 1, 1, 1, 1, 2, 2, 1, 2, 1, 1, 1, 1, 2, 1,
+                 3, 1, 1, 1, 1, 1, 3, 1, 2, 1, 1, 1, 2, 3, 3, 2,
+                 2, 2, 1, 1, 1, 1, 1, 1, 5, 2, 2, 1, 2, 1, 2, 1,
+                 1, 2, 1, 1, 2, 1, 1, 1, 1, 1, 1, 2, 1, 1, 1, 1)
 ROLLOUT_REPLACES = "jepsen_tpu/checker/pallas_rollout.py:179"
 #: the streamlin phase. The offline face runs key 0 and the corrupted
-#: keys 7 and 15 of the batch, the stream the corrupted keys (each is
+#: key 7 of the batch (key 15 was cut for the gate phase's room: its CPU
+#: sweeps), the stream the corrupted keys 7 and 15 (each is
 #: checked about 20 times before its violation), both at the hard
 #: frontier cap (with crashed ops left open, a 200-op key's closure can
 #: outgrow the default cap of 4,096 configs); the lane batch runs the
@@ -153,15 +204,16 @@ ROLLOUT_REPLACES = "jepsen_tpu/checker/pallas_rollout.py:179"
 #: largest config set per return is 8,168 configs for key 0 and 49,280
 #: for key 4, so lane 4 overflows (status 2) and the batch says which.
 #: The device time of a pass grows with lanes x rows (PERF.md)
-OFFLINE_KEYS, STREAM_KEYS = (0, 7, 15), (7, 15)
+OFFLINE_KEYS, STREAM_KEYS = (0, 7), (7, 15)
 FOLD_BATCH_KEYS, FOLD_BATCH_F = 8, 8192
 STREAM_CHUNK = 8
 #: the txn phase at bench.py rung 15's shape: 16,384 txns of 1 read and
 #: 7 appends over 8 processes, TxnCheck chunks of 1,024 txns; the G1c
-#: copy ties the first txns of keys 1024 and 1025; the closure and the
-#: wr history compared with the CPU
+#: copy, cut to TXN_G1C_TXNS txns for the gate phase's room (at 16,384
+#: it took 21.8 s), ties the first txns of keys 128 and 129; the closure
+#: and the wr history compared with the CPU
 TXN_TXNS, TXN_APPENDS, TXN_PROCS, TXN_CHUNK = 16384, 7, 8, 1024
-TXN_G1C = (8192, 8200)
+TXN_G1C_TXNS, TXN_G1C = 2048, (1024, 1032)
 #: TxnCheck's chunk verdicts are held against the offline check of the
 #: same prefix at these txn counts (powers of two) and at the last chunk
 #: (the whole history): each offline check costs up to the whole
@@ -335,12 +387,13 @@ def invalid_trials(dev):
     """Six 220-op cas-register histories, the odd ones corrupted with
     reads kept in range so the search, not a fast path, decides (as
     tests/test_jax_wgl.py's rollout trials are made): device verdict ==
-    CPU oracle, and at least one is invalid."""
+    CPU oracle, and at least one is invalid. Returns the rows and the
+    histories."""
     from jepsen_tpu_torch import models, simulate
     from jepsen_tpu_torch.checker import torch_wgl, wgl
     spec = models.cas_register_spec
     rng = random.Random(45100)
-    rows = []
+    rows, hists = [], []
     for trial in range(6):
         hist = simulate.random_history(rng, "cas-register", 6, 220, 0.05)
         if trial % 2:
@@ -361,9 +414,10 @@ def invalid_trials(dev):
                      "engine": got.get("engine"),
                      "iterations": got.get("iterations"),
                      "witness_op": got.get("op", {}).get("index")})
+        hists.append(hist)
     if not any(r["valid"] is False for r in rows):
         raise AssertionError("no invalid trial: the phase checked nothing")
-    return rows
+    return rows, hists
 
 
 def scan_only(what):
@@ -376,15 +430,380 @@ def scan_only(what):
     return rollout.launches
 
 
-def batch_phase():
+def oracle_verdict(hist):
+    """The CPU oracle's verdict on one cas-register key: the sequential
+    WGL search within 2M configurations (run in a worker process)."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checker import wgl
+    spec = models.cas_register_spec
+    return wgl.check_encoded(spec, *spec.encode(hist),
+                             max_configs=2_000_000)["valid"]
+
+
+class Certified:
+    """``checker.core.certify_verdict`` wrapped for the gate phase: before
+    each certification it waits for every competition racer to end
+    (``checkers.join_racers``), so no straggler's launches fall into the
+    certification's count; then it times the certification and counts
+    its rollout kernel launches."""
+
+    def __init__(self, dev):
+        from jepsen_tpu_torch.checker import core
+        self.dev, self.core, self.real = dev, core, core.certify_verdict
+        self.runs = []
+
+    def __enter__(self):
+        self.core.certify_verdict = self
+        return self
+
+    def __exit__(self, *exc):
+        self.core.certify_verdict = self.real
+
+    def __call__(self, checker, test, hist, result, key=None):
+        from jepsen_tpu_torch.checker import checkers, rollout
+        t_in = time.monotonic()
+        races = checkers.join_racers()
+        run = {"entered": t_in, "races": races,
+               "launches_before": rollout.launches,
+               "join_s": time.monotonic() - t_in}
+        t0 = time.monotonic()
+        self.real(checker, test, hist, result, key=key)
+        sync(self.dev)
+        run.update(certify_s=time.monotonic() - t0,
+                   launches=rollout.launches - run["launches_before"])
+        self.runs.append(run)
+
+
+def certificate_clean(what, test, result):
+    """Fail unless ``checker.core.check`` certified ``result`` into
+    ``test`` with no error finding; an invalid verdict must have been
+    cross-checked (VC008's check) and confirmed, and a device verdict's
+    differential replay must have decided on every engine it ran."""
+    cert = test.get("certificate")
+    if cert is None:
+        raise AssertionError(f"{what}: no certificate (the certifier did "
+                             f"not run, or crashed)")
+    counts = test["analysis"]["certify"]["counts"]
+    if counts["error"] or cert["verdict"] is not result["valid"]:
+        raise AssertionError(f"{what}: certificate {counts}, verdict "
+                             f"{cert['verdict']!r}: {cert['diagnostics']}")
+    checks = {c["name"]: c for c in cert["checks"]}
+    if result["valid"] is False \
+            and checks.get("cross-check", {}).get("status") != "confirmed":
+        raise AssertionError(f"{what}: invalid verdict not confirmed by the "
+                             f"cross-check: {checks.get('cross-check')}")
+    diff = [c for c in cert["checks"] if c["name"] == "differential"]
+    if any(v not in (True, False) for c in diff
+           if "jax-wgl" in c["verdicts"]
+           for v in [c["verdicts"]["jax-wgl"]]):
+        raise AssertionError(f"{what}: the differential's device replay "
+                             f"did not decide: {diff}")
+    return {"codes": sorted({d["code"] for d in cert["diagnostics"]}),
+            "checks": cert["checks"]}
+
+
+def gate_phase(dev, keys, flat, trials, trial_rows, n_ops=10_000,
+               gate_keys=GATE_KEYS, ckpt_opts=None):
+    """The linearizable gate at the JAX package's defaults: (a)
+    competition on the two main-path histories through ``core.check``
+    (winner, the device racer's wall and launches, each racer's exit
+    after the verdict, against ``flat``, the flat "jax-wgl" walls of
+    phase 3), each verdict certified (d); (b) the first ``gate_keys``
+    batch keys through ``independent.checker`` with planning on and off,
+    key for key equal to each other and to the CPU oracle, the port's
+    segment counts equal to ``GATE_SEGMENTS``, one segmented key through
+    ``Linearizable`` directly, and one profiled iteration of the planned
+    and the unplanned batch; (c) checkpoint and resume of the
+    cas-register main-path history and of the unplanned batch, each
+    equal to an uninterrupted run at the same ``chunk_iters``; (d) the
+    six ``invalid`` trials through ``core.check``, every certificate
+    free of VC errors and every invalid verdict cross-checked. The
+    main-path histories have ``n_ops`` ops; ``ckpt_opts`` go to the
+    checkpointed single-key runs (a rehearsal on the CPU, where the
+    plain rollout decides a short history in one iteration, passes a
+    shallow ``rollout_depth``). Returns the phase's row and
+    the oracle's verdicts of the ``gate_keys`` keys."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    from jepsen_tpu_torch import history as h
+    from jepsen_tpu_torch import independent, models, parallel, simulate
+    from jepsen_tpu_torch.analysis import searchplan
+    from jepsen_tpu_torch.checker import checkers, core, rollout, torch_wgl
+    from jepsen_tpu_torch.profile_main import profile_call, split
+    spec = models.cas_register_spec
+    t_start = time.monotonic()
+    out = {"phase": "gate"}
+    launches = {}
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "gate")
+    os.makedirs(work, exist_ok=True)
+
+    # (a) + (d): competition, then certification, on the main path
+    comp = []
+    with Certified(dev) as cert:
+        for model, crash_p in MAIN_HISTORIES:
+            hist = simulate.random_history(random.Random(45100), model, 64,
+                                           n_ops, crash_p)
+            test = {"certify": dict(GATE_CERTIFY)}
+            rollout.launches = 0
+            t0 = time.monotonic()
+            r = core.check(checkers.linearizable({"model": model}), test,
+                           hist)
+            wall = time.monotonic() - t0
+            run = cert.runs[-1]
+            if r["valid"] is not True:
+                raise AssertionError(f"competition: {model} decided "
+                                     f"{r['valid']!r}")
+            race = run["races"][-1]
+            dev_racer = race["racers"]["jax-wgl"]
+            comp.append({
+                "model": model, "winner": r["engine"], "valid": True,
+                "check_s": run["entered"] - t0,
+                "decided_s": race["decided_s"],
+                "exit_after_verdict_s": race["exit_after_verdict_s"],
+                "device_racer_wall_s": dev_racer["wall_s"],
+                "device_racer": dev_racer,
+                "cpu_racers": {k: v for k, v in race["racers"].items()
+                               if k != "jax-wgl"},
+                "flat_wall_s": flat[model],
+                "device_racer_launches": run["launches_before"],
+                "certify_s": run["certify_s"],
+                "certify_launches": run["launches"], "wall_s": wall,
+                "certificate": certificate_clean(f"competition {model}",
+                                                 test, r)})
+        launches["competition"] = sum(c["device_racer_launches"]
+                                      for c in comp)
+        if dev.type == "cuda" and launches["competition"] <= 0:
+            raise AssertionError("competition never launched the rollout "
+                                 "kernel")
+        out["competition"] = comp
+
+        # (d) the six invalid trials, their device verdicts certified
+        rows = []
+        for i, hist in enumerate(trials):
+            test = {}
+            r = core.check(checkers.linearizable(
+                {"model": "cas-register", "algorithm": "jax-wgl"}), test,
+                hist)
+            if r["valid"] is not trial_rows[i]["valid"]:
+                raise AssertionError(f"certify trial {i}: {r['valid']!r} "
+                                     f"!= phase 4's")
+            run = cert.runs[-1]
+            rows.append({"trial": i, "valid": r["valid"],
+                         "segments": r.get("searchplan", {}).get("segments",
+                                                                 1),
+                         "certify_s": run["certify_s"],
+                         "certify_launches": run["launches"],
+                         **certificate_clean(f"certify trial {i}", test, r)})
+        certified = comp + rows
+        launches["certify"] = sum(c["certify_launches"] for c in certified)
+        out["certify"] = {"trials": rows,
+                          "checks": len(certified),
+                          "certify_s": sum(c["certify_s"]
+                                           for c in certified),
+                          "vc_errors": 0,
+                          "cross_checked_invalid": sum(
+                              r["valid"] is False for r in rows)}
+
+    # (b) the planned path, the CPU oracle running beside it
+    sub = keys[:gate_keys]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        t_oracle = time.monotonic()
+        futures = [pool.submit(oracle_verdict, hh) for hh in sub]
+        counts = [len(searchplan.plan_segments(spec, hh)[0]) for hh in sub]
+        if tuple(counts) != GATE_SEGMENTS[:len(sub)]:
+            raise AssertionError(f"planner: segments per key {counts} != "
+                                 f"GATE_SEGMENTS")
+        hist = keyed_history(sub)
+        calls = []
+        real = parallel.check_batch_encoded
+
+        def counting(spec_, pairs, **kw):
+            t0 = time.monotonic()
+            res = real(spec_, pairs, **kw)
+            sync(dev)
+            calls.append({"pairs": pairs, "kw": kw, "results": res,
+                          "batch_s": time.monotonic() - t0})
+            return res
+
+        lin = checkers.linearizable({"model": "cas-register",
+                                     "algorithm": "jax-wgl",
+                                     "engine_opts": {"chunk_iters": 1}})
+        chk = independent.checker(lin)
+        runs = {}
+        parallel.check_batch_encoded = counting
+        rollout.launches = 0
+        try:
+            for name, test in (("planned", {"certify?": False}),
+                               ("unplanned", {"searchplan?": False,
+                                              "certify?": False})):
+                t0 = time.monotonic()
+                r = core.check(chk, test, hist)
+                runs[name] = (r, time.monotonic() - t0, calls[-1])
+        finally:
+            parallel.check_batch_encoded = real
+        launches["planned"] = scan_only("planned")
+        if len(calls) != 2:
+            raise AssertionError(f"planned: {len(calls)} batched calls, "
+                                 f"expected one per run")
+        oracle = [f.result() for f in futures]
+        oracle_s = time.monotonic() - t_oracle
+    rp, ru = runs["planned"][0], runs["unplanned"][0]
+    for k in range(len(sub)):
+        got = (rp["results"][k]["valid"], ru["results"][k]["valid"])
+        if got != (oracle[k], oracle[k]):
+            raise AssertionError(f"planned key {k}: planned/unplanned "
+                                 f"{got} != oracle {oracle[k]!r}")
+    seg_keys = [k for k, c in enumerate(counts) if c > 1]
+    direct = checkers.linearizable({"model": "cas-register",
+                                    "algorithm": "jax-wgl"})
+    k = seg_keys[0]
+    t0 = time.monotonic()
+    rd = direct.check({}, sub[k])
+    direct_s = time.monotonic() - t0
+    if rd.get("searchplan", {}).get("segments") != counts[k] \
+            or rd["valid"] != oracle[k]:
+        raise AssertionError(f"direct planned key {k}: {rd['valid']!r}, "
+                             f"{rd.get('searchplan')}")
+    launches["planned"] += scan_only("planned (direct)")
+
+    def one_iteration(pairs):
+        def run():
+            return parallel.check_batch_encoded(spec, pairs, max_configs=1)
+        if dev.type != "cuda":          # a rehearsal: nothing to profile
+            t0 = time.monotonic()
+            run()
+            return {"searches": len(pairs), "wall_s": time.monotonic() - t0}
+        _, wall, ev = profile_call(run, host_ops=False)
+        st = split(ev, 1)
+        return {"searches": len(pairs), "wall_s": wall,
+                "kernel_launches": st["kernel_launches"],
+                "device_idle_share": st["device_idle_share"]}
+
+    plan_s = sum(r.get("searchplan", {}).get("plan_s", 0.0)
+                 for r in rp["results"].values())
+    out["planned"] = {
+        "keys": len(sub), "split_keys": len(seg_keys),
+        "searches": sum(counts),
+        "batch_width": torch_wgl._bucket(sum(counts), 1),
+        "cuts": sum(r.get("searchplan", {}).get("cuts", 0)
+                    for r in rp["results"].values()),
+        "plan_s": plan_s,
+        "planned_wall_s": runs["planned"][1],
+        "unplanned_wall_s": runs["unplanned"][1],
+        "planned_batch_s": runs["planned"][2]["batch_s"],
+        "unplanned_batch_s": runs["unplanned"][2]["batch_s"],
+        "planned_iterations": max(r.get("iterations") or 0
+                                  for r in runs["planned"][2]["results"]),
+        "unplanned_iterations": max(
+            r.get("iterations") or 0
+            for r in runs["unplanned"][2]["results"]),
+        "failures": rp["failures"], "oracle_s": oracle_s,
+        "oracle_workers": ORACLE_WORKERS,
+        "direct": {"key": k, "segments": counts[k], "valid": rd["valid"],
+                   "wall_s": direct_s},
+        "first_iteration": {
+            "planned": one_iteration(runs["planned"][2]["pairs"]),
+            "unplanned": one_iteration(runs["unplanned"][2]["pairs"])}}
+    launches["planned"] += scan_only("planned (profiled iterations)")
+
+    # (c) checkpoint and resume: the cas-register main-path history...
+    hist = simulate.random_history(random.Random(45100), "cas-register", 64,
+                                   n_ops, 0.05)
+    e, st = spec.encode(hist)
+    prep = torch_wgl._prepare_search(spec, e, st)[1]
+    W = torch_wgl._plan_sizes(prep[8], prep[11], prep[9])[1]
+    ck = os.path.join(work, "main.npz")
+    rollout.launches = 0
+    ckpt_opts = dict(ckpt_opts or {}, chunk_iters=1)
+    want = torch_wgl.check_encoded(spec, e, st, **ckpt_opts)
+    stop = min(CKPT_ITERS, want["iterations"] - 1)
+    if stop < 1:
+        raise AssertionError(f"checkpoint: the history decides in "
+                             f"{want['iterations']} iteration(s)")
+    r1 = torch_wgl.check_encoded(spec, e, st, checkpoint=ck,
+                                 max_configs=stop * W, **ckpt_opts)
+    if r1["valid"] != "unknown" or not os.path.exists(ck):
+        raise AssertionError(f"checkpoint: the stopped run decided "
+                             f"{r1['valid']!r}")
+    size = os.path.getsize(ck)
+    t0 = time.monotonic()
+    with np.load(ck) as data:
+        fp = bytes(data["fingerprint"]).decode()
+    snap = torch_wgl.read_snapshot(ck, fp)
+    carry = torch_wgl.carry_from_numpy(
+        [snap[f"c{i}"] for i in range(torch_wgl.N_CARRY)], dev)
+    sync(dev)
+    load_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    torch_wgl.save_carry(os.path.join(work, "resave.npz"), fp, carry)
+    save_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    r2 = torch_wgl.check_encoded(spec, e, st, checkpoint=ck, **ckpt_opts)
+    resume_s = time.monotonic() - t0
+    if (r2["valid"], r2["iterations"]) != (want["valid"],
+                                           want["iterations"]) \
+            or os.path.exists(ck):
+        raise AssertionError(f"checkpoint: resumed {r2['valid']!r} in "
+                             f"{r2['iterations']} iterations, "
+                             f"uninterrupted {want['valid']!r} in "
+                             f"{want['iterations']}")
+    launches["checkpoint"] = rollout.launches
+    main_ck = {"iterations": want["iterations"],
+               "stopped_at": r1["iterations"], "snapshot_bytes": size,
+               "save_s": save_s, "load_s": load_s, "resume_s": resume_s}
+    # ... and the unplanned 64-key batch, against (b)'s run at the same
+    # chunk_iters; stopped after a few iterations at its live width
+    pairs = runs["unplanned"][2]["pairs"]
+    base = runs["unplanned"][2]["results"]
+    n_live = sum(r.get("engine") == "jax-wgl" for r in base)
+    ck = os.path.join(work, "batch.npz")
+    rollout.launches = 0
+    t0 = time.monotonic()
+    b1 = parallel.check_batch_encoded(spec, pairs, chunk_iters=1,
+                                      checkpoint=ck,
+                                      max_configs=CKPT_ITERS * 64 * n_live)
+    stop_s = time.monotonic() - t0
+    if not os.path.exists(ck) \
+            or not any(r["valid"] == "unknown" for r in b1):
+        raise AssertionError("batch checkpoint: the stopped run decided "
+                             "every key")
+    with np.load(ck) as data:
+        width, at = len(data["alive"]), int(data["it"])
+    bsize = os.path.getsize(ck)
+    t0 = time.monotonic()
+    b2 = parallel.check_batch_encoded(spec, pairs, chunk_iters=1,
+                                      checkpoint=ck)
+    bresume_s = time.monotonic() - t0
+    fields = ("valid", "iterations", "configs_explored")
+    bad = [k for k, (g, w) in enumerate(zip(b2, base))
+           if [g.get(f) for f in fields] != [w.get(f) for f in fields]]
+    if bad or os.path.exists(ck):
+        raise AssertionError(f"batch checkpoint: resumed keys {bad} differ "
+                             f"from the uninterrupted run")
+    launches["checkpoint"] += scan_only("checkpoint")
+    out["checkpoint"] = {"main": main_ck, "batch": {
+        "keys": len(pairs), "stopped_at": at, "snapshot_width": width,
+        "snapshot_bytes": bsize, "stop_s": stop_s, "resume_s": bresume_s,
+        "iterations": max(r.get("iterations") or 0 for r in base)}}
+    out["launches"] = launches
+    out["seconds"] = time.monotonic() - t_start
+    return out, oracle
+
+
+def batch_phase(keys, oracle):
     """The 256-key headline batch: a profiled call (the warm-up), then a
-    timed call; the first 32 verdicts against the CPU oracle."""
+    timed call; the first 32 verdicts against the CPU oracle's
+    (``oracle``, the gate phase's verdicts of the first keys)."""
     import torch
-    from jepsen_tpu_torch import models, parallel, simulate
-    from jepsen_tpu_torch.checker import rollout, wgl
+    from jepsen_tpu_torch import models, parallel
+    from jepsen_tpu_torch.checker import rollout
     from jepsen_tpu_torch.profile_main import profile_batch
     spec = models.cas_register_spec
-    keys, fifo = simulate.bench_histories(BATCH_KEYS)
     pairs = [spec.encode(h) for h in keys]
     n_ops = sum(len(e) for e, _ in pairs)
     prof = profile_batch(spec, pairs)                   # warms up too
@@ -407,13 +826,10 @@ def batch_phase():
         raise AssertionError(f"batch: the profiled call decided "
                              f"differently: {prof['invalid_keys']} invalid, "
                              f"{prof['unknown_keys']} unknown")
-    t0 = time.monotonic()
-    for k, (e, st) in enumerate(pairs[:32]):
-        want = wgl.check_encoded(spec, e, st, max_configs=2_000_000)
-        if res[k]["valid"] != want["valid"]:
+    for k, want in enumerate(oracle[:32]):
+        if res[k]["valid"] != want:
             raise AssertionError(f"batch key {k}: device {res[k]['valid']}"
-                                 f" != oracle {want['valid']}")
-    oracle_s = time.monotonic() - t0
+                                 f" != oracle {want}")
     searched = [r for r in res if r.get("engine") == "jax-wgl"]
     row = {"phase": "batch", "model": "cas-register", "keys": len(pairs),
            "history_ops": n_ops, "wall_s": wall, "ops_per_s": n_ops / wall,
@@ -422,11 +838,11 @@ def batch_phase():
            "keys_searched": len(searched),
            "keys_decided_on_host": len(res) - len(searched),
            "invalid_keys": len(invalid), "rollout_launches": launches,
-           "oracle_keys": 32, "oracle_s": oracle_s,
+           "oracle_keys": 32,
            "profiled": {k: v for k, v in prof.items()
                         if k != "top_kernels"},
            "top_kernels": prof["top_kernels"][:5]}
-    return row, keys, fifo
+    return row
 
 
 def keyed_history(hists):
@@ -445,7 +861,9 @@ def keyed_history(hists):
 
 
 def independent_phase(keys):
-    """64 keys through ``independent.checker``: one batched call."""
+    """64 keys through ``independent.checker`` with the default gate
+    ("competition") and planning on: one batched call carrying every
+    key's segments (``GATE_SEGMENTS``)."""
     from jepsen_tpu_torch import independent, parallel
     from jepsen_tpu_torch.checker import checkers, core, rollout
     hist = keyed_history(keys)
@@ -470,9 +888,10 @@ def independent_phase(keys):
     launches = scan_only("independent")
     corrupted = [k for k in range(len(keys))
                  if k % CORRUPT_EVERY == CORRUPT_EVERY - 1]
-    if calls != [len(keys)]:
+    if calls != [sum(GATE_SEGMENTS[:len(keys)])]:
         raise AssertionError(f"independent: batched calls {calls}, "
-                             f"expected one of {len(keys)} pairs")
+                             f"expected one of "
+                             f"{sum(GATE_SEGMENTS[:len(keys)])} pairs")
     if sorted(r["failures"]) != corrupted or r["valid"] is not False:
         raise AssertionError(f"independent: failures {r['failures']} "
                              f"(valid {r['valid']}), expected the "
@@ -580,8 +999,9 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
     face on ``offline_keys`` against the CPU sweep (``linear``): equal
     verdicts, and on the corrupted keys the violating op is the return
     at which the sweep fails; (b) one lane-batched fold over the first
-    ``batch_keys`` keys' whole histories at ``batch_f`` rows, one
-    profiled call, each lane equal to its solo fold; (c)
+    ``batch_keys`` keys' whole histories at ``batch_f`` rows, one timed
+    call (not profiled: gathering its events took 23 s), each lane
+    equal to its solo fold; (c)
     ``StreamCheck`` fed ``stream_keys`` op by op, checked every
     STREAM_CHUNK completions, each verdict equal to the CPU WGL oracle's
     on the same prefix, the corrupted keys caught by the frontier and
@@ -592,7 +1012,6 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
     from jepsen_tpu_torch.checker import linear, streamlin
     from jepsen_tpu_torch.monitor import StreamCheck
     from jepsen_tpu_torch.monitor import engine as mengine
-    from jepsen_tpu_torch.profile_main import kernel_stats, profile_call
     spec = models.cas_register_spec
     def corrupted(ks):
         return [k for k in ks if k % CORRUPT_EVERY == CORRUPT_EVERY - 1]
@@ -648,9 +1067,9 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
         j.C = C                      # one shape: one fold of K lanes
     streamlin.syncs = 0
     t0 = time.monotonic()
-    res, wall, ev = profile_call(lambda: streamlin.batch_fold(jobs),
-                                 host_ops=False)
-    prof_cost = time.monotonic() - t0 - wall
+    res = streamlin.batch_fold(jobs)
+    sync(dev)
+    wall = time.monotonic() - t0
     syncs = streamlin.syncs
     fields = ("status", "viol_slot", "passes", "steps", "n_live")
     t0 = time.monotonic()
@@ -670,14 +1089,10 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
                              f"corrupted keys may be")
     overflowed = [k for k, r in enumerate(res) if r["status"] == 2]
     held = [r for r in res if r["status"] != 2]
-    stats = kernel_stats(ev, wall, top=5)
     batch = {"keys": len(jobs), "K": len(jobs), "F": jobs[0].F,
              "B": jobs[0].B, "C": C, "E": E, "lane_events": lane_events,
              "groups": len({j.shape_key() for j in jobs}),
-             "profiled_wall_s": wall, "s_per_event": wall / E,
-             "launches_per_event": stats["kernel_launches"] / E,
-             "launches_per_lane_event": stats["kernel_launches"]
-             / lane_events,
+             "wall_s": wall, "s_per_event": wall / E,
              "syncs": syncs, "syncs_per_event": syncs / E,
              # over the lanes whose frontier held (an overflowed lane
              # stops at its overflow)
@@ -685,7 +1100,7 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
              "passes_total": sum(r["passes"] for r in held),
              "final_frontier_max": max(r["n_live"] for r in held),
              "invalid_lanes": invalid, "overflowed_lanes": overflowed,
-             "solo_s": solo_s, "profiler_gather_s": prof_cost, **stats}
+             "solo_s": solo_s}
 
     # (c) StreamCheck op by op
     streamlin.syncs = 0
@@ -776,7 +1191,8 @@ def squaring_ms(n, dev):
 
 
 def txn_phase(dev, n_txns=TXN_TXNS, chunk=TXN_CHUNK, closure_n=CLOSURE_N,
-              wr_txns=WR_TXNS, g1c=TXN_G1C, offline_at=TXN_OFFLINE_AT):
+              wr_txns=WR_TXNS, g1c=TXN_G1C, g1c_txns=TXN_G1C_TXNS,
+              offline_at=TXN_OFFLINE_AT):
     """The txn cycle checkers at bench.py rung 15's shape on the card:
     the offline list-append check of the serial history (one profiled
     call), the G1c copy, TxnCheck chunk by chunk against the offline
@@ -810,14 +1226,14 @@ def txn_phase(dev, n_txns=TXN_TXNS, chunk=TXN_CHUNK, closure_n=CLOSURE_N,
                "closure_device_s": cycle.closure_busy_s() - b0,
                "launches_per_squaring": stats["kernel_launches"] / passes,
                **stats}
-    bad = simulate.txn_append_history(n_txns, TXN_APPENDS, TXN_PROCS,
+    bad = simulate.txn_append_history(g1c_txns, TXN_APPENDS, TXN_PROCS,
                                       g1c=g1c)
     t0 = time.monotonic()
     rb = append.check(bad, device=dev)
     if rb["valid"] is not False or "G1c" not in rb["anomaly_types"]:
         raise AssertionError(f"txn: the G1c copy decided {rb['valid']!r} "
                              f"{rb['anomaly_types']}")
-    invalid = {"wall_s": time.monotonic() - t0,
+    invalid = {"txns": g1c_txns, "wall_s": time.monotonic() - t0,
                "anomaly_types": rb["anomaly_types"],
                "g1c_nodes": rb["anomalies"]["G1c"][0]["nodes"]}
     core = TxnCheck(device=dev)
@@ -940,24 +1356,34 @@ def main(argv):
           "checks": main_rows})
 
     # -- 4. invalid histories against the CPU oracle -----------------------
-    emit({"phase": "invalid", "trials": invalid_trials(dev)})
+    trial_rows, trials = invalid_trials(dev)
+    emit({"phase": "invalid", "trials": trial_rows})
 
-    # -- 5-7. the key batch, independent, the queue models -----------------
-    row, keys, fifo = batch_phase()
+    # -- 5. the gate at the JAX package's defaults -------------------------
+    from jepsen_tpu_torch import simulate
+    keys, fifo = simulate.bench_histories(BATCH_KEYS)
+    flat = {r["model"]: r["wall_s"] for r in main_rows
+            if r["rollout"] == "kernel"}
+    gate, oracle = gate_phase(dev, keys, flat, trials, trial_rows)
+    emit(gate)
+
+    # -- 6-8. the key batch, independent, the queue models -----------------
+    row = batch_phase(keys, oracle)
     emit(row)
     ind = independent_phase(keys[:INDEPENDENT_KEYS])
     emit(ind)
     queues = queue_phase(fifo)
     emit(queues)
 
-    # -- 8-9. the streaming fold and the txn closure -----------------------
+    # -- 9-10. the streaming fold and the txn closure ----------------------
     rollout.launches = 0
     emit(streamlin_phase(keys, dev))
     stream_launches = scan_only("streamlin")
     rollout.launches = 0
     emit(txn_phase(dev))
     txn_launches = scan_only("txn")
-    by_path = {"main": main_launches, "batch": row["rollout_launches"],
+    by_path = {"main": main_launches, **gate["launches"],
+               "batch": row["rollout_launches"],
                "independent": ind["rollout_launches"],
                **{c["model"]: c["rollout_launches"]
                   for c in queues["checks"] if "rollout_launches" in c},

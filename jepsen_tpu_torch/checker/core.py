@@ -5,23 +5,28 @@ True, False, or "unknown" (couldn't decide). Validity merges with
 False > "unknown" > True (checker.clj:29-50).
 
 The part of ``jepsen_tpu.checker.core`` the port needs: validity merging,
-the checker protocol and its combinators. ``check`` here is a plain call
-on an indexed history. What ``jepsen_tpu.checker.core.check`` adds around
-that call -- history lint, search planning and verdict certification
-(``lint_history``, ``plan_history``, ``certify_verdict``) -- and the obs
-spans of ``check_safe`` wait for the host harness and the obs glue
-(ROADMAP.md queue A).
+the checker protocol and its combinators, and ``check``, which certifies
+a decided Linearizable verdict after the checker returns
+(``certify_verdict``, ``analysis/certify.py``). The history lint and the
+plan report of record that ``jepsen_tpu.checker.core.check`` also runs
+(``lint_history``, ``plan_history``) and the obs spans of ``check_safe``
+wait for the host harness and the obs glue (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
 
+import logging
+import threading
 import traceback
 
 from .. import history as h
 from ..util import real_pmap
 
 __all__ = ["Checker", "check", "check_safe", "compose", "noop",
-           "unbridled_optimism", "merge_valid", "valid_prio"]
+           "unbridled_optimism", "merge_valid", "valid_prio",
+           "certify_verdict"]
+
+logger = logging.getLogger(__name__)
 
 
 def valid_prio(v):
@@ -77,11 +82,67 @@ def as_checker(c) -> Checker:
     raise TypeError(f"not a checker: {c!r}")
 
 
+_certify_lock = threading.Lock()
+
+
+def certify_verdict(checker, test, hist, result, key=None):
+    """Certify a decided Linearizable verdict from its own artifacts,
+    after the checker returns: replay the witness through the CPU model
+    (VC001-VC003), cross-check invalid verdicts through an independent
+    engine (VC008), and run the sampled differential (VC010), its
+    device-engine replay on the checker's device. Findings land in
+    ``test["analysis"]["certify"]`` and the full proof in
+    ``test["certificate"]``; error findings are logged. Opt out per test
+    with ``test["certify?"] = False``. Runs at most once per test dict.
+
+    Certification is contained as in the JAX package: a certifier fault
+    must never flip a verdict."""
+    if not isinstance(result, dict) \
+            or result.get("valid") not in (True, False):
+        return
+    try:
+        from ..analysis import certify
+        if not certify.enabled(test):
+            return
+        from .checkers import Linearizable
+        if not isinstance(checker, Linearizable):
+            return
+        with _certify_lock:
+            if test.get("certify-done?"):
+                return
+            test["certify-done?"] = True
+        from .. import analysis
+        cfg = certify.config(test)
+        client = checker.prepare_history(h.client_ops(hist))
+        cert, diags = certify.certify_with_diagnostics(
+            checker.spec, client, result, test=test,
+            samples=cfg["samples"], budget=cfg["budget"],
+            init_ops=checker.init_ops, key=key,
+            device=checker.engine_opts.get("device"))
+        report = analysis.to_json(diags)
+        report["summary"] = {"verdict": cert["verdict"],
+                             "engine": cert["engine"],
+                             "checks": cert["checks"]}
+        test.setdefault("analysis", {})["certify"] = report
+        test["certificate"] = cert
+        errs = analysis.errors(diags)
+        if errs:
+            logger.warning(
+                "%s", analysis.render_text(
+                    errs, title="verdict certification FAILED; the "
+                                "verdict above does not replay from its "
+                                "own witness:"))
+    except Exception:  # noqa: BLE001 - contained, never verdict-bearing
+        logger.warning("verdict certification crashed", exc_info=True)
+
+
 def check(checker, test, hist, opts=None):
-    """Run a checker over an indexed history (no lint, plan or
-    certification in the port yet; see the module docstring)."""
+    """Run a checker over an indexed history, then certify its verdict
+    (``certify_verdict``)."""
     hist = h.ensure_indexed(hist)
-    return as_checker(checker).check(test, hist, opts or {})
+    result = as_checker(checker).check(test, hist, opts or {})
+    certify_verdict(checker, test, hist, result)
+    return result
 
 
 def check_safe(checker, test, hist, opts=None):

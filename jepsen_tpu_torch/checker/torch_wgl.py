@@ -32,14 +32,21 @@ the machinery:
 
 The result's ``engine`` stays ``"jax-wgl"``: it is the name test maps and
 the certifier (``jepsen_tpu.analysis.certify.DEVICE_ENGINES``) know this
-engine by. Not ported yet (ROADMAP.md queue A): checkpoint/resume, the
-obs phase and heartbeat hooks and the mesh block.
+engine by. Checkpoints share the JAX package's snapshot format, so a
+search snapshotted by one engine resumes in the other. Not ported yet
+(ROADMAP.md queue A): the obs phase and heartbeat hooks and the mesh
+block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import hashlib
+import logging
+import os
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -50,6 +57,8 @@ from ..util import DEFAULT_N_FLOOR
 from ..xp import NP, TORCH
 from . import rollout, words
 from .words import M32, u32
+
+logger = logging.getLogger(__name__)
 
 INF32 = np.int32(2**31 - 1)
 
@@ -864,14 +873,24 @@ def table_stats(carry):
 def check_encoded(spec, e, init_state, max_configs=50_000_000,
                   frontier_width=None, stack_size=None, table_size=None,
                   confirm=False, timeout_s=None, chunk_iters=256,
-                  cancel=None, rollout_seeds=None, rollout_kernel="auto",
+                  checkpoint=None, checkpoint_every_s=60.0, cancel=None,
+                  rollout_seeds=None, rollout_kernel="auto",
                   rollout_depth=None, device=None):
     """Device WGL search over an EncodedHistory. The result dict mirrors
     ``jax_wgl.check_encoded``: {"valid": True|False|"unknown",
     "configs_explored", "iterations", "engine", table diagnostics, and a
     witness}. ``device=None`` means CUDA (raising without a card);
     ``rollout_kernel`` is "auto" (the CUDA kernel on CUDA when its gate
-    passes), "kernel" (insist) or "scan"."""
+    passes), "kernel" (insist) or "scan".
+
+    ``checkpoint`` names a file the search carry is snapshotted to every
+    ``checkpoint_every_s`` (between chunks), on a timeout or cancel, and
+    when the search ends undecided; a rerun with the same arguments
+    resumes from it, and a decided run deletes it. The snapshot is the
+    JAX package's: the carry in its v6 layout (``carry_to_numpy``) under
+    a fingerprint hashed over the same host arrays as ``jax_wgl``'s, so a
+    snapshot written by either engine resumes in the other. A file
+    holding another check's snapshot is left alone."""
     dev = resolve_device(device)
     prep = _prepare_search(spec, e, init_state, confirm)
     if prep[0] == "fast":
@@ -886,9 +905,25 @@ def check_encoded(spec, e, init_state, max_configs=50_000_000,
         NS=rollout_seeds, rollout_kernel=rollout_kernel, device=str(dev))
     consts = make_consts(inv32, ret32, fop, args, rets, ok_words, dev)
     carry = init_carry(init_state[None])
+    fingerprint = None
+    if checkpoint is not None:
+        fingerprint = search_fingerprint(
+            spec, (inv32, ret32, fop, args, rets, ok_words, init_state),
+            (n_pad, B, S, C, W, O, T))
+        resumed = read_snapshot(checkpoint, fingerprint)
+        if resumed is not None:
+            carry = carry_from_numpy(
+                [resumed[f"c{i}"] for i in range(N_CARRY)], dev)
+        elif not _checkpoint_owned(checkpoint, fingerprint):
+            # another check's live snapshot: never touch it
+            logger.warning("checkpoint %s belongs to a different check; "
+                           "checkpointing disabled for this run",
+                           checkpoint)
+            checkpoint = None
     t0 = time.monotonic()
+    last_ckpt = t0
     timed_out = False
-    it = 0
+    it = int(carry[IDX_IT][0])
     eff = min(chunk_iters, 32, max(1, (32 * 16384) // n_pad))
     while True:
         prev_it = it
@@ -904,9 +939,15 @@ def check_encoded(spec, e, init_state, max_configs=50_000_000,
         eff = _adapt_quantum(
             chunk_iters, per_it, 3.0,
             timeout_s - (now - t0) if timeout_s is not None else None)
+        if checkpoint is not None and \
+                now - last_ckpt >= checkpoint_every_s:
+            save_carry(checkpoint, fingerprint, carry)
+            last_ckpt = now
         if (timeout_s is not None and now - t0 > timeout_s) or \
                 (cancel is not None and cancel.is_set()):
             timed_out = True
+            if checkpoint is not None:
+                save_carry(checkpoint, fingerprint, carry)
             break
 
     out = {"status": carry[IDX_STATUS][0], "top": carry[IDX_TOP][0],
@@ -923,11 +964,84 @@ def check_encoded(spec, e, init_state, max_configs=50_000_000,
         return {"valid": "unknown", "error": "timeout",
                 "configs_explored": int(out["explored"]),
                 "iterations": int(out["iterations"]),
-                "engine": "jax-wgl", **tstats}
+                "engine": "jax-wgl", **tstats,
+                **({"checkpoint": checkpoint} if checkpoint else {})}
     result = _interpret(spec, e, out, max_iters, confirm, init_state,
                         perm)
     result.update(tstats)
+    # never clobber a snapshot that belongs to a different check
+    if checkpoint is not None and _checkpoint_owned(checkpoint,
+                                                    fingerprint):
+        if result.get("valid") in (True, False):
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(checkpoint)       # decided: the snapshot is spent
+        else:
+            # undecided (budget/overflow): a rerun with a larger budget
+            # resumes instead of restarting
+            save_carry(checkpoint, fingerprint, carry)
+            result["checkpoint"] = checkpoint
     return result
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: the JAX package's snapshot format
+
+def search_fingerprint(spec, cols, sizes):
+    """sha256 over the carry layout, the model name, the padded host
+    columns ``(invoke, ret, fop, args, rets, ok_words, init_state)`` in
+    the dtypes ``_prepare_search`` gives them (int32 and uint32, as the
+    JAX package's) and the plan sizes ``(n_pad, B, S, C, W, O, T)``:
+    ``jax_wgl.check_encoded``'s fingerprint, byte for byte."""
+    h = hashlib.sha256()
+    h.update(CARRY_LAYOUT.encode())
+    h.update(spec.name.encode())
+    for a in tuple(cols) + (np.asarray(sizes, np.int64),):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _checkpoint_owned(path, fingerprint):
+    """True when path is free or holds a snapshot with this
+    fingerprint (a file that is not a snapshot counts as free)."""
+    if not os.path.exists(path):
+        return True
+    try:
+        with np.load(path) as data:
+            return bytes(data["fingerprint"]).decode() == fingerprint
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+        return True
+
+
+def write_snapshot(path, fingerprint, arrays):
+    """Atomically write a fingerprinted npz snapshot (shared by the
+    single-key and batched checkpoint paths)."""
+    tmp = f"{path}.tmp"     # np.savez appends .npz to names without it
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(
+        tmp, fingerprint=np.frombuffer(fingerprint.encode(), np.uint8),
+        **arrays)
+    os.replace(f"{tmp}.npz", path)
+
+
+def read_snapshot(path, fingerprint):
+    """A fingerprinted snapshot's array dict, or None when the file is
+    absent, not a snapshot, or belongs to a different check."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as data:
+            if bytes(data["fingerprint"]).decode() != fingerprint:
+                return None
+            return {k: data[k] for k in data.files if k != "fingerprint"}
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+        return None
+
+
+def save_carry(path, fingerprint, carry):
+    """Snapshot a search carry in the JAX package's layout (``c0`` ..
+    ``c14``, ``carry_to_numpy``)."""
+    write_snapshot(path, fingerprint,
+                   {f"c{i}": x for i, x in enumerate(carry_to_numpy(carry))})
 
 
 def _interpret(spec, e, out, max_iters, confirm, init_state, perm=None):

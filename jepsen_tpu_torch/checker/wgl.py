@@ -3,7 +3,8 @@
 This is the exact reference implementation the batched device engine
 (torch_wgl.py) is differential-tested against. A copy of
 ``jepsen_tpu.checker.wgl`` whose model steps run on the port's numpy
-face (``xp.NP``). It reconstructs the algorithm
+face (``xp.NP``) and which tests its ``cancel`` event at every config,
+not every 4,096th. It reconstructs the algorithm
 knossos.wgl implements (knossos is an external dependency of the reference,
 jepsen/project.clj:14, dispatched from jepsen/src/jepsen/checker.clj:199-202;
 see SURVEY.md section 2.9) from its published description: depth-first search
@@ -77,8 +78,11 @@ def check_encoded(spec, e, init_state, max_configs=None, cancel=None):
         if max_configs is not None and explored > max_configs:
             return {"valid": "unknown", "configs_explored": explored,
                     "error": "max-configs-exceeded"}
-        if cancel is not None and explored % 4096 == 0 \
-                and cancel.is_set():
+        # every config: on a 10k-op history one config's sweep over its
+        # unlinearized ops is ~10k Python steps, and a cancelled search
+        # tested every 4,096 configs (the JAX package's cadence) ran 49 s
+        # past its cancel on the card's host (PERF.md)
+        if cancel is not None and cancel.is_set():
             return {"valid": "unknown", "configs_explored": explored,
                     "error": "cancelled"}
         unlin = full & ~lin

@@ -11,17 +11,21 @@ As in ``jepsen_tpu.independent``, the per-key checker's linearizable
 device path hands ALL per-key subhistories to
 ``parallel.check_batch_encoded`` as one batch -- the key axis becomes the
 batch axis of the search -- instead of the reference's bounded-pmap
-thread pool (independent.clj:285). Unlike the JAX package, a failure of
-that batched path raises: it does not fall back to per-key checks, so a
-fault of the device path cannot hide behind slower per-key results.
+thread pool (independent.clj:285). Each key's history is planned first
+(``analysis/searchplan.py``): sealed quiescent cuts slice it into
+segments, and the segments of every key ride the same batch. Unlike the
+JAX package, a failure of that batched path raises: it does not fall
+back to per-key checks, so a fault of the device path cannot hide behind
+slower per-key results. One key's Linearizable verdict is certified
+(``_certify_keyed``).
 
 Not ported yet (ROADMAP.md queue A): the keyed generators (they need
-``generator``, A.11), search-plan segments per key (A.5), certification
-of one key's verdict (``_certify_keyed``; the certifier is not ported,
-A.11) and the per-key store files (``store``, A.11).
+``generator``, A.11) and the per-key store files (``store``, A.11).
 """
 
 from __future__ import annotations
+
+import time
 
 from . import history as h
 from .checker.core import Checker, as_checker, check_safe, merge_valid
@@ -102,6 +106,16 @@ class _IndependentChecker(Checker):
 
         results = self._check_batched(test, ks, subs, opts)
         if results is None:
+            # reserve the once-per-test certification claim so the
+            # parallel per-key checks can't certify whichever key's
+            # subcheck happens to finish first; _certify_keyed below
+            # picks one deterministically instead
+            reserved = isinstance(test, dict) \
+                and self._split_inner()[1] is not None \
+                and not test.get("certify-done?")
+            if reserved:
+                test["certify-done?"] = True
+
             def one(k):
                 subdir = list(opts.get("subdirectory") or []) + [DIR, k]
                 return k, check_safe(self.inner, test, subs[k],
@@ -109,13 +123,44 @@ class _IndependentChecker(Checker):
                                       "history-key": k})
 
             results = dict(bounded_pmap(one, ks))
+            if reserved:
+                test["certify-done?"] = False
 
+        self._certify_keyed(test, subs, results)
         failures = [k for k, r in results.items()
                     if r.get("valid") is not True]
         return {"valid": merge_valid([r.get("valid")
                                       for r in results.values()]),
                 "results": results,
                 "failures": failures}
+
+    def _certify_keyed(self, test, subs, results):
+        """Certify ONE deterministically chosen key's Linearizable
+        verdict: neither keyed path routes subchecks through
+        ``checker.core.check`` with the Linearizable gate itself, so
+        without this hook keyed searches would ship uncertified. The
+        first failing key (sorted by repr) is certified, so a violation's
+        witness is the proof of record; a clean run certifies the first
+        key. ``certify_verdict`` is contained: a certifier fault never
+        touches the keyed verdict."""
+        name, lin, _ = self._split_inner()
+        if lin is None or not isinstance(test, dict):
+            return
+        from .checker.core import certify_verdict
+
+        def lin_result(r):
+            if name is not None and isinstance(r, dict):
+                r = r.get(name)
+            return r if isinstance(r, dict) \
+                and r.get("valid") in (True, False) else None
+
+        ks = [k for k in sorted(subs, key=repr)
+              if lin_result(results.get(k)) is not None]
+        if not ks:
+            return
+        bad = [k for k in ks if lin_result(results[k])["valid"] is False]
+        k = (bad or ks)[0]
+        certify_verdict(lin, test, subs[k], lin_result(results[k]), key=k)
 
     def _split_inner(self):
         """Find the Linearizable gate inside the inner checker: either the
@@ -139,25 +184,70 @@ class _IndependentChecker(Checker):
         return None, None, None
 
     def _check_batched(self, test, ks, subs, opts):
-        """When the inner checker gates on the device engine, run every
-        key's search as ONE batched device call — keys become the search's
-        batch axis (parallel/keyshard.py) instead of a thread pool. Other
-        composed checkers still run per key. Returns None when not
-        applicable (no Linearizable gate, or its CPU "wgl" algorithm);
-        raises when the batched path fails."""
+        """When the inner checker gates on the device engine ("jax-wgl",
+        "batch" or "competition"), run every key's search as ONE batched
+        device call -- keys become the search's batch axis
+        (parallel/keyshard.py) instead of a thread pool. Each key's
+        history is planned: its segments ride the same batch and merge
+        back into the key's verdict. Under "competition" a key the batch
+        leaves unknown is raced per key (device vs the CPU engines).
+        Other composed checkers still run per key. Returns None when not
+        applicable (no Linearizable gate, or a CPU algorithm); raises
+        when the batched path fails."""
         name, lin, rest = self._split_inner()
-        if lin is None or lin.algorithm != "jax-wgl":
+        if lin is None or lin.algorithm not in ("jax-wgl", "batch",
+                                                "competition"):
             return None
         from . import parallel
+        from .analysis import searchplan
+        plan_on = searchplan.segments_enabled(test)
+        min_seg = searchplan.min_segment(test)
         # the SAME client-op selection as Linearizable.check
-        pairs = [lin.spec.encode(lin.prepare_history(h.client_ops(subs[k])))
-                 for k in ks]
+        pairs = []
+        spans = []          # per key: (start, count, info, plan_s, seeds)
+        for k in ks:
+            client = lin.prepare_history(h.client_ops(subs[k]))
+            segs, info, plan_s = None, None, 0.0
+            if plan_on:
+                t0 = time.monotonic()
+                segs, info = searchplan.plan_segments(lin.spec, client,
+                                                      min_seg)
+                plan_s = time.monotonic() - t0
+                if len(segs) < 2:
+                    segs = None     # no reduction: encode as-is
+            start = len(pairs)
+            if segs is None:
+                pairs.append(lin.spec.encode(client))
+                spans.append((start, 1, None, 0.0, None))
+            else:
+                pairs.extend(lin.spec.encode(s.events) for s in segs)
+                spans.append((start, len(segs), info, plan_s,
+                              [s.seed for s in segs]))
         batch = parallel.check_batch_encoded(lin.spec, pairs,
                                              **lin.engine_opts)
+        per_key = []
+        for start, count, info, plan_s, seeds in spans:
+            if info is None:
+                per_key.append(batch[start])
+                continue
+            # stamp segment provenance onto each normalized witness
+            # before the merge folds them, as Linearizable._check_planned
+            for i in range(count):
+                w = batch[start + i].get("witness")
+                if isinstance(w, dict):
+                    w["segment"] = {"index": i, "count": count,
+                                    "seed": seeds[i]}
+            per_key.append(searchplan.merge_segment_results(
+                batch[start:start + count], info, plan_s))
 
         def finish(kr):
             k, lr = kr
             lr = dict(lr)
+            if lr.get("valid") == "unknown" and \
+                    lin.algorithm == "competition":
+                # competition semantics: an unknown from the device batch
+                # defers to the per-key race (device vs the CPU engines)
+                lr = check_safe(lin, test, subs[k], opts)
             lr["valid?"] = lr["valid"]
             if name is None:
                 return k, lr
@@ -172,7 +262,7 @@ class _IndependentChecker(Checker):
                 [v.get("valid") for v in r.values() if isinstance(v, dict)])
             return k, r
 
-        return dict(bounded_pmap(finish, list(zip(ks, batch))))
+        return dict(bounded_pmap(finish, list(zip(ks, per_key))))
 
 
 def checker(inner):

@@ -15,13 +15,19 @@ widening the per-key frontier as the batch shrinks.
 The batch rolls its greedy chains on the scan path, one chain per key
 (R = 256 steps, none for n <= 64), as the reference pins it
 (``keyshard.py:214-226``, ``:271``): the rollout kernel serves single-key
-searches only. Not ported yet (ROADMAP.md queue A): the mesh batch
-(A.10), checkpoint and resume (A.6), and the obs phase and heartbeat
-hooks (A.7).
+searches only. A batch checkpoints as the reference's does: the carry
+in the JAX package's layout, the alive-row map, the iteration and every
+already-harvested key's verdict, under the reference's fingerprint. Not
+ported yet (ROADMAP.md queue A): the mesh batch (A.10) and the obs phase
+and heartbeat hooks (A.7).
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import logging
+import os
 import time
 
 import numpy as np
@@ -31,14 +37,18 @@ from .. import resolve_device
 from ..checker.torch_wgl import (IDX_BEST_DEPTH, IDX_BEST_LIN,
                                  IDX_BEST_STATE, IDX_DROPPED, IDX_EXPLORED,
                                  IDX_ITS, IDX_STATUS, IDX_TOP, INF32,
-                                 RUNNING, _adapt_quantum, _apply_prune,
-                                 _bucket, _build_search, _encode_arrays,
-                                 _fast_result, _interpret, _n_floor,
-                                 _plan_sizes, _priority_order,
-                                 _state_abstraction_check, compact,
-                                 make_batch_consts, max_point_concurrency,
-                                 table_stats)
+                                 RUNNING, _NP_DTYPES, CARRY_LAYOUT, N_CARRY,
+                                 _adapt_quantum, _apply_prune, _bucket,
+                                 _build_search, _checkpoint_owned,
+                                 _encode_arrays, _fast_result, _interpret,
+                                 _n_floor, _plan_sizes, _priority_order,
+                                 _state_abstraction_check, carry_from_numpy,
+                                 carry_to_numpy, compact, make_batch_consts,
+                                 max_point_concurrency, read_snapshot,
+                                 table_stats, write_snapshot)
 from ..history import INF_TIME
+
+logger = logging.getLogger(__name__)
 
 #: the per-key carry fields a harvest reads
 _HARVEST = {"status": IDX_STATUS, "top": IDX_TOP, "dropped": IDX_DROPPED,
@@ -89,8 +99,8 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
                         chunk_iters=256, timeout_s=None, mesh=None,
                         frontier_width=None, stack_size=None,
                         table_size=None, checkpoint=None,
-                        rollout_seeds=None, owners=None, n_floor=None,
-                        device=None):
+                        checkpoint_every_s=60.0, rollout_seeds=None,
+                        owners=None, n_floor=None, device=None):
     """Check many keys' histories at once.
 
     ``pairs`` is a list of (EncodedHistory, init_state). Returns a list of
@@ -109,19 +119,23 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
     batch (padding rows are inert); it never lowers it below the shared
     floor.
 
-    ``mesh`` and ``checkpoint`` are not ported yet and raise
-    NotImplementedError (ROADMAP.md A.10 and A.6).
+    ``checkpoint`` names a file the batch state is snapshotted to (every
+    ``checkpoint_every_s``, between chunks, and when a run ends with a
+    key undecided): the carry, the alive-row map, the iteration and
+    every already-harvested key's verdict, so a rerun with the same
+    arguments resumes mid-search, also after a compaction. The
+    fingerprint covers every per-key input and the plan sizes but not
+    the budget, so a budget-exhausted snapshot resumes under a larger
+    one. A stale or foreign file is ignored and left alone.
+
+    ``mesh`` is not ported yet and raises NotImplementedError
+    (ROADMAP.md A.10).
     """
     if mesh is not None:
         raise NotImplementedError(
             "check_batch_encoded(mesh=...) is not ported to "
             "jepsen_tpu_torch yet: ROADMAP.md queue A, A.10 (the "
             "multi-device search)")
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "check_batch_encoded(checkpoint=...) is not ported to "
-            "jepsen_tpu_torch yet: ROADMAP.md queue A, A.6 (checkpoint "
-            "and resume)")
     dev = resolve_device(device)
     K_real = len(pairs)
     if K_real == 0:
@@ -210,13 +224,40 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
         return max(W, min(2048, 4096 // max(1, Kc),
                           max(8, (64 << 20) // max(1, C * S_pad))))
 
-    init_carry, _, run_chunk = build_search(K, W)
-    carry = init_carry(np.stack([c[6] for c in cols]))
-    # alive[r] = index into `live` for row r, or -1 for dummy rows
-    alive = [j if j < len(live) else -1 for j in range(K)]
-    harvested = {}
-    it = 0
+    def consts_for(alive_rows):
+        sel = [cols[j][:6] if j >= 0 else _dummy_key(n_pad, S_pad, A)[:6]
+               for j in alive_rows]
+        return make_batch_consts(
+            sel, [live[j] + 1 if j >= 0 else 0 for j in alive_rows], dev)
+
+    fingerprint = resumed = None
+    if checkpoint is not None:
+        # the budget is not fingerprinted: a budget-exhausted snapshot
+        # resumes under a larger one
+        fingerprint = _batch_fingerprint(
+            spec, cols, salts, (n_pad, B, S_pad, C, A, W, O, T, 1, K))
+        resumed = _load_batch_checkpoint(checkpoint, fingerprint)
+        if resumed is None and not _checkpoint_owned(checkpoint,
+                                                     fingerprint):
+            logger.warning("checkpoint %s belongs to a different check; "
+                           "checkpointing disabled for this run",
+                           checkpoint)
+            checkpoint = None
+    if resumed is not None:
+        carry_np, alive, it, harvested = resumed
+        consts = consts_for(alive)
+        _, _, run_chunk = build_search(
+            len(alive), W if len(alive) == K else wide_W(len(alive)))
+        carry = carry_from_numpy(carry_np, dev)
+    else:
+        init_carry, _, run_chunk = build_search(K, W)
+        carry = init_carry(np.stack([c[6] for c in cols]))
+        # alive[r] = index into `live` for row r, or -1 for dummy rows
+        alive = [j if j < len(live) else -1 for j in range(K)]
+        harvested = {}
+        it = 0
     t0 = time.monotonic()
+    last_ckpt = t0
     timed_out = False
     n_compactions = 0
     n_owners = len({str(owners[k]) for k in live}) \
@@ -256,7 +297,13 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
         if n_run == 0:
             harvest(range(len(alive)), carry)
             break
-        if timeout_s is not None and time.monotonic() - t0 > timeout_s:
+        now = time.monotonic()
+        if checkpoint is not None and now - last_ckpt >= checkpoint_every_s:
+            _save_batch_checkpoint(checkpoint, fingerprint, carry, alive,
+                                   it, harvested)
+            last_ckpt = now
+        if timeout_s is not None and now - t0 > timeout_s:
+            # the not-all-decided save below writes the snapshot
             timed_out = True
             harvest(range(len(alive)), carry)
             break
@@ -278,6 +325,20 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
             alive = [alive[r] for r in keep] + [-1] * (newK - n_run)
             _, _, run_chunk = build_search(newK, wide_W(newK))
 
+    # never clobber a snapshot that belongs to a different check
+    if checkpoint is not None and _checkpoint_owned(checkpoint,
+                                                    fingerprint):
+        all_decided = (not timed_out and len(harvested) == len(live)
+                       and all(int(h["status"]) != RUNNING
+                               or int(h["top"]) == 0
+                               for h in harvested.values()))
+        if all_decided:
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(checkpoint)
+        else:
+            _save_batch_checkpoint(checkpoint, fingerprint, carry, alive,
+                                   it, harvested)
+
     # the dedup table is shared across keys (key-salted), so occupancy
     # diagnostics are batch-wide: the same numbers go on every searched
     # key's result
@@ -298,6 +359,49 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
         if n_owners is not None:
             results[k]["batch_owners"] = n_owners
     return results
+
+
+def _batch_fingerprint(spec, cols, salts, plan):
+    """sha256 over the carry layout, the model, the plan sizes, the salts
+    (uint32) and every padded per-key input column: the JAX package's
+    batch fingerprint, byte for byte."""
+    h = hashlib.sha256()
+    h.update(CARRY_LAYOUT.encode())
+    h.update(spec.name.encode())
+    h.update(np.asarray(plan, np.int64).tobytes())
+    h.update(np.asarray(salts, np.uint32).tobytes())
+    for c in cols:
+        for i in range(7):                     # perm (c[7]) is derived
+            h.update(np.ascontiguousarray(c[i]).tobytes())
+    return h.hexdigest()
+
+
+def _save_batch_checkpoint(path, fingerprint, carry, alive, it,
+                           harvested):
+    """Atomic snapshot: carry + alive map + iteration + already-harvested
+    verdicts, every array in the JAX package's dtype."""
+    hk = sorted(harvested)
+    arrays = {f"c{i}": x for i, x in enumerate(carry_to_numpy(carry))}
+    arrays.update(alive=np.asarray(alive, np.int64), it=np.int64(it),
+                  hkeys=np.asarray(hk, np.int64))
+    for name, i in _HARVEST.items():
+        if hk:
+            arrays[f"h_{name}"] = np.stack(
+                [np.asarray(harvested[j][name]).astype(_NP_DTYPES[i])
+                 for j in hk])
+    write_snapshot(path, fingerprint, arrays)
+
+
+def _load_batch_checkpoint(path, fingerprint):
+    """-> (carry arrays, alive list, it, harvested dict) or None."""
+    data = read_snapshot(path, fingerprint)
+    if data is None:
+        return None
+    carry = [data[f"c{i}"] for i in range(N_CARRY)]
+    alive = [int(x) for x in data["alive"]]
+    harvested = {j: {name: data[f"h_{name}"][pos] for name in _HARVEST}
+                 for pos, j in enumerate(int(x) for x in data["hkeys"])}
+    return carry, alive, int(data["it"]), harvested
 
 
 def check_batch_histories(spec, histories, **kw):

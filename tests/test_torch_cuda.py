@@ -5,8 +5,9 @@ against the same search on the CPU, the key batch (cas-register and
 the queue models) and a single-key queue check against the same on the
 CPU, and the two incremental monitors card against CPU: the streaming
 fold (solo and lane-batched, every carry array), ``StreamCheck``, the
-closures (bf16 on the card, float32 on the CPU) and the txn checkers.
-Every test is marked ``cuda`` and skips without a card (the kernels
+closures (bf16 on the card, float32 on the CPU) and the txn checkers;
+the default gate ("competition") and a checkpoint resumed on the card
+and on the CPU. Every test is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
 
@@ -305,3 +306,43 @@ def test_txn_checks_equal_cpu(dev):
                 assert core.check() == ccore.check()
     hist = simulate.txn_wr_history(random.Random(5), 300, 32)
     assert wr.check(hist) == wr.check(hist, device="cpu")
+
+
+@pytest.mark.parametrize("name", SPECS)
+def test_competition_on_card(dev, name):
+    """The default gate ("competition") on the card decides as the CPU
+    oracle does, and its device racer launches the rollout kernel."""
+    from jepsen_tpu_torch.checker import wgl
+    hist = simulate.random_history(random.Random(9), name, 8, 500, 0.05)
+    rollout.launches = 0
+    r = checkers.linearizable({"model": name}).check({}, hist)
+    races = checkers.join_racers()
+    spec = models.model_spec(name)
+    want = wgl.check_encoded(spec, *spec.encode(hist))
+    assert r["valid"] == want["valid"]
+    assert races[0]["winner"] == r["engine"]
+    # the device racer runs at least one chunk before it sees the cancel
+    assert rollout.launches > 0
+
+
+def test_checkpoint_resume_on_card(dev, tmp_path):
+    """A search stopped by its budget and resumed from its snapshot on the
+    card ends as an uninterrupted run: same verdict and iterations; the
+    snapshot resumes on the CPU to the same."""
+    spec = models.cas_register_spec
+    hist = simulate.random_history(random.Random(45100), "cas-register", 64,
+                                   10_000, 0.05)
+    e, st = spec.encode(hist)
+    want = torch_wgl.check_encoded(spec, e, st, chunk_iters=1)
+    assert want["iterations"] > 1
+    prep = torch_wgl._prepare_search(spec, e, st)[1]
+    W = torch_wgl._plan_sizes(prep[8], prep[11], prep[9])[1]
+    for i, where in enumerate(("cuda", "cpu")):
+        ck = str(tmp_path / f"frontier{i}.npz")
+        r1 = torch_wgl.check_encoded(spec, e, st, chunk_iters=1,
+                                     max_configs=W, checkpoint=ck)
+        assert r1["valid"] == "unknown" and r1["iterations"] == 1
+        r2 = torch_wgl.check_encoded(spec, e, st, chunk_iters=1,
+                                     checkpoint=ck, device=where)
+        assert (r2["valid"], r2["iterations"]) \
+            == (want["valid"], want["iterations"])

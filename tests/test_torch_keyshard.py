@@ -288,13 +288,17 @@ def test_batch_default_chunking_matches_oracle():
                  if r.get("engine") == "jax-wgl"})
 
 
-def test_batch_refuses_what_is_not_ported(monkeypatch):
+def test_batch_refuses_what_is_not_ported(monkeypatch, tmp_path):
     _, tspec = _specs("cas-register")
     pairs = [tspec.encode(h) for h in _histories(n_keys=2)]
     with pytest.raises(NotImplementedError, match="A.10"):
         check_batch_encoded(tspec, pairs, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        check_batch_encoded(tspec, pairs, checkpoint="x.npz", device="cpu")
+    # checkpoint/resume is ported now (tests/test_torch_checkpoint.py): a
+    # decided batch leaves no snapshot behind
+    ck = tmp_path / "x.npz"
+    got = check_batch_encoded(tspec, pairs, checkpoint=str(ck), device="cpu")
+    assert all(r["valid"] in (True, False) for r in got)
+    assert not ck.exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         check_batch_encoded(tspec, pairs)

@@ -143,6 +143,10 @@ def test_linearizable_checker():
         .check({}, H([("invoke", 0, "cas", (0, 1)),
                       ("ok", 0, "cas", (0, 1))]))
     assert r["valid"] is True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        checkers.linearizable({"model": "register",
-                               "algorithm": "competition"})
+    # "competition" is the default gate now, as in the JAX package
+    r = checkers.linearizable({"model": "register",
+                               "engine_opts": {"device": "cpu"}}) \
+        .check({}, H(CANNED[1][1]))
+    assert r["valid"] is False and r["engine"] in ("wgl", "linear",
+                                                    "jax-wgl")
+    checkers.join_racers()
