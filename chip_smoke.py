@@ -58,7 +58,35 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    confirmed by the cross-check, every device replay of the
    differential decided (the trials sample one segment each; the main
    histories' certificates are their witness replays, ``GATE_CERTIFY``).
-6. ``batch``: the JAX package's headline key batch at full width
+6. ``obs``: the obs core, the search hooks and the failure render with
+   the store (``jepsen_tpu_torch/obs``, ``store.py``), the store's
+   ``base_dir`` in a temporary directory. (a) The two main-path
+   histories through ``core.check_safe`` with
+   ``checkers.linearizable(jax-wgl)``, unbound, under ``obs.run_scope``
+   and under it with ``phases?`` off, in turns, ``OBS_ROUNDS`` times,
+   the bound runs persisted by ``store.write_obs``: all valid (the walls
+   of each kind and their medians beside phase 3's); ``trace.jsonl`` read
+   back by ``obs.load_trace``, its ``wgl.phase.*`` spans contiguous
+   within each search and covering at least ``PHASE_COVERAGE`` of its
+   wall; ``metrics.json`` holding the phase seconds, the heartbeat
+   series and ``checker.checks``; rollout launches equal to phase 3's,
+   bound and bound with ``phases?`` off; the cas-register history once
+   profiled unbound and once bound with ``phases?`` off, kernel
+   launches per iteration equal. (b) The first 64 batch keys through
+   ``parallel.check_batch_encoded`` bound, at the gate's unplanned run's
+   ``chunk_iters=1`` (its wall beside the gate's): verdicts equal to the
+   gate's oracle, heartbeats with keys_alive, keys_running and compactions,
+   explored never decreasing; one profiled iteration bound with
+   ``phases?`` off against one unbound, launches equal. (c) The
+   cas-register history through the default gate under a run scope:
+   the device racer's heartbeats in that run's registry, nothing in the
+   next step's registry after ``checkers.join_racers``. (d) An invalid
+   trial of phase 4 through ``independent.checker(linearizable(wgl))``:
+   phase 4's verdict; without matplotlib no ``linear.png``, and the
+   render's containment caught exactly one ModuleNotFoundError naming
+   it; ``results.json``, ``test.json`` and the history written by the
+   port's store and read back equal.
+7. ``batch``: the JAX package's headline key batch at full width
    (``simulate.bench_histories``, as ``bench.py`` rungs 2 and 2b draw
    it): 256 cas-register keys, 8 processes, 200 ops per key, crash_p
    0.02, every 8th key corrupted, through
@@ -69,14 +97,14 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    Both calls must decide alike. No key may be
    unknown, at least one must be invalid, and the first 32 verdicts must
    equal the CPU oracle's (the gate phase's).
-7. ``independent``: the first 64 of those keys wrapped in
+8. ``independent``: the first 64 of those keys wrapped in
    ``independent.tuple_`` and merged into one history, through
    ``independent.checker(compose({"linearizable": ..., "ok":
    unbridled_optimism()}))`` with the default gate and planning on:
    exactly one call of ``parallel.check_batch_encoded``, with every
    key's segments (92 pairs), and ``failures`` equal to the corrupted
    keys.
-8. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
+9. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
    batch (150 ops and 6 processes per key, crash_p 0.02, every 8th key
    corrupted) with the fast check off, so the device search with padded
    queue states decides, within ``QUEUE_MAX_CONFIGS`` (128 iterations of
@@ -92,7 +120,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``bench.py``'s rung-4 FIFO history through
    ``checkers.linearizable``, fast check on.
 
-9. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
+10. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
    torch ops) on keys of the batch above: (a) the offline face at the
    hard frontier cap on ``OFFLINE_KEYS`` (one of them corrupted), each
    verdict equal to the CPU sweep's (``linear``) and each violating op
@@ -106,7 +134,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    by the port's WGL engine: seconds, host syncs, passes and frontier
    peak per event. (b) and (c) are not profiled: gathering the
    profiler's events costs more than the run itself (PERF.md).
-10. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
+11. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
    serial list-append history of 16,384 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
    decides it valid on the card (one profiled call: squarings, closure
@@ -119,8 +147,8 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    same on the CPU; one squaring at n=16384 timed in float32, TF32 and
    bf16, all three boolean-identical.
 
-The competition, checkpoint and certify paths run the rollout kernel
-(each counted). The planned, batch, independent, queue, streamlin and
+The competition, checkpoint, certify and obs paths run the rollout
+kernel (each counted). The planned, batch, independent, queue, streamlin and
 txn paths do not run it: each of them is run with the rollout kernel's
 launch
 count set to 0 and must leave it at 0. The batch pins the scan rollout,
@@ -176,6 +204,13 @@ QUEUE_MAX_CONFIGS = 128 * 128 * QUEUE_KEYS
 #: ORACLE_WORKERS processes beside the card's runs, and checkpointed runs
 #: stopped after CKPT_ITERS iterations
 GATE_KEYS, ORACLE_WORKERS, CKPT_ITERS = INDEPENDENT_KEYS, 4, 3
+#: the obs phase: the share of each search's wall its phase spans must
+#: cover (the attribution target of jepsen_tpu_torch/obs/phases.py)
+PHASE_COVERAGE = 0.95
+#: the obs phase runs each main-path history unbound, bound and bound with
+#: phases off, in turns, this many times: one call's walls vary by tens of
+#: percent on the card's host (PERF.md)
+OBS_ROUNDS = 3
 #: the certifier's settings for the 10k-op main-path verdicts: the
 #: witness replay, and no differential sample. Its CPU replays cannot
 #: decide a 10k-op, 64-process history within any budget the run
@@ -364,12 +399,13 @@ def main_case(model, crash_p, kernel, n_ops=10_000):
     """One main-path check of an ``n_ops``-op, 64-process history."""
     import torch
     from jepsen_tpu_torch import simulate
-    from jepsen_tpu_torch.checker import checkers
+    from jepsen_tpu_torch.checker import checkers, rollout
     hist = simulate.random_history(random.Random(45100), model, 64, n_ops,
                                    crash_p)
     opts = {} if kernel else {"rollout_kernel": "scan"}
     chk = checkers.linearizable({"model": model, "algorithm": "jax-wgl",
                                  "engine_opts": opts})
+    launched = rollout.launches
     t0 = time.monotonic()
     r = chk.check({}, hist)
     torch.cuda.synchronize()
@@ -377,6 +413,7 @@ def main_case(model, crash_p, kernel, n_ops=10_000):
     n_ops = sum(1 for o in hist if o["type"] == "invoke")
     return r, {"model": model, "rollout": "kernel" if kernel else "scan",
                "valid": r["valid"], "wall_s": wall,
+               "rollout_launches": rollout.launches - launched,
                "iterations": r.get("iterations"),
                "configs_explored": r.get("configs_explored"),
                "history_ops": n_ops, "ops_per_s": n_ops / wall,
@@ -793,6 +830,347 @@ def gate_phase(dev, keys, flat, trials, trial_rows, n_ops=10_000,
     out["launches"] = launches
     out["seconds"] = time.monotonic() - t_start
     return out, oracle
+
+
+class SearchWalls:
+    """``torch_wgl.check_encoded`` wrapped for the obs phase: each bound
+    search's start and end on the tracer's clock (ns), so its phase
+    spans can be held against its wall."""
+
+    def __init__(self):
+        from jepsen_tpu_torch.checker import torch_wgl
+        self.mod, self.real = torch_wgl, torch_wgl.check_encoded
+        self.walls = []
+
+    def __enter__(self):
+        self.mod.check_encoded = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.check_encoded = self.real
+
+    def __call__(self, *a, **k):
+        from jepsen_tpu_torch import obs
+        tr = obs.current_sinks()[0]
+        if tr is None:                      # unbound: nothing to hold
+            return self.real(*a, **k)
+        t0 = tr.now_ns()
+        try:
+            return self.real(*a, **k)
+        finally:
+            self.walls.append((t0, tr.now_ns()))
+
+
+def phase_coverage(events, walls):
+    """Fail unless the trace's ``wgl.phase.*`` spans are contiguous and do
+    not overlap within each search, and cover at least PHASE_COVERAGE of
+    each search's wall. Returns per search its wall, coverage and seconds
+    per phase."""
+    spans = sorted((e for e in events if e.get("cat") == "phase"
+                    and e["name"].startswith("wgl.phase.")),
+                   key=lambda e: e["ts"])
+    out = []
+    for t0, t1 in walls:
+        mine = [e for e in spans
+                if t0 / 1e3 - 1 <= e["ts"] <= t1 / 1e3 + 1]
+        if not mine:
+            raise AssertionError("obs: a search left no phase spans")
+        for a, b in zip(mine, mine[1:]):
+            if abs(a["ts"] + a["dur"] - b["ts"]) > 1.0:
+                raise AssertionError(f"obs: phase spans not contiguous: "
+                                     f"{a} then {b}")
+        wall = (t1 - t0) / 1e9
+        per = {}
+        for e in mine:
+            name = e["name"][len("wgl.phase."):]
+            per[name] = per.get(name, 0.0) + e["dur"] / 1e6
+        cov = sum(per.values()) / wall
+        if cov < PHASE_COVERAGE:
+            raise AssertionError(f"obs: phases cover {cov:.4f} of a "
+                                 f"{wall:.4f} s search: {per}")
+        out.append({"wall_s": wall, "coverage": cov, "phase_s": per})
+    return out
+
+
+def kernels_per_iteration(run, iterations):
+    """Kernel launches per iteration of one profiled call of ``run``."""
+    from jepsen_tpu_torch.profile_main import profile_call
+    _, wall, ev = profile_call(run, host_ops=False)
+    return sum(e[3] for e in ev) / max(1, iterations), wall
+
+
+def obs_phase(dev, keys, main_rows, gate_verdicts, gate_batch_s, trials,
+              trial_rows, n_ops=10_000, gate_keys=GATE_KEYS):
+    """The obs core, the search hooks and the failure render with the
+    store, on the card. (a) The two main-path histories through
+    ``core.check_safe`` with ``checkers.linearizable(jax-wgl)`` unbound,
+    under ``obs.run_scope`` and under it with ``phases?`` off, in turns,
+    OBS_ROUNDS times: valid, the trace's phase spans contiguous and
+    covering at least PHASE_COVERAGE of each search's wall, the metrics
+    holding the phase, heartbeat and checker series; rollout launches
+    equal to phase 3's (``main_rows``) every time, and in one profiled
+    run of the cas-register history unbound and one with ``phases?``
+    off kernel launches per iteration equal. (b) The first ``gate_keys``
+    batch keys through ``parallel.check_batch_encoded`` bound at
+    ``chunk_iters=1``, as the gate's unplanned run (``gate_batch_s``):
+    verdicts equal to the gate's (``gate_verdicts``), heartbeats with
+    keys_alive, keys_running and compactions, explored never decreasing;
+    one profiled iteration bound with ``phases?`` off against one
+    unbound, launches equal. (c) The
+    cas-register history through the default gate under a run scope:
+    the device racer's heartbeats in the run's registry, nothing in the
+    next step's after ``join_racers``. (d) One invalid trial through
+    ``independent.checker(linearizable(wgl))``: the verdict equal to
+    phase 4's; without matplotlib no ``linear.png`` and exactly one
+    contained ModuleNotFoundError; ``results.json`` and the history
+    written by the port's store and read back equal. The store's
+    ``base_dir`` is a temporary directory, removed at the end."""
+    import contextlib
+    import logging
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import independent, models, obs, parallel
+    from jepsen_tpu_torch import simulate, store
+    from jepsen_tpu_torch.checker import checkers, core, rollout
+    spec = models.cas_register_spec
+    t_start = time.monotonic()
+    out = {"phase": "obs"}
+    launches = {}
+    base, store.base_dir = store.base_dir, tempfile.mkdtemp(prefix="jt-obs-")
+    try:
+        # (a) the single-key search unbound, bound and with phases off,
+        # in turns, OBS_ROUNDS times
+        flat = {r["model"]: r for r in main_rows if r["rollout"] == "kernel"}
+        modes = (("unbound", None), ("bound", {}),
+                 ("phases_off", {"phases?": False}))
+        rows = []
+        launches["obs"] = 0
+        for model, crash_p in MAIN_HISTORIES:
+            hist = simulate.random_history(random.Random(45100), model, 64,
+                                           n_ops, crash_p)
+            chk = checkers.linearizable({"model": model,
+                                         "algorithm": "jax-wgl"})
+            want = flat[model]["rollout_launches"]
+            row = {"model": model, "phase3_wall_s": flat[model]["wall_s"],
+                   "phase3_launches": want, "searches": []}
+            for rnd in range(OBS_ROUNDS):
+                for name, extra in modes:
+                    test = {"name": f"obs-{model}-{name}-{rnd}",
+                            "start-time": store.local_time(),
+                            "certify?": False, **(extra or {})}
+                    rollout.launches = 0
+                    scope = obs.run_scope(test) if extra is not None \
+                        else contextlib.nullcontext()
+                    with scope, SearchWalls() as sw:
+                        t0 = time.monotonic()
+                        r = core.check_safe(chk, test, hist)
+                        sync(dev)
+                        wall = time.monotonic() - t0
+                    launches["obs"] += rollout.launches
+                    if r["valid"] is not True:
+                        raise AssertionError(f"obs {model} {name}: "
+                                             f"{r['valid']!r} "
+                                             f"{r.get('error')}")
+                    if dev.type == "cuda" and rollout.launches != want:
+                        raise AssertionError(
+                            f"obs {model} {name}: {rollout.launches} "
+                            f"rollout launches, phase 3 made {want}")
+                    row.setdefault(f"{name}_wall_s", []).append(wall)
+                    row[f"{name}_iterations"] = r.get("iterations")
+                    if extra is None:
+                        continue
+                    store.write_obs(test, final=True)
+                    run = store.path(test)
+                    evs = obs.load_trace(os.path.join(run, "trace.jsonl"))
+                    with open(os.path.join(run, "metrics.json")) as f:
+                        snap = json.load(f)
+                    keys_ = set(snap["counters"]) | set(snap["histograms"]) \
+                        | set(snap["gauges"])
+                    need = ["wgl.chunks{engine=jax-wgl}",
+                            "wgl.chunk_s{engine=jax-wgl}",
+                            "wgl.states_explored{engine=jax-wgl}",
+                            "wgl.search_depth{engine=jax-wgl}",
+                            "checker.checks{checker=Linearizable,valid=True}"]
+                    if name == "bound":
+                        need.append("wgl.phase_s{engine=jax-wgl,phase=device}")
+                    missing = [k for k in need if k not in keys_]
+                    if missing:
+                        raise AssertionError(f"obs {model} {name}: "
+                                             f"metrics.json lacks {missing}")
+                    if name == "bound":
+                        row["searches"] += phase_coverage(evs, sw.walls)
+                        row["heartbeats"] = sum(
+                            e["name"] == "wgl.heartbeat.jax-wgl"
+                            for e in evs)
+                    elif any(k.startswith("wgl.phase_s") for k in keys_):
+                        raise AssertionError(f"obs {model}: phases? false, "
+                                             f"yet phase seconds were "
+                                             f"recorded")
+            for name, _ in modes:
+                w = sorted(row[f"{name}_wall_s"])
+                row[f"{name}_median_s"] = w[len(w) // 2]
+            rows.append(row)
+        # one profiled run of the cas-register history each way
+        model, crash_p = MAIN_HISTORIES[0]
+        hist = simulate.random_history(random.Random(45100), model, 64,
+                                       n_ops, crash_p)
+        chk = checkers.linearizable({"model": model, "algorithm": "jax-wgl"})
+        its = rows[0]["unbound_iterations"]
+        prof = {}
+        if dev.type == "cuda":
+            prof["unbound"] = kernels_per_iteration(
+                lambda: chk.check({}, hist), its)
+            with obs.run_scope({"phases?": False}):
+                prof["phases_off"] = kernels_per_iteration(
+                    lambda: chk.check({}, hist), its)
+            if prof["unbound"][0] != prof["phases_off"][0]:
+                raise AssertionError(f"obs: kernels per iteration {prof}")
+        out["single_key"] = {"checks": rows, "profiled": {
+            k: {"kernels_per_iteration": v[0], "wall_s": v[1]}
+            for k, v in prof.items()}}
+
+        # (b) the key batch under a bound registry
+        pairs = [spec.encode(hh) for hh in keys[:gate_keys]]
+        test = {}
+        with obs.run_scope(test):
+            t0 = time.monotonic()
+            res = parallel.check_batch_encoded(spec, pairs, chunk_iters=1)
+            sync(dev)
+            bwall = time.monotonic() - t0
+        got = [r["valid"] for r in res]
+        if got != list(gate_verdicts[:gate_keys]):
+            raise AssertionError(f"obs batch: verdicts differ from the "
+                                 f"gate's: {got} vs {gate_verdicts}")
+        hb = [e["args"] for e in test["obs"]["tracer"].events()
+              if e["name"] == "wgl.heartbeat.jax-wgl-batch"]
+        if not hb or not {"keys_alive", "keys_running",
+                          "compactions"} <= set(hb[-1]):
+            raise AssertionError(f"obs batch: heartbeats {hb[-1:]}")
+        explored = [a["explored"] for a in hb]
+        if explored != sorted(explored):
+            raise AssertionError("obs batch: explored decreased")
+
+        def one(bound):
+            def run():
+                return parallel.check_batch_encoded(spec, pairs,
+                                                    max_configs=1)
+            if not bound:
+                return kernels_per_iteration(run, 1)
+            with obs.run_scope({"phases?": False}):
+                return kernels_per_iteration(run, 1)
+        bprof = {}
+        if dev.type == "cuda":
+            bprof = {"unbound": one(False), "phases_off": one(True)}
+            if bprof["unbound"][0] != bprof["phases_off"][0]:
+                raise AssertionError(f"obs batch: launches {bprof}")
+        out["batch"] = {
+            "keys": len(pairs), "wall_s": bwall, "chunk_iters": 1,
+            "gate_unplanned_batch_s": gate_batch_s, "heartbeats": len(hb),
+            "compactions": hb[-1]["compactions"],
+            "iterations": max(r.get("iterations") or 0 for r in res),
+            "first_iteration": {k: {"kernels": v[0], "wall_s": v[1]}
+                                for k, v in bprof.items()}}
+
+        # (c) the default gate: the device racer's heartbeats stay in
+        # its run's registry
+        hist = simulate.random_history(random.Random(45100), model, 64,
+                                       n_ops, crash_p)
+        test_a = {"certify?": False}
+        rollout.launches = 0
+        with obs.run_scope(test_a):
+            t0 = time.monotonic()
+            r = core.check(checkers.linearizable({"model": model}), test_a,
+                           hist)
+            cwall = time.monotonic() - t0
+        test_b = {}
+        with obs.run_scope(test_b):
+            races = checkers.join_racers()
+        launches["obs"] += rollout.launches
+        reg_a, reg_b = test_a["obs"]["registry"], test_b["obs"]["registry"]
+        chunks = reg_a.counter_value("wgl.chunks", engine="jax-wgl")
+        if r["valid"] is not True or chunks < 1:
+            raise AssertionError(f"obs competition: {r['valid']!r}, "
+                                 f"{chunks} device chunks in the run")
+        if reg_b.snapshot() != {"counters": {}, "gauges": {},
+                                "histograms": {}} \
+                or test_b["obs"]["tracer"].events():
+            raise AssertionError("obs competition: the race wrote into the "
+                                 "next step's sinks")
+        out["competition"] = {
+            "winner": r["engine"], "wall_s": cwall,
+            "device_chunks": chunks,
+            "device_racer_wall_s": races[-1]["racers"]["jax-wgl"]["wall_s"],
+            "wins": {k: v for k, v in reg_a.snapshot()["counters"].items()
+                     if k.startswith("checker.competition_wins")}}
+
+        # (d) the failure render and the store
+        i = next(j for j, row in enumerate(trial_rows)
+                 if row["valid"] is False)
+        caught = []
+
+        class Catch(logging.Handler):
+            def emit(self, record):
+                caught.append(record)
+
+        log = logging.getLogger("jepsen_tpu_torch.checker.checkers")
+        handler = Catch(logging.WARNING)
+        log.addHandler(handler)
+        test = {"name": "obs-render", "start-time": store.local_time(),
+                "certify?": False}
+        hist = keyed_history([trials[i]])
+        rollout.launches = 0
+        try:
+            with obs.run_scope(test):
+                r = core.check_safe(independent.checker(
+                    checkers.linearizable({"model": "cas-register",
+                                           "algorithm": "wgl"})),
+                    test, hist)
+        finally:
+            log.removeHandler(handler)
+        launches["obs"] += rollout.launches
+        if r["valid"] is not False or r["results"][0]["valid"] is not False:
+            raise AssertionError(f"obs render: trial {i} decided "
+                                 f"{r['valid']!r}, phase 4 False: "
+                                 f"{r.get('error')}")
+        png = store.path(test, independent.DIR, 0, "linear.png")
+        import importlib.util
+        have_mpl = importlib.util.find_spec("matplotlib") is not None
+        if have_mpl:
+            if caught or not os.path.exists(png):
+                raise AssertionError(f"obs render: {caught}, {png}")
+        else:
+            if os.path.exists(png) or len(caught) != 1 \
+                    or caught[0].exc_info is None \
+                    or not isinstance(caught[0].exc_info[1],
+                                      ModuleNotFoundError) \
+                    or caught[0].exc_info[1].name != "matplotlib":
+                raise AssertionError(f"obs render: contained "
+                                     f"{[c.exc_info for c in caught]}")
+        test["results"], test["history"] = r, hist
+        store.write_test(test)
+        store.write_results(test)
+        store.write_history(test)
+        store.write_obs(test, final=True)
+        back = store.load(test["name"], test["start-time"])
+
+        def as_json(x):
+            return json.loads(json.dumps(x, cls=store._Encoder))
+        if back["results"] != as_json(r) or back["history"] != as_json(hist):
+            raise AssertionError("obs store: results or history read back "
+                                 "differ")
+        out["render"] = {
+            "trial": i, "valid": False, "matplotlib": have_mpl,
+            "linear_png": os.path.exists(png),
+            "contained": [type(c.exc_info[1]).__name__ for c in caught
+                          if c.exc_info],
+            "store_files": sorted(os.listdir(store.path(test)))}
+    finally:
+        shutil.rmtree(store.base_dir, ignore_errors=True)
+        store.base_dir = base
+    out["launches"] = launches
+    out["seconds"] = time.monotonic() - t_start
+    return out
 
 
 def batch_phase(keys, oracle):
@@ -1367,7 +1745,13 @@ def main(argv):
     gate, oracle = gate_phase(dev, keys, flat, trials, trial_rows)
     emit(gate)
 
-    # -- 6-8. the key batch, independent, the queue models -----------------
+    # -- 6. obs: the phase plane, heartbeats, the render and the store -----
+    obs_row = obs_phase(dev, keys, main_rows, oracle,
+                        gate["planned"]["unplanned_batch_s"], trials,
+                        trial_rows)
+    emit(obs_row)
+
+    # -- 7-9. the key batch, independent, the queue models -----------------
     row = batch_phase(keys, oracle)
     emit(row)
     ind = independent_phase(keys[:INDEPENDENT_KEYS])
@@ -1375,7 +1759,7 @@ def main(argv):
     queues = queue_phase(fifo)
     emit(queues)
 
-    # -- 9-10. the streaming fold and the txn closure ----------------------
+    # -- 10-11. the streaming fold and the txn closure ---------------------
     rollout.launches = 0
     emit(streamlin_phase(keys, dev))
     stream_launches = scan_only("streamlin")
@@ -1383,6 +1767,7 @@ def main(argv):
     emit(txn_phase(dev))
     txn_launches = scan_only("txn")
     by_path = {"main": main_launches, **gate["launches"],
+               **obs_row["launches"],
                "batch": row["rollout_launches"],
                "independent": ind["rollout_launches"],
                **{c["model"]: c["rollout_launches"]

@@ -102,6 +102,13 @@ def build_all():
     return dict(build_seconds)
 
 
+def loaded(name):
+    """Whether kernel source ``name``'s library is loaded in this
+    process (a search that launches it would otherwise build or load it
+    first)."""
+    return name in _libs
+
+
 def library(name):
     """The loaded ctypes library of kernel source ``name``, built on
     first use."""

@@ -23,10 +23,11 @@ host harness (ROADMAP.md queue A.11).
 from . import certify, searchplan  # noqa: F401
 from .diagnostics import (Diagnostic, ERROR, INFO,  # noqa: F401
                           SEVERITIES, WARNING, diag, errors, render_text,
-                          severity_counts, to_json)
+                          run_analyzer, severity_counts, to_json)
 
 __all__ = [
     "Diagnostic", "ERROR", "WARNING", "INFO", "SEVERITIES", "diag",
-    "errors", "severity_counts", "render_text", "to_json", "searchplan",
+    "errors", "severity_counts", "render_text", "to_json", "run_analyzer",
+    "searchplan",
     "certify",
 ]

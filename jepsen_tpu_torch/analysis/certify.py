@@ -28,6 +28,9 @@ artifacts:
 
 Containment: findings NEVER flip a verdict. The in-run hook
 (``checker.core.certify_verdict``) wraps this module in try/except.
+Every engine replay runs with the obs sinks suppressed (``_quiet_replay``),
+so a certified check reports the same search series as an uncertified
+one.
 
 Code catalogue:
   VC001 error  illegal transition replaying a witness order
@@ -272,6 +275,16 @@ def _segment_diags(spec, client_hist, result, min_seg, checks):
 # ---------------------------------------------------------------------------
 # invalid verdicts: bounded independent cross-check
 
+def _quiet_replay(fn, *args, **kwargs):
+    """Run an engine replay with the obs sinks suppressed for this
+    context: certification re-searches are analysis overhead, and
+    letting them bump wgl.searches / chunk counters would corrupt the
+    run's own search accounting (one logical search per check)."""
+    from .. import obs
+    with obs.sink_scope(None, None):
+        return fn(*args, **kwargs)
+
+
 def _linear_check(spec, e, init_state, budget):
     from ..checker import linear
     return linear.check_encoded(spec, e, init_state,
@@ -300,7 +313,7 @@ def _cross_check_diags(spec, client_hist, e, init_state, result,
         # count mismatches fall back to the whole history; the
         # segment pass reports VC007 for them
     et, it = target
-    r = engine_fn(spec, et, it, budget)
+    r = _quiet_replay(engine_fn, spec, et, it, budget)
     v = r.get("valid")
     if v is True:
         diags.append(diag(
@@ -377,8 +390,9 @@ def _differential_diags(spec, client_hist, result, samples, budget,
         got = {}
         for nm in engines:
             try:
-                got[nm] = DIFF_ENGINES[nm](spec, e_s, init_s, budget,
-                                           device=device).get("valid")
+                got[nm] = _quiet_replay(DIFF_ENGINES[nm], spec, e_s,
+                                        init_s, budget,
+                                        device=device).get("valid")
             except Exception:  # noqa: BLE001 - coverage note, not fatal
                 logger.warning("differential engine %s crashed", nm,
                                exc_info=True)

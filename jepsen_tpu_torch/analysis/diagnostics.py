@@ -1,6 +1,6 @@
 """Structured diagnostics shared by the port's analyzers (the part of
-``jepsen_tpu/analysis/diagnostics.py`` they use; ``run_analyzer``, the
-obs span around an analyzer, waits for the obs glue, ROADMAP.md A.7).
+``jepsen_tpu/analysis/diagnostics.py`` they use, with ``run_analyzer``,
+the obs span around an analyzer).
 
 One record type -- ``Diagnostic{code, severity, location, message,
 fix_hint}`` -- flows from every analyzer through the same renderers:
@@ -14,6 +14,8 @@ can't be trusted), ``warning`` (legal but suspicious or wasteful),
 from __future__ import annotations
 
 import dataclasses
+
+from .. import obs
 
 ERROR = "error"
 WARNING = "warning"
@@ -96,3 +98,25 @@ def to_json(diags):
     return {"diagnostics": [d.to_dict() for d in sort_by_severity(diags)],
             "counts": severity_counts(diags)}
 
+
+# ---------------------------------------------------------------------------
+# instrumented runner: lint cost and findings land in trace.jsonl /
+# metrics.json like any other subsystem
+
+def run_analyzer(name, fn, *args, **kwargs):
+    """Run one analyzer under an obs span, counting its findings.
+
+    Emits span ``analysis.<name>`` (cat "analysis"), latency histogram
+    ``analysis.run_s`` and counter ``analysis.diagnostics`` labeled by
+    analyzer + severity -- all no-ops while obs is unbound."""
+    t0 = obs.now_ns()
+    with obs.span(f"analysis.{name}", cat="analysis"):
+        diags = list(fn(*args, **kwargs))
+    if obs.enabled():
+        obs.observe("analysis.run_s", (obs.now_ns() - t0) / 1e9,
+                    analyzer=name)
+        for sev, n in severity_counts(diags).items():
+            if n:
+                obs.inc("analysis.diagnostics", n, analyzer=name,
+                        severity=sev)
+    return diags

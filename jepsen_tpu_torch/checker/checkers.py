@@ -17,6 +17,15 @@ sealed quiescent cuts slice it into segments that run as one key batch
 out with ``test["searchplan?"] = False``. Unlike the JAX package, a
 fault of the planner or of the planned batch raises: it does not fall
 back to the flat search.
+
+An invalid verdict renders its witness as ``linear.png``
+(``linear_report``), as the JAX package does; the render is contained,
+so a plotting failure (no matplotlib on the machine) is logged and the
+verdict returned unchanged. Unlike the JAX package, the render gets the
+checker's own ``opts``, so a per-key file lands in the key's
+subdirectory (ROADMAP.md C.5), and a test map without a store directory
+(no ``name`` or ``start-time``) renders nothing, as the JAX package's
+per-key files skip it (``jepsen_tpu/independent.py:443``).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import threading
 import time
 
 from .. import history as h
+from .. import obs
 from ..models import base as mbase
 from .core import Checker
 
@@ -120,6 +130,18 @@ class Linearizable(Checker):
             a["final_paths"] = a["final_paths"][:10]
         if "configs" in a:
             a["configs"] = a["configs"][:10]
+        if a.get("valid") is False and isinstance(test, dict) \
+                and test.get("name") and test.get("start-time"):
+            # render the failure witness like the reference's linear.svg
+            # (checker.clj:206-212) into the test's store directory (a
+            # test map without one has nowhere to put it); the verdict is
+            # final here, and plotting never changes it
+            try:
+                from . import linear_report
+                linear_report.render_analysis(test, client_hist, a, opts)
+            except Exception:  # noqa: BLE001 - host-only plotting
+                logger.warning("couldn't render linear.png",
+                               exc_info=True)
         a["valid?"] = a["valid"]
         return a
 
@@ -173,7 +195,10 @@ class Linearizable(Checker):
             if isinstance(w, dict):
                 w["segment"] = {"index": i, "count": len(segs),
                                 "seed": s.seed}
-        return searchplan.merge_segment_results(results, info, plan_s)
+        merged = searchplan.merge_segment_results(results, info, plan_s)
+        obs.inc("checker.planned_checks", valid=str(merged.get("valid")))
+        obs.observe("checker.plan_s", plan_s)
+        return merged
 
     def _competition(self, e, init_state):
         """Race the sequential oracle (2M configs) and the JIT
@@ -242,6 +267,9 @@ class Linearizable(Checker):
         r = dict(winner["result"])
         r["engine"] = winner["engine"]
         race.winner = winner["engine"]
+        obs.inc("checker.competition_wins", engine=r["engine"])
+        obs.instant("checker.competition", cat="checker",
+                    winner=r["engine"], valid=str(r.get("valid")))
         return r
 
 

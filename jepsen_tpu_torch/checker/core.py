@@ -7,10 +7,11 @@ False > "unknown" > True (checker.clj:29-50).
 The part of ``jepsen_tpu.checker.core`` the port needs: validity merging,
 the checker protocol and its combinators, and ``check``, which certifies
 a decided Linearizable verdict after the checker returns
-(``certify_verdict``, ``analysis/certify.py``). The history lint and the
-plan report of record that ``jepsen_tpu.checker.core.check`` also runs
-(``lint_history``, ``plan_history``) and the obs spans of ``check_safe``
-wait for the host harness and the obs glue (ROADMAP.md queue A).
+(``certify_verdict``, ``analysis/certify.py``), and ``check_safe``,
+which traces every (sub)checker run. The history lint and the plan
+report of record that ``jepsen_tpu.checker.core.check`` also runs
+(``lint_history``, ``plan_history``) wait for the host harness
+(ROADMAP.md A.11(a)).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import threading
 import traceback
 
 from .. import history as h
+from .. import obs
 from ..util import real_pmap
 
 __all__ = ["Checker", "check", "check_safe", "compose", "noop",
@@ -82,6 +84,11 @@ def as_checker(c) -> Checker:
     raise TypeError(f"not a checker: {c!r}")
 
 
+def checker_name(checker):
+    """Human-readable checker name for spans/metrics."""
+    return getattr(checker, "name", None) or type(checker).__name__
+
+
 _certify_lock = threading.Lock()
 
 
@@ -114,11 +121,19 @@ def certify_verdict(checker, test, hist, result, key=None):
         from .. import analysis
         cfg = certify.config(test)
         client = checker.prepare_history(h.client_ops(hist))
-        cert, diags = certify.certify_with_diagnostics(
-            checker.spec, client, result, test=test,
-            samples=cfg["samples"], budget=cfg["budget"],
-            init_ops=checker.init_ops, key=key,
-            device=checker.engine_opts.get("device"))
+        holder = {}
+
+        def build():
+            cert, diags = certify.certify_with_diagnostics(
+                checker.spec, client, result, test=test,
+                samples=cfg["samples"], budget=cfg["budget"],
+                init_ops=checker.init_ops, key=key,
+                device=checker.engine_opts.get("device"))
+            holder["cert"] = cert
+            return diags
+
+        diags = analysis.run_analyzer("certify", build)
+        cert = holder["cert"]
         report = analysis.to_json(diags)
         report["summary"] = {"verdict": cert["verdict"],
                              "engine": cert["engine"],
@@ -126,6 +141,11 @@ def certify_verdict(checker, test, hist, result, key=None):
         test.setdefault("analysis", {})["certify"] = report
         test["certificate"] = cert
         errs = analysis.errors(diags)
+        if obs.enabled():
+            obs.inc("analysis.certify.runs",
+                    verdict=str(result.get("valid")))
+            if errs:
+                obs.inc("analysis.certify.vc_errors", len(errs))
         if errs:
             logger.warning(
                 "%s", analysis.render_text(
@@ -147,11 +167,22 @@ def check(checker, test, hist, opts=None):
 
 def check_safe(checker, test, hist, opts=None):
     """Like check, but exceptions become {"valid": "unknown"}
-    (checker.clj:74-85)."""
+    (checker.clj:74-85). Every (sub)checker run -- Compose fans out
+    through here too -- gets a trace span + latency observation."""
+    name = checker_name(checker)
+    t0 = obs.now_ns()
     try:
-        return check(checker, test, hist, opts)
+        result = check(checker, test, hist, opts)
     except Exception:  # noqa: BLE001 - mirrors reference behavior
-        return {"valid": "unknown", "error": traceback.format_exc()}
+        result = {"valid": "unknown", "error": traceback.format_exc()}
+    if obs.enabled():
+        dur = obs.now_ns() - t0
+        obs.complete(f"checker.{name}", t0, dur, cat="checker",
+                     valid=str(result.get("valid")))
+        obs.observe("checker.check_s", dur / 1e9, checker=name)
+        obs.inc("checker.checks", checker=name,
+                valid=str(result.get("valid")))
+    return result
 
 
 class Compose(Checker):

@@ -60,8 +60,10 @@ and issues torch ops:
 ``check_encoded`` is the offline face: one fold over a whole encoded
 history, with the verdict names of ``linear.check_encoded``.
 ``FoldJob``/``solo_fold``/``batch_fold`` run one stream or many streams
-of one shape in one fold. The reference's coalescer lane
-(``fold_lane_spec``) and its search telemetry are not ported.
+of one shape in one fold; under a bound obs registry ``batch_fold``
+records the JAX batch fold's plan and heartbeat (``obs/search.py``)
+from numbers it has already read. The reference's coalescer lane
+(``fold_lane_spec``) waits for ROADMAP.md A.11(d).
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ import torch
 
 from .. import resolve_device
 from ..history import INF_TIME
+from ..obs import search as obs_search
 from ..util import bucket as _bucket
 from ..xp import TORCH
 from . import words
@@ -443,6 +446,7 @@ def batch_fold(jobs):
     groups: dict = {}
     for i, job in enumerate(jobs):
         groups.setdefault(job.shape_key(), []).append(i)
+    t0 = time.monotonic()
     for _key, idxs in groups.items():
         members = [jobs[i] for i in idxs]
         if len(members) == 1:
@@ -468,6 +472,15 @@ def batch_fold(jobs):
                     ev["ev_slot"], members[0].C)
         for i, r in zip(idxs, _results(out, batch=len(members))):
             results[i] = r
+    dt = time.monotonic() - t0
+    so = obs_search.capture()
+    so.plan("streamlin-batch",
+            _bucket(max((len(j) for j in jobs), default=1), EVENT_FLOOR),
+            sum(len(j) for j in jobs), sum(j.E for j in jobs),
+            keys=len(jobs), owners=1)
+    so.heartbeat("streamlin-batch", iteration=1, chunk_s=dt, device_s=dt,
+                 frontier=max((r["n_live"] for r in results if r),
+                              default=0))
     return results
 
 

@@ -33,9 +33,12 @@ the machinery:
 The result's ``engine`` stays ``"jax-wgl"``: it is the name test maps and
 the certifier (``jepsen_tpu.analysis.certify.DEVICE_ENGINES``) know this
 engine by. Checkpoints share the JAX package's snapshot format, so a
-search snapshotted by one engine resumes in the other. Not ported yet
-(ROADMAP.md queue A): the obs phase and heartbeat hooks and the mesh
-block.
+search snapshotted by one engine resumes in the other. Under a bound obs
+registry the search reports the JAX engine's series: ``wgl.phase_s`` by
+phase (``obs/phases.py``), one heartbeat per chunk and a summary
+(``obs/search.py``). Unbound, or with ``phases?`` off, it makes exactly
+the syncs and launches it makes without obs. Not ported yet (ROADMAP.md
+A.10): the mesh block.
 """
 
 from __future__ import annotations
@@ -51,8 +54,10 @@ import zipfile
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import _build, resolve_device
 from ..history import INF_TIME
+from ..obs import phases as obs_phases
+from ..obs import search as obs_search
 from ..util import DEFAULT_N_FLOOR
 from ..xp import NP, TORCH
 from . import rollout, words
@@ -744,6 +749,9 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
             it += 1
         return carry
 
+    # whether a chunk launches the rollout kernel (obs arms its compile
+    # phase on the first dispatch that builds or loads the library)
+    run_chunk.uses_kernel = use_kernel
     return init_carry, body, run_chunk
 
 
@@ -891,20 +899,31 @@ def check_encoded(spec, e, init_state, max_configs=50_000_000,
     a fingerprint hashed over the same host arrays as ``jax_wgl``'s, so a
     snapshot written by either engine resumes in the other. A file
     holding another check's snapshot is left alone."""
+    # phase cursor (obs.phases): this search's wall by phase; a pair of
+    # clock reads per lap when obs is unbound
+    ph = obs_phases.capture("jax-wgl")
     dev = resolve_device(device)
     prep = _prepare_search(spec, e, init_state, confirm)
     if prep[0] == "fast":
         return prep[1]
     (perm, inv32, ret32, fop, args, rets, ok_words, init_state, n_pad,
      C, A, S) = prep[1]
+    ph.lap("encode")
     B, W, O, T = _plan_sizes(n_pad, S, C, frontier_width, stack_size,
                              table_size)
     max_iters = max(1, max_configs // W)
     init_carry, _, run_chunk = _build_search(
         spec.step, 1, n_pad, B, S, C, A, W, O, T, R=rollout_depth,
         NS=rollout_seeds, rollout_kernel=rollout_kernel, device=str(dev))
+    # the first dispatch that builds or loads the kernel's library is
+    # the build's wall, not the search's
+    ph.note_compile(dev.type == "cuda" and run_chunk.uses_kernel
+                    and not _build.loaded("rollout"))
+    ph.lap("plan")
     consts = make_consts(inv32, ret32, fop, args, rets, ok_words, dev)
     carry = init_carry(init_state[None])
+    ph.sync(carry)
+    ph.lap("h2d")
     fingerprint = None
     if checkpoint is not None:
         fingerprint = search_fingerprint(
@@ -923,15 +942,40 @@ def check_encoded(spec, e, init_state, max_configs=50_000_000,
     t0 = time.monotonic()
     last_ckpt = t0
     timed_out = False
+    # sinks captured ONCE at search start: a competition straggler must
+    # not write into a later run's artifacts
+    so = obs_search.capture()
+    so.plan("jax-wgl", n_pad, len(e), n_pad)
     it = int(carry[IDX_IT][0])
     eff = min(chunk_iters, 32, max(1, (32 * 16384) // n_pad))
     while True:
         prev_it = it
         t_chunk = time.monotonic()
+        ph.lap("host")
         carry = run_chunk(carry, consts, min(it + eff, max_iters))
-        status, top, it = (int(x) for x in torch.stack(
-            [carry[IDX_STATUS][0].to(torch.int64), carry[IDX_TOP][0],
-             carry[IDX_IT][0]]).tolist())
+        # the device bracket's synchronize exists only while phase
+        # attribution is on; the status read below is the chunk's sync
+        ph.sync(carry)
+        dev_s = ph.lap("device", iteration=it)
+        if so.enabled():
+            # the heartbeat's explored and witness depths ride the same
+            # single read, at the same two launches (cast and cat)
+            got = torch.cat(
+                [carry[IDX_STATUS][:1].to(torch.int64), carry[IDX_TOP][:1],
+                 carry[IDX_IT][:1], carry[IDX_EXPLORED][:1],
+                 carry[IDX_BEST_DEPTH][0]]).tolist()
+            status, top, it, explored = got[:4]
+            depth = max(0, max(got[4:]))
+        else:
+            status, top, it = (int(x) for x in torch.stack(
+                [carry[IDX_STATUS][0].to(torch.int64), carry[IDX_TOP][0],
+                 carry[IDX_IT][0]]).tolist())
+            explored = depth = None
+        ph.lap("d2h")
+        so.heartbeat("jax-wgl", iteration=it,
+                     chunk_s=time.monotonic() - t_chunk,
+                     device_s=dev_s if ph.enabled else None,
+                     frontier=top, explored=explored, depth=depth)
         if status != RUNNING or top == 0 or it >= max_iters:
             break
         now = time.monotonic()
@@ -950,6 +994,7 @@ def check_encoded(spec, e, init_state, max_configs=50_000_000,
                 save_carry(checkpoint, fingerprint, carry)
             break
 
+    ph.lap("host")
     out = {"status": carry[IDX_STATUS][0], "top": carry[IDX_TOP][0],
            "dropped": carry[IDX_DROPPED][0],
            "explored": carry[IDX_EXPLORED][0],
@@ -960,15 +1005,21 @@ def check_encoded(spec, e, init_state, max_configs=50_000_000,
     out = {k: v.cpu().numpy() for k, v in out.items()}
     out["best_lin"] = out["best_lin"].view(np.uint32)
     tstats = table_stats(carry)
+    ph.lap("d2h")
     if timed_out and int(out["status"]) == RUNNING and int(out["top"]) > 0:
-        return {"valid": "unknown", "error": "timeout",
-                "configs_explored": int(out["explored"]),
-                "iterations": int(out["iterations"]),
-                "engine": "jax-wgl", **tstats,
-                **({"checkpoint": checkpoint} if checkpoint else {})}
+        result = {"valid": "unknown", "error": "timeout",
+                  "configs_explored": int(out["explored"]),
+                  "iterations": int(out["iterations"]),
+                  "engine": "jax-wgl", **tstats,
+                  **({"checkpoint": checkpoint} if checkpoint else {})}
+        so.summary("jax-wgl", result)
+        ph.lap("host")
+        return result
     result = _interpret(spec, e, out, max_iters, confirm, init_state,
                         perm)
     result.update(tstats)
+    so.summary("jax-wgl", result)
+    ph.lap("host")
     # never clobber a snapshot that belongs to a different check
     if checkpoint is not None and _checkpoint_owned(checkpoint,
                                                     fingerprint):

@@ -222,10 +222,13 @@ def closure_passes() -> int:
 
 def _busy(dt: float):
     """Device-occupancy numerator: every device closure brackets its
-    synced wall here (the JAX package's ``txn.closure_busy_s``
-    counter, kept as a module-level seconds counter)."""
+    synced wall here, in a module-level seconds counter and in the obs
+    registry's ``txn.closure_busy_s`` (the JAX package's counter, the
+    same shape ``wgl.device_busy_s`` gives the search engines)."""
+    from .. import obs
     with _closure_lock:
         _closure_stats["busy_s"] += float(dt)
+    obs.inc("txn.closure_busy_s", float(dt), engine="txn-closure")
 
 
 def closure_busy_s() -> float:

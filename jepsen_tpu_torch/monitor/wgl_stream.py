@@ -44,15 +44,25 @@ Anything else -- a device or build error in a fold -- raises: the JAX
 package's catch-alls that degrade a crashed stream are not carried
 over. Every fold runs solo (``streamlin.solo_fold``); the reference's
 fleet coalescer lane comes with the host harness (ROADMAP.md A.11).
+
+Telemetry: the obs sinks in force when a ``StreamCheck`` is built are
+the ones it reports to for its whole life (``so.plan`` once, a
+``streamlin`` heartbeat per chunk check, and the JAX package's
+``monitor.*`` counters and gauges). ``monitor.stream_fallbacks`` has no
+counterpart: the reference counts its catch-all degrades there, which
+the port does not have.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..checker import streamlin
+from ..obs import search as obs_search
 from ..util import DEFAULT_N_FLOOR
 from ..util import bucket as _bucket
 from .stream import StreamEncoder
@@ -97,6 +107,10 @@ class StreamCheck:
         self.confirm_engine = opts.get("confirm-engine") or "jax-wgl"
         self.confirm_opts = {"device": self.device,
                              **(opts.get("confirm-opts") or {})}
+        # the sinks of this stream's whole life, captured now
+        _, self._reg = obs.current_sinks()
+        self.so = obs_search.capture()
+        self._planned = False
         # counters (stream_summary)
         self.checks = 0
         self.seal_folds = 0
@@ -180,6 +194,10 @@ class StreamCheck:
     def _degrade(self, reason):
         if self.fallback is None:
             self.fallback = str(reason)
+
+    def _inc(self, name, n=1):
+        if self._reg is not None:
+            self._reg.inc(name, n)
 
     def _admit(self, row):
         if not self._free:
@@ -294,6 +312,7 @@ class StreamCheck:
         IS the offline engine."""
         from . import engine as mengine
         self.flat_checks += 1
+        self._inc("monitor.stream_flat_checks")
         e, init = self.enc.materialize()
         r = dict(mengine.check_prefix(self.spec, e, init,
                                       engine=self.confirm_engine,
@@ -347,7 +366,13 @@ class StreamCheck:
             return r
 
     def _stream_check(self, cancel):
+        t0 = time.monotonic()
+        d0 = self.device_s
         self._ensure_committed()
+        if not self._planned:
+            self.so.plan("streamlin", self.F, len(self.enc), self.NW,
+                         owners=1)
+            self._planned = True
         open_rows = [r for r in self.enc._open.values() if not r.dead]
         horizon = min((r.invoke_idx for r in open_rows), default=None)
         pend = sorted(self._pending, key=lambda ev: (ev[0], ev[1]))
@@ -373,6 +398,7 @@ class StreamCheck:
             self._committed = (r["lin"], r["st"], r["live"],
                                r["open_w"])
             self.seal_folds += 1
+            self._inc("monitor.seal_folds")
             self.frontier_size = r["n_live"]
             self.frontier_peak = max(self.frontier_peak, r["n_live"])
             for _t, kind, row in seal_ev:
@@ -391,18 +417,32 @@ class StreamCheck:
         if probe_ev:
             r = self._fold(probe_ev, None, cancel)
             self.probe_folds += 1
+            self._inc("monitor.probe_folds")
             if r["status"] == 1:
                 return self._confirm(r, cancel)
             if r["status"] == 2:
                 # transient: the open window alone blew the cap; check
                 # this one chunk flat and keep the carry for the next
                 self.probe_overflows += 1
+                self._inc("monitor.stream_probe_overflows")
                 return self._flat_check(cancel, once=True)
             self.frontier_size = max(1, r["n_live"])
             self.frontier_peak = max(self.frontier_peak,
                                      self.frontier_size)
+        cells = self.fold_cells - cells0
+        self._inc("monitor.fold_cells", cells)
+        if self._reg is not None:
+            self._reg.set_gauge("monitor.frontier_size",
+                                int(self.frontier_size))
+            self._reg.max_gauge("monitor.frontier_peak",
+                                int(self.frontier_peak))
+        self.so.heartbeat("streamlin", iteration=self.checks,
+                          chunk_s=time.monotonic() - t0,
+                          device_s=self.device_s - d0,
+                          frontier=int(self.frontier_size),
+                          explored=int(self.fold_cells))
         return {"valid": True, "engine": "streamlin",
-                "configs_explored": self.fold_cells - cells0,
+                "configs_explored": cells,
                 "frontier": int(self.frontier_size)}
 
     def _confirm(self, r, cancel):
@@ -418,6 +458,7 @@ class StreamCheck:
         rr["suspect_slot"] = int(r.get("viol_slot", -1))
         if rr.get("valid") is not False:
             self.confirm_mismatches += 1
+            self._inc("monitor.stream_confirm_mismatches")
         return rr
 
     # -- reporting ------------------------------------------------------

@@ -17,9 +17,12 @@ The batch rolls its greedy chains on the scan path, one chain per key
 (``keyshard.py:214-226``, ``:271``): the rollout kernel serves single-key
 searches only. A batch checkpoints as the reference's does: the carry
 in the JAX package's layout, the alive-row map, the iteration and every
-already-harvested key's verdict, under the reference's fingerprint. Not
-ported yet (ROADMAP.md queue A): the mesh batch (A.10) and the obs phase
-and heartbeat hooks (A.7).
+already-harvested key's verdict, under the reference's fingerprint.
+Under a bound obs registry the batch reports the JAX batch's series
+(``wgl.phase_s``, a ``plan`` with keys, lanes and owners, one heartbeat
+per chunk with ``keys_alive``, ``keys_running`` and ``compactions``, a
+summary); their progress rides the chunk's one status read. Not ported
+yet (ROADMAP.md A.10): the mesh batch.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ from ..checker.torch_wgl import (IDX_BEST_DEPTH, IDX_BEST_LIN,
                                  max_point_concurrency, read_snapshot,
                                  table_stats, write_snapshot)
 from ..history import INF_TIME
+from ..obs import phases as obs_phases
+from ..obs import search as obs_search
 
 logger = logging.getLogger(__name__)
 
@@ -141,6 +146,8 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
     if K_real == 0:
         return []
 
+    # phase cursor (obs.phases): per-dispatch attribution of the batch
+    ph = obs_phases.capture("jax-wgl-batch")
     results = [None] * K_real
     live = []
     encs = {}
@@ -161,6 +168,7 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
         live.append(k)
     if not live:
         return results
+    ph.lap("encode")
 
     # common bucket sizes across live keys
     n_pad = _bucket(max(len(pairs[k][0]) for k in live),
@@ -209,6 +217,9 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
     while len(cols) < K:
         cols.append(_dummy_key(n_pad, S_pad, A))
         salts.append(0)
+    # the batch pins the scan rollout: no kernel library to build, so no
+    # compile phase
+    ph.lap("plan")
     perms = [c[7] for c in cols]          # host-only: witness decoding
     consts = make_batch_consts([c[:6] for c in cols], salts, dev)
 
@@ -256,19 +267,28 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
         alive = [j if j < len(live) else -1 for j in range(K)]
         harvested = {}
         it = 0
+    ph.sync(carry)
+    ph.lap("h2d")
     t0 = time.monotonic()
     last_ckpt = t0
     timed_out = False
     n_compactions = 0
+    # sinks captured once at search start (see obs.search)
+    so = obs_search.capture()
     n_owners = len({str(owners[k]) for k in live}) \
         if owners is not None else None
+    # padding accounting: the live keys' real rows against K * n_pad
+    so.plan("jax-wgl-batch", n_pad, sum(len(pairs[k][0]) for k in live),
+            K * n_pad, keys=len(live), lanes=K, owners=n_owners)
     # adaptive dispatch quantum (torch_wgl._adapt_quantum): ~1 s of
     # measured per-iteration wall, capped by the live-width term below
     # and by ``chunk_iters``; harvest and compaction run between chunks
     eff_chunk = max(1, min(chunk_iters, 8, (8 * 16384) // n_pad))
 
     def harvest(rows, carry):
+        ph.lap("host")
         got = {name: carry[i].cpu().numpy() for name, i in _HARVEST.items()}
+        ph.lap("d2h")
         got["best_lin"] = got["best_lin"].view(np.uint32)
         for r in rows:
             if alive[r] >= 0:
@@ -278,12 +298,29 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
         bound = min(it + eff_chunk, max_iters)
         t_chunk = time.monotonic()
         prev_it = it
+        ph.lap("host")
         carry = run_chunk(carry, consts, bound)
+        # the device bracket's synchronize exists only while phase
+        # attribution is on; the status read below is the chunk's sync
+        ph.sync(carry)
+        dev_s = ph.lap("device", iteration=bound)
         it = bound
-        # one host round trip for the whole progress state
-        status, top, its = torch.stack(
-            [carry[IDX_STATUS].to(torch.int64), carry[IDX_TOP],
-             carry[IDX_ITS]]).cpu().numpy()
+        # one host round trip for the whole progress state; bound, the
+        # heartbeat's per-row explored and witness depths ride it at the
+        # same two launches (cast and cat)
+        Kc = len(alive)
+        if so.enabled():
+            got = torch.cat(
+                [carry[IDX_STATUS].to(torch.int64), carry[IDX_TOP],
+                 carry[IDX_ITS], carry[IDX_EXPLORED],
+                 carry[IDX_BEST_DEPTH].reshape(-1)]).cpu().numpy()
+            status, top, its, explored_k = got[:4 * Kc].reshape(4, Kc)
+            bdepth = got[4 * Kc:]
+        else:
+            status, top, its = torch.stack(
+                [carry[IDX_STATUS].to(torch.int64), carry[IDX_TOP],
+                 carry[IDX_ITS]]).cpu().numpy()
+        ph.lap("d2h")
         now = time.monotonic()
         per_it = max(1e-4, (now - t_chunk) / max(1, it - prev_it))
         # chunk granularity shrinks as the live batch width grows, so
@@ -294,6 +331,22 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
             timeout_s - (now - t0) if timeout_s is not None else None)
         running = (status == RUNNING) & (top > 0) & (its < max_iters)
         n_run = int(running.sum())
+        if so.enabled():
+            # explored sums the LIVE rows only (compaction pads with a
+            # copy of a finished row) plus what harvested keys
+            # contributed before their rows were compacted away, so the
+            # gauge stays monotone across compactions
+            so.heartbeat(
+                "jax-wgl-batch", iteration=it,
+                chunk_s=time.monotonic() - t_chunk,
+                device_s=dev_s if ph.enabled else None,
+                frontier=int(top.sum()),
+                explored=sum(int(explored_k[r]) for r in range(Kc)
+                             if alive[r] >= 0)
+                + sum(int(hv["explored"]) for hv in harvested.values()),
+                depth=max(0, int(bdepth.max())),
+                keys_alive=Kc, keys_running=n_run,
+                compactions=n_compactions)
         if n_run == 0:
             harvest(range(len(alive)), carry)
             break
@@ -342,7 +395,9 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
     # the dedup table is shared across keys (key-salted), so occupancy
     # diagnostics are batch-wide: the same numbers go on every searched
     # key's result
+    ph.lap("host")
     tstats = table_stats(carry)
+    ph.lap("d2h")
     for j, k in enumerate(live):
         per = harvested[j]
         if (timed_out and int(per["status"]) == RUNNING
@@ -358,6 +413,16 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
         results[k]["compactions"] = n_compactions
         if n_owners is not None:
             results[k]["batch_owners"] = n_owners
+    so.summary(
+        "jax-wgl-batch",
+        {"valid": "batch",
+         "configs_explored": sum(int(hv["explored"])
+                                 for hv in harvested.values()),
+         "iterations": max((int(hv["iterations"])
+                            for hv in harvested.values()), default=0),
+         **tstats},
+        keys=len(live))
+    ph.lap("host")
     return results
 
 

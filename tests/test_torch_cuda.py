@@ -7,7 +7,11 @@ CPU, and the two incremental monitors card against CPU: the streaming
 fold (solo and lane-batched, every carry array), ``StreamCheck``, the
 closures (bf16 on the card, float32 on the CPU) and the txn checkers;
 the default gate ("competition") and a checkpoint resumed on the card
-and on the CPU. Every test is marked ``cuda`` and skips without a card (the kernels
+and on the CPU; under a bound obs registry, the main histories and a key
+batch make the launches they make unbound (and with ``phases?`` off),
+the phase plane's synchronize runs only while phases are on, and the
+compile phase is armed only when the kernel's library is not yet
+loaded. Every test is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
 
@@ -346,3 +350,85 @@ def test_checkpoint_resume_on_card(dev, tmp_path):
                                      checkpoint=ck, device=where)
         assert (r2["valid"], r2["iterations"]) \
             == (want["valid"], want["iterations"])
+
+
+MAIN = (("cas-register", 0.05), ("mutex", 0.02))
+
+
+@pytest.mark.parametrize("name,crash_p", MAIN)
+def test_obs_bound_search_launches_what_the_unbound_one_does(dev, name,
+                                                             crash_p,
+                                                             monkeypatch):
+    """The main-path histories (10k ops, 64 processes) unbound, bound,
+    and bound with ``phases?`` off: the same verdict, iterations and
+    rollout kernel launches; the phase plane synchronizes the card once
+    per chunk plus once for the initial carry, and only with phases on."""
+    from jepsen_tpu_torch import obs
+    hist = simulate.random_history(random.Random(45100), name, 64, 10_000,
+                                   crash_p)
+    spec = models.model_spec(name)
+    e, st = spec.encode(hist)
+    synced = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: (synced.append(d), real(d)))
+    got = {}
+    for mode, test in (("unbound", None), ("bound", {}),
+                       ("phases_off", {"phases?": False})):
+        rollout.launches = 0
+        synced.clear()
+        scope = obs.run_scope(dict(test)) if test is not None \
+            else obs.bind(None, None)
+        with scope:
+            r = torch_wgl.check_encoded(spec, e, st)
+            chunks = (obs.registry().counter_value("wgl.chunks",
+                                                   engine="jax-wgl")
+                      if obs.registry() is not None else None)
+        got[mode] = (r["valid"], r["iterations"], rollout.launches,
+                     len(synced), chunks)
+    assert got["unbound"][0] is True and got["unbound"][2] > 0
+    for mode in ("bound", "phases_off"):
+        assert got[mode][:3] == got["unbound"][:3], got
+    assert got["unbound"][3] == got["phases_off"][3] == 0
+    assert got["bound"][3] == got["bound"][4] + 1, got
+
+
+def test_obs_bound_batch_launches_what_the_unbound_one_does(dev):
+    """One iteration of a 16-key batch under the profiler: as many
+    kernels bound with ``phases?`` off as unbound."""
+    from jepsen_tpu_torch import obs
+    from jepsen_tpu_torch.profile_main import profile_call
+    spec = models.cas_register_spec
+    pairs = [spec.encode(hh) for hh in simulate.bench_histories(16)[0]]
+    parallel.check_batch_encoded(spec, pairs, max_configs=1)     # warm-up
+
+    def kernels():
+        _, _, ev = profile_call(lambda: parallel.check_batch_encoded(
+            spec, pairs, max_configs=1), host_ops=False)
+        return sum(x[3] for x in ev)
+
+    unbound = kernels()
+    with obs.run_scope({"phases?": False}):
+        bound = kernels()
+    assert unbound > 0 and bound == unbound
+
+
+def test_obs_compile_phase_armed_only_before_the_library_loads(
+        dev, monkeypatch):
+    """The first dispatch of a search whose rollout library was not yet
+    loaded is the ``compile`` phase; with the library loaded, none is."""
+    from jepsen_tpu_torch import _build, obs
+    spec = models.cas_register_spec
+    hist = simulate.random_history(random.Random(3), "cas-register", 16,
+                                   2_000, 0.05)
+    e, st = spec.encode(hist)
+    torch_wgl.check_encoded(spec, e, st)            # loads the library
+    names = {}
+    for loaded in (True, False):
+        monkeypatch.setattr(_build, "loaded", lambda name, v=loaded: v)
+        test = {}
+        with obs.run_scope(test):
+            torch_wgl.check_encoded(spec, e, st)
+        names[loaded] = [x["name"] for x in test["obs"]["tracer"].events()
+                         if x["name"] == "wgl.phase.compile"]
+    assert names[True] == [] and names[False] == ["wgl.phase.compile"]

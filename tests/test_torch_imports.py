@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax_or_jepsen_tpu():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 40    # every module of the slices
+    assert int(out.stdout.strip()) >= 49    # every module of the slices
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -164,6 +164,40 @@ for f in (searchplan.plan_segments, searchplan.merge_segment_results,
     assert callable(f)
 assert checkers.Linearizable("register").algorithm == "competition"
 assert certify.DEVICE_ENGINES[0] == "jax-wgl"
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_obs_and_store_modules_import_without_jax():
+    """The obs core (trace, metrics, the facade, search and phase
+    sessions), the store, the failure render and the analyzer runner
+    stand alone too, and export what the JAX package's do."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+from jepsen_tpu_torch import analysis, obs, store
+from jepsen_tpu_torch.checker import linear_report, perf
+from jepsen_tpu_torch.obs import metrics, phases, search, trace
+for name in ("bind", "run_scope", "sink_scope", "current_sinks",
+             "run_config", "live_registries", "enabled", "span",
+             "instant", "complete", "inc", "observe", "set_gauge",
+             "max_gauge", "flush", "load_trace", "trace_meta",
+             "load_metrics_journal", "render_prometheus"):
+    assert name in obs.__all__ and callable(getattr(obs, name)), name
+for f in (search.capture, phases.capture, phases.note_wait,
+          store.write_obs, store.write_results, store.write_history,
+          store.load_history, store.make_path, linear_report.render_analysis,
+          perf._out_path, analysis.run_analyzer, trace.load_trace,
+          metrics.load_metrics_journal):
+    assert callable(f)
+assert store.base_dir == "store"
+assert "matplotlib" not in sys.modules
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
