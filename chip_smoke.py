@@ -86,7 +86,23 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    render's containment caught exactly one ModuleNotFoundError naming
    it; ``results.json``, ``test.json`` and the history written by the
    port's store and read back equal.
-7. ``batch``: the JAX package's headline key batch at full width
+7. ``mesh``: the multi-device search over ``torch.distributed`` at world
+   size 1 (NCCL, a ``HashStore``, a 1-D "cuda" ``DeviceMesh``: the smoke
+   runs on one card). (a) The two main-path histories
+   through ``core.check`` with ``linearizable(jax-wgl, {"mesh": mesh})``
+   (the sharded single search, ``parallel/searchshard.py``): valid, the
+   certificate clean, iterations, explored configs and rollout kernel
+   launches equal to phase 3's flat runs, with the collective calls per
+   iteration and the walls beside phase 3's. (b) The six ``invalid``
+   trials through the same gate: phase 4's verdicts, every witness
+   certified clean. (c) The gate phase's 64 keys through
+   ``independent.checker`` with the mesh at ``chunk_iters=1`` (the mesh
+   key batch), planned and unplanned: per-key verdicts equal to the
+   gate's oracle, the walls beside the gate's unmeshed ones, no rollout
+   kernel launch. (d) A 2-D
+   (1, 1) mesh is refused with ValueError. The process group is torn
+   down at the end of the phase.
+8. ``batch``: the JAX package's headline key batch at full width
    (``simulate.bench_histories``, as ``bench.py`` rungs 2 and 2b draw
    it): 256 cas-register keys, 8 processes, 200 ops per key, crash_p
    0.02, every 8th key corrupted, through
@@ -97,14 +113,14 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    Both calls must decide alike. No key may be
    unknown, at least one must be invalid, and the first 32 verdicts must
    equal the CPU oracle's (the gate phase's).
-8. ``independent``: the first 64 of those keys wrapped in
+9. ``independent``: the first 64 of those keys wrapped in
    ``independent.tuple_`` and merged into one history, through
    ``independent.checker(compose({"linearizable": ..., "ok":
    unbridled_optimism()}))`` with the default gate and planning on:
    exactly one call of ``parallel.check_batch_encoded``, with every
    key's segments (92 pairs), and ``failures`` equal to the corrupted
    keys.
-9. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
+10. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
    batch (150 ops and 6 processes per key, crash_p 0.02, every 8th key
    corrupted) with the fast check off, so the device search with padded
    queue states decides, within ``QUEUE_MAX_CONFIGS`` (128 iterations of
@@ -120,7 +136,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``bench.py``'s rung-4 FIFO history through
    ``checkers.linearizable``, fast check on.
 
-10. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
+11. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
    torch ops) on keys of the batch above: (a) the offline face at the
    hard frontier cap on ``OFFLINE_KEYS`` (one of them corrupted), each
    verdict equal to the CPU sweep's (``linear``) and each violating op
@@ -134,7 +150,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    by the port's WGL engine: seconds, host syncs, passes and frontier
    peak per event. (b) and (c) are not profiled: gathering the
    profiler's events costs more than the run itself (PERF.md).
-11. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
+12. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
    serial list-append history of 16,384 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
    decides it valid on the card (one profiled call: squarings, closure
@@ -147,8 +163,8 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    same on the CPU; one squaring at n=16384 timed in float32, TF32 and
    bf16, all three boolean-identical.
 
-The competition, checkpoint, certify and obs paths run the rollout
-kernel (each counted). The planned, batch, independent, queue, streamlin and
+The competition, checkpoint, certify, obs and mesh paths run the
+rollout kernel (each counted). The planned, batch, independent, queue, streamlin and
 txn paths do not run it: each of them is run with the rollout kernel's
 launch
 count set to 0 and must leave it at 0. The batch pins the scan rollout,
@@ -1173,6 +1189,176 @@ def obs_phase(dev, keys, main_rows, gate_verdicts, gate_batch_s, trials,
     return out
 
 
+def mesh_phase(dev, main_rows, trials, trial_rows, keys, gate_verdicts,
+               gate_planned, n_ops=10_000, gate_keys=GATE_KEYS):
+    """The multi-device search over ``torch.distributed`` at world size 1
+    (the one card: NCCL on CUDA, gloo for a rehearsal on the CPU), on a
+    1-D ``DeviceMesh``. (a) The two main-path histories through
+    the checker with ``linearizable(jax-wgl, {"mesh": mesh})``, timed as
+    phase 3 timed the flat one, then through ``core.check``: valid, the
+    certificate clean, iterations, explored configs and rollout launches
+    equal to phase 3's flat runs (``main_rows``), and collective calls
+    per iteration. (b) The six ``invalid`` trials through the same
+    gate: phase 4's verdicts (the CPU oracle's), every witness certified
+    clean (the gate phase ran their differentials).
+    (c) The first ``gate_keys`` batch keys through
+    ``independent.checker`` with the mesh at ``chunk_iters=1``, planned
+    and unplanned: per-key verdicts equal to the gate's
+    (``gate_verdicts``), the walls beside the gate's unmeshed ones
+    (``gate_planned``); the batch paths launch no rollout kernel. (d) A
+    2-D (1, 1) mesh is refused with ValueError. The process group is
+    torn down at the end."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from jepsen_tpu_torch import independent, simulate
+    from jepsen_tpu_torch.checker import checkers, core, rollout, torch_wgl
+    from jepsen_tpu_torch.parallel import check_encoded_sharded
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    kw = {"device_id": torch.device("cuda", torch.cuda.current_device())} \
+        if cuda else {}
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            **kw)
+    out = {"phase": "mesh", "backend": dist.get_backend(), "world_size": 1}
+    try:
+        mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("search",))
+        flat = {r["model"]: r for r in main_rows if r["rollout"] == "kernel"}
+        launches = 0
+
+        def gate(**opts):
+            return checkers.linearizable(
+                {"model": "cas-register", "algorithm": "jax-wgl",
+                 "engine_opts": {"mesh": mesh, **opts}})
+
+        # (a) the main-path histories, sharded at world size 1
+        rows = []
+        with Certified(dev) as cert:
+            for model, crash_p in MAIN_HISTORIES:
+                hist = simulate.random_history(random.Random(45100), model,
+                                               64, n_ops, crash_p)
+                test = {"certify": dict(GATE_CERTIFY)}
+                chk = checkers.linearizable(
+                    {"model": model, "algorithm": "jax-wgl",
+                     "engine_opts": {"mesh": mesh}})
+                # the checker alone, as phase 3 timed the flat one
+                rollout.launches = 0
+                torch_wgl.collective_calls = 0
+                t0 = time.monotonic()
+                r = chk.check({}, hist)
+                sync(dev)
+                check_s = time.monotonic() - t0
+                calls = torch_wgl.collective_calls
+                got = {"valid": r["valid"], "engine": r.get("engine"),
+                       "iterations": r.get("iterations"),
+                       "configs_explored": r.get("configs_explored"),
+                       "rollout_launches": rollout.launches}
+                # then through core.check: lint, plan report, certificate
+                rollout.launches = 0
+                t0 = time.monotonic()
+                rc = core.check(chk, test, hist)
+                wall = time.monotonic() - t0
+                run = cert.runs[-1]
+                if (rc["valid"], rc.get("iterations"),
+                        run["launches_before"]) != (
+                        got["valid"], got["iterations"],
+                        got["rollout_launches"]):
+                    raise AssertionError(f"mesh {model}: core.check "
+                                         f"{rc['valid']!r} differs from "
+                                         f"the checker's run")
+                want = {"valid": True, "engine": "jax-wgl-sharded",
+                        "iterations": flat[model]["iterations"],
+                        "configs_explored":
+                            flat[model]["configs_explored"],
+                        "rollout_launches":
+                            flat[model]["rollout_launches"]}
+                if got != want or (cuda and got["rollout_launches"] <= 0):
+                    raise AssertionError(f"mesh {model}: {got} != flat "
+                                         f"{want}")
+                launches += got["rollout_launches"]
+                rows.append({
+                    "model": model, **got, "shards": r["shards"],
+                    "shard_explored": r["shard_explored"],
+                    "check_s": check_s, "flat_wall_s": flat[model]["wall_s"],
+                    "core_check_s": wall,
+                    "collective_calls": calls,
+                    "collectives_per_iteration": calls / got["iterations"],
+                    "certify_s": run["certify_s"],
+                    "certificate": certificate_clean(f"mesh {model}", test,
+                                                     rc)})
+            out["main"] = rows
+
+            # (b) the six invalid trials through the mesh gate, their
+            # witnesses certified (the gate phase ran their differentials)
+            trows = []
+            for i, hist in enumerate(trials):
+                test = {"certify": dict(GATE_CERTIFY)}
+                rollout.launches = 0
+                t0 = time.monotonic()
+                r = core.check(gate(), test, hist)
+                wall = time.monotonic() - t0
+                run = cert.runs[-1]
+                if r["valid"] is not trial_rows[i]["valid"]:
+                    raise AssertionError(f"mesh trial {i}: {r['valid']!r} "
+                                         f"!= the CPU oracle's")
+                launches += run["launches_before"]
+                trows.append({"trial": i, "valid": r["valid"],
+                              "engine": r.get("engine"),
+                              "iterations": r.get("iterations"),
+                              "rollout_launches": run["launches_before"],
+                              "wall_s": wall,
+                              "certify_s": run["certify_s"],
+                              **certificate_clean(f"mesh trial {i}", test,
+                                                  r)})
+            out["invalid"] = trows
+
+        # (c) the gate's keys through the mesh key batch
+        hist = keyed_history(keys[:gate_keys])
+        chk = independent.checker(gate(chunk_iters=1))
+        batch = {}
+        rollout.launches = 0
+        for name, test in (("planned", {"certify?": False}),
+                           ("unplanned", {"searchplan?": False,
+                                          "certify?": False})):
+            torch_wgl.collective_calls = 0
+            t0 = time.monotonic()
+            r = core.check(chk, test, hist)
+            sync(dev)
+            wall = time.monotonic() - t0
+            verdicts = [r["results"][k]["valid"]
+                        for k in range(len(gate_verdicts))]
+            if verdicts != list(gate_verdicts):
+                bad = [k for k, (g, w) in enumerate(zip(verdicts,
+                                                        gate_verdicts))
+                       if g != w]
+                raise AssertionError(f"mesh batch ({name}): keys {bad} "
+                                     f"differ from the gate's verdicts")
+            batch[name] = {"wall_s": wall,
+                           "unmeshed_wall_s": gate_planned[f"{name}_wall_s"],
+                           "collective_calls": torch_wgl.collective_calls,
+                           "failures": r["failures"]}
+        out["batch"] = {"keys": gate_keys, **batch,
+                        "rollout_launches": scan_only("mesh batch")}
+
+        # (d) a mesh of any other shape is refused
+        flat_mesh = init_device_mesh(dev.type, (1, 1),
+                                     mesh_dim_names=("a", "b"))
+        from jepsen_tpu_torch import models
+        spec = models.cas_register_spec
+        try:
+            check_encoded_sharded(spec, *spec.encode(trials[0]), flat_mesh)
+        except ValueError as err:
+            out["two_d_refused"] = str(err)
+        else:
+            raise AssertionError("mesh: a 2-D mesh was not refused")
+        out["launches"] = launches
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
 def batch_phase(keys, oracle):
     """The 256-key headline batch: a profiled call (the warm-up), then a
     timed call; the first 32 verdicts against the CPU oracle's
@@ -1751,7 +1937,12 @@ def main(argv):
                         trial_rows)
     emit(obs_row)
 
-    # -- 7-9. the key batch, independent, the queue models -----------------
+    # -- 7. mesh: the multi-device search at world size 1 ------------------
+    mesh_row = mesh_phase(dev, main_rows, trials, trial_rows, keys, oracle,
+                          gate["planned"])
+    emit(mesh_row)
+
+    # -- 8-10. the key batch, independent, the queue models ----------------
     row = batch_phase(keys, oracle)
     emit(row)
     ind = independent_phase(keys[:INDEPENDENT_KEYS])
@@ -1759,7 +1950,7 @@ def main(argv):
     queues = queue_phase(fifo)
     emit(queues)
 
-    # -- 10-11. the streaming fold and the txn closure ---------------------
+    # -- 11-12. the streaming fold and the txn closure ---------------------
     rollout.launches = 0
     emit(streamlin_phase(keys, dev))
     stream_launches = scan_only("streamlin")
@@ -1767,7 +1958,7 @@ def main(argv):
     emit(txn_phase(dev))
     txn_launches = scan_only("txn")
     by_path = {"main": main_launches, **gate["launches"],
-               **obs_row["launches"],
+               **obs_row["launches"], "mesh": mesh_row["launches"],
                "batch": row["rollout_launches"],
                "independent": ind["rollout_launches"],
                **{c["model"]: c["rollout_launches"]

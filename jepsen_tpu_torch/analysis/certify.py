@@ -1,6 +1,7 @@
 """certify -- proof-carrying verdicts: static certification of every
-linearizability result from its own artifacts (VC001-VC011), a copy of
-the in-memory half of ``jepsen_tpu/analysis/certify.py``.
+linearizability result from its own artifacts (VC001-VC012), a copy of
+the in-memory half of ``jepsen_tpu/analysis/certify.py`` and of its disk
+path (``certify_run``).
 
 A linearizability verdict is cheaply *certifiable* from a witness order
 even when *finding* it is NP-hard: a claimed linearization is checked in
@@ -44,16 +45,20 @@ Code catalogue:
   VC009 info   certification budget exhausted; claim unconfirmed
   VC010 error  differential divergence between engines
   VC011 info   differential sample undecided / partial coverage
+  VC012 error  persisted certificate unreadable or disagreeing with the
+               run's results.json (``certify_run``, over a run directory
+               written by the port's ``store``)
 
-VC012 (a persisted certificate against a run directory, ``certify_run``)
-and VC013 (txn cycle witnesses) wait for the store and the txn
-certifier of the host harness (ROADMAP.md queue A.11), as do the
-monitor and campaign entry points.
+VC013 (txn cycle witnesses) waits for the txn certifier of the host
+harness (ROADMAP.md queue A.11), as do the monitor and campaign entry
+points.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 
 import numpy as np
 
@@ -70,7 +75,7 @@ SCHEMA = 1
 #: engines whose verdicts come off the device -- a missing witness on
 #: a decided verdict here is the schema-drift tripwire (VC006); the
 #: CPU engines and the polynomial fast paths legitimately emit none
-DEVICE_ENGINES = ("jax-wgl",)
+DEVICE_ENGINES = ("jax-wgl", "jax-wgl-sharded")
 
 #: differential segments sampled per run (test["certify"]["samples"])
 DEFAULT_SAMPLES = 1
@@ -511,3 +516,205 @@ def certify_with_diagnostics(spec, client_hist, result, test=None,
     cert["counts"] = rep["counts"]
     return cert, diags
 
+
+# ---------------------------------------------------------------------------
+# disk path: certify an existing run directory from its artifacts
+
+def _load_json(run_dir, name):
+    try:
+        with open(os.path.join(run_dir, name)) as f:
+            return json.load(f)
+    except FileNotFoundError:
+        return None
+    except Exception:  # noqa: BLE001 - unreadable, reported as VC012
+        return "unreadable"
+
+
+def _load_run_history(run_dir):
+    """history.jsonl (journal fallback, torn last line dropped) --
+    mirrors store.load_history without needing a test map."""
+    for name in ("history.jsonl", "history.jsonl.journal"):
+        p = os.path.join(run_dir, name)
+        if not os.path.exists(p):
+            continue
+        hist = []
+        with open(p) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    hist.append(json.loads(line))
+                except json.JSONDecodeError:
+                    continue
+        return hist
+    return []
+
+
+def _sub_keyed(hist, key):
+    """``independent.subhistory`` over a RELOADED history: ``[k v]``
+    tuples come back from history.jsonl as plain 2-lists, so match both
+    the live Tuple and the JSON shape. Un-keyed ops (nemesis, logging)
+    appear in every subhistory, like the reference."""
+    from ..independent import is_tuple
+    out = []
+    for op in hist:
+        v = op.get("value")
+        if is_tuple(v):
+            if v.key == key:
+                out.append(dict(op, value=v.value))
+        elif isinstance(v, list) and len(v) == 2:
+            if v[0] == key:
+                out.append(dict(op, value=v[1]))
+        else:
+            out.append(op)
+    return out
+
+
+def find_linearizable_result(results):
+    """The Linearizable sub-result inside a (possibly composed) results
+    map: the dict carrying ``valid?`` (the gate stamps it), preferring
+    one with a witness."""
+    found = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            if "valid?" in x:
+                found.append(x)
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(results)
+    for r in found:
+        if isinstance(r.get("witness"), dict) \
+                or isinstance(r.get("witnesses"), list):
+            return r
+    return found[0] if found else None
+
+
+def _keyed_result(results, key):
+    """The certified key's own sub-result inside a keyed (independent)
+    results map, wherever the composed checker tree nested it -- JSON
+    object keys are strings, so match both the live and the reloaded
+    key."""
+    hits = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            rs = x.get("results")
+            if isinstance(rs, dict):
+                for kk in (key, str(key)):
+                    r = rs.get(kk)
+                    if isinstance(r, dict):
+                        hits.append(r)
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(results)
+    for r in hits:
+        if "valid?" not in r:
+            # Compose-shaped inner: the Linearizable leg carries valid?
+            r = find_linearizable_result(r) or r
+        if isinstance(r, dict) and r.get("valid") in (True, False):
+            return r
+    return None
+
+
+def certify_run(run_dir, budget=None, samples=0, device=None):
+    """Certify an existing run directory purely from its persisted
+    artifacts: replay certificate.json's witness against the re-encoded
+    history.jsonl and cross-check it against results.json (VC012 when
+    they disagree or the certificate is unreadable). ``samples``
+    defaults to 0 on disk -- the differential replays are an in-run
+    concern; pass a positive count to rerun them (their device replay
+    runs on ``device``, None meaning CUDA). Returns ``(summary,
+    diagnostics)``; summary is None when the directory has no readable
+    results.json."""
+    diags = []
+    results = _load_json(run_dir, "results.json")
+    if results == "unreadable" or not isinstance(results, dict):
+        if results == "unreadable":
+            diags.append(diag(
+                "VC012", ERROR, "results.json is unreadable; nothing "
+                "to certify against", os.path.join(run_dir,
+                                                   "results.json")))
+        return None, diags
+    cert = _load_json(run_dir, "certificate.json")
+    summary = {"run": run_dir, "certified": False}
+    if cert == "unreadable":
+        diags.append(diag(
+            "VC012", ERROR,
+            "certificate.json is unreadable (corrupt JSON): the "
+            "persisted proof cannot certify this run",
+            os.path.join(run_dir, "certificate.json"),
+            "regenerate by re-running the test, or delete the "
+            "corrupt file"))
+    elif cert is None:
+        summary["checks"] = [{"name": "certificate",
+                              "status": "absent"}]
+    else:
+        ctx = cert.get("context") or {}
+        lin_result = _keyed_result(results, ctx["key"]) \
+            if ctx.get("key") is not None else None
+        if lin_result is None:
+            lin_result = find_linearizable_result(results)
+        rv = lin_result.get("valid") if isinstance(lin_result, dict) \
+            else results.get("valid")
+        if cert.get("verdict") != rv:
+            diags.append(diag(
+                "VC012", ERROR,
+                f"certificate.json records verdict "
+                f"{cert.get('verdict')!r} but results.json says "
+                f"{rv!r}: the persisted certificate disagrees with "
+                "the run's results",
+                os.path.join(run_dir, "certificate.json"),
+                "one of the two artifacts was modified after the "
+                "run"))
+        model = ctx.get("model") or cert.get("model")
+        try:
+            from ..models import base as mbase
+            spec = mbase.model_spec(model)
+        except Exception:  # noqa: BLE001 - unknown/renamed model
+            diags.append(diag(
+                "VC012", ERROR,
+                f"certificate names unknown model {model!r}; the "
+                "history cannot be re-encoded for replay",
+                os.path.join(run_dir, "certificate.json")))
+            spec = None
+        if spec is not None:
+            from ..checker.checkers import Linearizable
+            lin = Linearizable(spec, init_ops=ctx.get("init_ops"))
+            hist = h.ensure_indexed(_load_run_history(run_dir))
+            if ctx.get("key") is not None:
+                # keyed run: the certificate proves ONE key's verdict
+                hist = _sub_keyed(hist, ctx["key"])
+            client = lin.prepare_history(h.client_ops(hist))
+            # re-certify the PERSISTED proof (not the result's): a
+            # tampered certificate must fail its own replay
+            replay = {"valid": rv, "engine": cert.get("engine"),
+                      "witness": cert.get("witness"),
+                      "witnesses": cert.get("witnesses"),
+                      "searchplan": cert.get("searchplan")}
+            test = {"searchplan-min-segment": ctx.get("min_segment")} \
+                if ctx.get("min_segment") else None
+            fresh, fdiags = certify_with_diagnostics(
+                spec, client, replay, test=test, samples=samples,
+                budget=budget or ctx.get("budget") or DEFAULT_BUDGET,
+                init_ops=ctx.get("init_ops"),
+                differential=samples > 0, key=ctx.get("key"),
+                device=device)
+            diags += fdiags
+            summary.update(certified=True, verdict=rv,
+                           model=str(spec.name),
+                           engine=cert.get("engine"),
+                           checks=fresh["checks"])
+    rep = to_json(diags)
+    summary["diagnostics"] = rep["diagnostics"]
+    summary["counts"] = rep["counts"]
+    return summary, diags

@@ -1,10 +1,16 @@
-"""searchplan: the execution half of static search planning -- slice
-one history at sealed quiescent cuts into sequential segments that are
-checked in isolation, and merge their results back into one verdict (a
-copy of the parts of ``jepsen_tpu/analysis/searchplan.py`` that the
-checkers run).
+"""searchplan: static search planning over histories -- slice one
+history at sealed quiescent cuts into sequential segments that are
+checked in isolation and merge their results back into one verdict (the
+execution half the checkers run), and build the plan report of record
+(``build_plan``): the partition predicates, the cuts and the elisions,
+with SP diagnostics (a copy of ``jepsen_tpu/analysis/searchplan.py``).
 
-Quiescent points -- instants with zero open invocations -- let a history
+Two papers drive the pass. "Faster linearizability checking via
+P-compositionality" (arxiv 1504.00204): a partition of a history by a
+predicate the model is compositional over turns one big check into many
+small independent ones -- here per key (``per_key_parts``, the
+jepsen.independent split) and per value for set/add-read workloads
+(``per_value_parts``). -- instants with zero open invocations -- let a history
 slice into *sequential* segments ("Efficient Decrease-and-Conquer
 Linearizability Monitoring", arxiv 2410.04581).
 
@@ -35,24 +41,44 @@ every later quiescent instant).
 
 Unlike the JAX package's ``plan_segments``, a fault of the planner here
 raises instead of degrading to one unsegmented segment: a wrong plan must
-not hide behind a slower check. The plan report of record
-(``build_plan``, ``SearchPlan``) and the partition predicates
-(``per_key_parts``, ``per_value_parts``) wait for the host harness
-(ROADMAP.md queue A.11).
+not hide behind a slower check (``checker.core.plan_history``, the
+report's caller, contains the fault as the JAX package's does).
+
+Every decision of ``build_plan`` is reported through the shared
+``Diagnostic`` model as SP codes:
+
+  SP001 info     a partition predicate split the history into N parts
+  SP002 info     quiescent sealed cuts found (count, per part)
+  SP003 info     search-dead ops elided (count)
+  SP004 info     plan summary: sub-searches + config-count estimates
+  SP005 warning  no reduction possible -- the plan is one search
+  SP006 warning  a requested predicate is not applicable to this
+                 history/model
+  SP007 error    unknown partition predicate name (the name is skipped)
+
+plus JX007 (``shapelint``) when the plan's segments pad to too many
+distinct shape buckets.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 
 from .. import history as h
+from .diagnostics import ERROR, INFO, WARNING, diag
 
-__all__ = ["DEFAULT_PREDICATES", "MIN_SEGMENT_OPS", "Segment",
+__all__ = ["PREDICATES", "DEFAULT_PREDICATES", "MIN_SEGMENT_OPS",
+           "SearchPlan", "SubSearch", "Segment", "build_plan",
            "segment_events", "plan_segments", "stream_cut",
-           "merge_segment_results", "enabled", "segments_enabled",
+           "merge_segment_results", "estimate_configs", "per_key_parts",
+           "per_value_parts", "enabled", "segments_enabled",
            "min_segment", "predicate_names"]
+
+#: registered partition-predicate names
+PREDICATES = ("per-key", "per-value", "crash-segments")
 
 #: predicates applied by default: the per-key split plus quiescent
 #: crash-isolated segmentation
@@ -187,6 +213,13 @@ class Segment:
     seed: dict              # sealing invoke op, or None for segment 0
     est_configs: int = 0
 
+    @property
+    def encoded_ops(self):
+        """Ops ``spec.encode`` will produce -- the seed pair encodes as a
+        row too, and shape bucketing (JX007, the plan report) counts
+        what pads, not what is logically new."""
+        return self.rows + (1 if self.seed is not None else 0)
+
 
 def segment_events(spec, events, min_segment=MIN_SEGMENT_OPS):
     """Slice one part's (client-only, indexed) event list at sealed
@@ -261,11 +294,297 @@ def _estimate_rows(rows):
                      sum(1 for r in rows if r.ok))
 
 
+def estimate_configs(events):
+    """Order-of-magnitude config-count estimate for one sub-search:
+    ``n_ok * 2^(C-1)`` with C the max point-concurrency. Monotone in
+    both n and C, which is all plan ordering needs."""
+    inv, ret, n_ok = [], [], 0
+    for invop, comp in h.pairs(events):
+        if invop is None:
+            continue
+        if comp is not None and comp.get("type") == h.FAIL:
+            continue
+        ok = comp is not None and comp.get("type") == h.OK
+        n_ok += ok
+        inv.append(int(invop["index"]))
+        ret.append(int(comp["index"]) if ok else h.INF_TIME)
+    return _estimate(inv, ret, n_ok)
+
+
 def plan_segments(spec, client_events, min_seg=MIN_SEGMENT_OPS):
     """Execution-side entry: segment one part's prepared client history.
     Returns (segments, info) like ``segment_events``; a planner fault
     raises."""
     return segment_events(spec, client_events, min_seg)
+
+
+# ---------------------------------------------------------------------------
+# partition predicates
+
+def per_key_parts(events):
+    """The jepsen.independent per-key split: applicable when op values
+    carry [k v] tuples. Returns {key: subhistory} with tuples unwrapped,
+    or None when no op is keyed. Semantics match
+    ``independent.subhistory`` (un-keyed ops replicate into every part)
+    in one pass over the history."""
+    from .. import independent
+    keyed = {}
+    unkeyed = []
+    for pos, op in enumerate(events):
+        v = op.get("value")
+        if independent.is_tuple(v):
+            op = dict(op)
+            op["value"] = v.value
+            keyed.setdefault(v.key, []).append((pos, op))
+        else:
+            unkeyed.append((pos, op))
+    if not keyed:
+        return None
+    out = {}
+    for k in sorted(keyed, key=repr):
+        merged = sorted(keyed[k] + unkeyed, key=lambda po: po[0])
+        out[k] = [op for _, op in merged]
+    return out
+
+
+def per_value_parts(events):
+    """Per-value partitioning of a grow-only set/add-read workload: set
+    linearizability decomposes per element -- a read shows ``e`` iff
+    some ``add(e)`` linearized before it -- so each added value becomes
+    an independent *register* sub-search (absent -> present): ``add(e)``
+    becomes ``write 1``, an ok read ``read 1`` if it holds ``e``, else
+    ``read 0``.
+
+    Applicable iff every client op is ``add``/``read`` and ok reads
+    return collections. Returns {element: register event list}, or
+    None. Each part opens with a synthetic ``write 0`` pair at indices
+    -2/-1: the register's initial state is NIL, not 0, so without it a
+    read completing before ``add(e)`` would check false-invalid."""
+    adds = set()
+    reads = []
+    rows = []
+    for inv, comp in h.pairs(events):
+        if inv is None:
+            continue
+        f = inv.get("f")
+        if f not in ("add", "read"):
+            return None
+        if comp is not None and comp.get("type") == h.FAIL:
+            continue
+        rows.append((inv, comp, f))
+        if f == "add":
+            adds.add(inv.get("value"))
+        elif comp is not None and comp.get("type") == h.OK:
+            v = comp.get("value")
+            if not isinstance(v, (list, tuple, set, frozenset)):
+                return None
+            reads.append(v)
+    if not adds:
+        return None
+    parts = {}
+    for e in sorted(adds, key=repr):
+        evs = [{"type": "invoke", "process": -1, "f": "write",
+                "value": 0, "index": -2},
+               {"type": "ok", "process": -1, "f": "write",
+                "value": 0, "index": -1}]
+        for inv, comp, f in rows:
+            if f == "add":
+                if inv.get("value") != e:
+                    continue
+                evs.append({**inv, "f": "write", "value": 1})
+                if comp is not None:
+                    evs.append({**comp, "f": "write", "value": 1})
+            else:
+                evs.append({**inv, "f": "read", "value": None})
+                if comp is not None and comp.get("type") == h.OK:
+                    evs.append({**comp, "f": "read",
+                                "value": 1 if e in comp["value"] else 0})
+                elif comp is not None:
+                    evs.append({**comp, "f": "read", "value": None})
+        parts[e] = evs
+    return parts
+
+
+# ---------------------------------------------------------------------------
+# the plan report of record
+
+@dataclasses.dataclass
+class SubSearch:
+    """One independent sub-search of the plan."""
+
+    part: object            # partition label ([k v] key / set element)
+    segment: int            # segment ordinal within the part
+    n_ops: int              # encoded ops (seed pair included)
+    est_configs: int
+    spec_name: str = None   # model override (per-value -> "register")
+    seeded: bool = False    # True when a sealing pair seeds the state
+
+    def to_dict(self):
+        return {"part": repr(self.part), "segment": self.segment,
+                "ops": self.n_ops, "est_configs": self.est_configs,
+                **({"spec": self.spec_name} if self.spec_name else {}),
+                "seeded": self.seeded}
+
+
+@dataclasses.dataclass
+class SearchPlan:
+    """An ordered set of independent sub-searches plus the decisions
+    that produced it."""
+
+    subsearches: list
+    diagnostics: list
+    predicates: list
+    elided: int = 0
+    cuts: int = 0
+    est_configs_unplanned: int = 0
+    built_s: float = 0.0
+
+    @property
+    def est_configs_planned(self):
+        return sum(s.est_configs for s in self.subsearches)
+
+    def summary(self):
+        return {"subsearches": len(self.subsearches),
+                "predicates": list(self.predicates),
+                "cuts": self.cuts,
+                "elided": self.elided,
+                "est_configs_planned": self.est_configs_planned,
+                "est_configs_unplanned": self.est_configs_unplanned,
+                "built_s": round(self.built_s, 6),
+                "parts": [s.to_dict() for s in self.subsearches[:64]]}
+
+
+def build_plan(test, hist, lin=None, keyed=None):
+    """Build the full SearchPlan for a test's history: discover the
+    Linearizable gate (unless passed), apply the requested partition
+    predicates, segment each part at sealed quiescent cuts, and emit SP
+    diagnostics + the JX007 shape-proliferation check. Returns a
+    SearchPlan, or None when the test has no searchable gate."""
+    t0 = time.monotonic()
+    if lin is None:
+        from ..monitor.core import find_linearizable
+        lin, keyed = find_linearizable(
+            test.get("checker") if isinstance(test, dict) else None)
+    if lin is None:
+        return None
+    spec = lin.spec
+    names = predicate_names(test)
+    diags = []
+    subs = []
+    cuts_total = elided_total = 0
+    min_seg = min_segment(test)
+
+    client = h.client_ops(h.ensure_indexed(hist or []))
+    for n in names:
+        if n not in PREDICATES:
+            diags.append(diag(
+                "SP007", ERROR,
+                f"unknown partition predicate {n!r} (known: "
+                f"{list(PREDICATES)}); skipping it",
+                "searchplan.partitions",
+                "fix test['searchplan-partitions'] (planlint PL015 "
+                "catches this at preflight)"))
+    names = [n for n in names if n in PREDICATES]
+
+    parts = None
+    spec_name = None
+    if "per-key" in names:
+        parts = per_key_parts(client)
+        if parts is not None:
+            diags.append(diag(
+                "SP001", INFO,
+                f"per-key split: {len(parts)} independent part(s) "
+                f"{sorted(map(repr, parts))[:8]}",
+                "searchplan.per-key"))
+        elif keyed:
+            diags.append(diag(
+                "SP006", WARNING,
+                "per-key partitioning requested under an independent "
+                "checker but no op carries a [k v] tuple value",
+                "searchplan.per-key"))
+    if parts is None and "per-value" in names:
+        parts = per_value_parts(client)
+        if parts is not None:
+            spec_name = "register"
+            diags.append(diag(
+                "SP001", INFO,
+                f"per-value split: {len(parts)} independent element "
+                "register(s) (set/add-read reduction)",
+                "searchplan.per-value"))
+        elif isinstance(test, dict) \
+                and test.get("searchplan-partitions"):
+            diags.append(diag(
+                "SP006", WARNING,
+                "per-value partitioning requested but the history is "
+                "not an add/read set workload",
+                "searchplan.per-value"))
+
+    segment = "crash-segments" in names
+    part_items = list(parts.items()) if parts is not None \
+        else [(None, client)]
+    part_spec = spec
+    if spec_name == "register":
+        from ..models import model_spec
+        part_spec = model_spec("register")
+    prepared = {}
+    for label, sub in part_items:
+        events = lin.prepare_history(sub) if spec_name is None else sub
+        # History-wrap each part so the segmentation sweep and the
+        # estimate passes below share one pairing walk per part
+        events = h.ensure_indexed(events)
+        prepared[label] = events
+        if segment:
+            segs, info = plan_segments(part_spec, events, min_seg)
+            cuts_total += info["cuts"]
+            elided_total += info["elided"]
+        else:
+            # rows = logical ops spec.encode will produce (failed ops
+            # drop), not raw events: the shape lint and the plan report
+            # bucket on what actually pads
+            part_rows, _ = _rows(part_spec, events)
+            segs = [Segment(list(events), len(part_rows), None)]
+            segs[0].est_configs = estimate_configs(events)
+        for i, seg in enumerate(segs):
+            subs.append(SubSearch(label, i, seg.encoded_ops,
+                                  seg.est_configs, spec_name,
+                                  seg.seed is not None))
+    if cuts_total:
+        diags.append(diag(
+            "SP002", INFO,
+            f"{cuts_total} sealed quiescent cut(s) slice the history "
+            "into sequential segments checkable in isolation",
+            "searchplan.quiescent-cuts"))
+    if elided_total:
+        diags.append(diag(
+            "SP003", INFO,
+            f"elided {elided_total} search-dead op(s) (unconstrained "
+            "non-ok pure ops)", "searchplan.elision"))
+
+    # "unplanned" baseline: the same parts without quiescent
+    # segmentation or elision
+    est_unplanned = sum(estimate_configs(ev) for ev in prepared.values())
+    plan = SearchPlan(subs, diags, names, elided_total, cuts_total,
+                      est_unplanned)
+    if len(subs) <= 1:
+        diags.append(diag(
+            "SP005", WARNING,
+            "no reduction possible: the plan is one search (no keyed "
+            "values, no sealed quiescent instant — heavy overlap or "
+            "open indeterminate ops keep every instant non-quiescent)",
+            "searchplan",
+            "crashed pure reads elide automatically; crashed writes "
+            "pin the search together by design"))
+    else:
+        diags.append(diag(
+            "SP004", INFO,
+            f"plan: {len(subs)} sub-search(es), estimated configs "
+            f"{plan.est_configs_planned:,} vs {est_unplanned:,} "
+            "unplanned", "searchplan"))
+    # JX007: segments padding to too many distinct shape buckets
+    from .shapelint import lint_searchplan_shapes
+    diags += lint_searchplan_shapes([s.n_ops for s in subs])
+    plan.built_s = time.monotonic() - t0
+    return plan
 
 
 def merge_segment_results(results, info=None, plan_s=0.0,

@@ -26,6 +26,13 @@ checker's own ``opts``, so a per-key file lands in the key's
 subdirectory (ROADMAP.md C.5), and a test map without a store directory
 (no ``name`` or ``start-time``) renders nothing, as the JAX package's
 per-key files skip it (``jepsen_tpu/independent.py:443``).
+
+``engine_opts["mesh"]`` (a 1-D ``DeviceMesh``) under "jax-wgl" runs ONE
+search sharded over the mesh's ranks (``parallel.check_encoded_sharded``;
+every rank calls the checker with the same history), unplanned, as the
+JAX package does; the ``independent`` checker hands the mesh to the
+mesh key batch instead. A mesh under any other algorithm raises
+ValueError: the JAX package would fail inside a racer.
 """
 
 from __future__ import annotations
@@ -84,11 +91,22 @@ class Linearizable(Checker):
             raise ValueError(f"unknown algorithm {algorithm!r}")
         self.algorithm = algorithm
         self.engine_opts = engine_opts or {}
-        if "mesh" in self.engine_opts:
-            raise NotImplementedError(
-                "engine_opts['mesh'] is not ported to jepsen_tpu_torch "
-                "yet: ROADMAP.md queue A, A.10 (the multi-device search)")
+        if self.engine_opts.get("mesh") is not None \
+                and algorithm != "jax-wgl":
+            raise ValueError(
+                f"engine_opts['mesh'] needs algorithm 'jax-wgl' (the "
+                f"sharded device search), not {algorithm!r}")
         self.init_ops = list(init_ops or [])
+
+    @property
+    def device(self):
+        """Where the device engine runs: ``engine_opts["device"]``, else
+        the mesh's device, else None (CUDA)."""
+        mesh = self.engine_opts.get("mesh")
+        if mesh is not None:
+            from ..parallel.keyshard import mesh_device
+            return mesh_device(mesh, self.engine_opts.get("device"))
+        return self.engine_opts.get("device")
 
     def prepare_history(self, client_hist):
         """Prepend the init ops as already-completed pairs ordered before
@@ -111,7 +129,8 @@ class Linearizable(Checker):
         from . import linear, torch_wgl, wgl
         client_hist = self.prepare_history(h.client_ops(hist))
         a = None
-        if self.algorithm == "jax-wgl":
+        mesh = self.engine_opts.get("mesh")
+        if self.algorithm == "jax-wgl" and mesh is None:
             a = self._check_planned(test, client_hist)
         if a is None:
             e, init_state = self.spec.encode(client_hist)
@@ -119,6 +138,8 @@ class Linearizable(Checker):
                 a = wgl.check_encoded(self.spec, e, init_state)
             elif self.algorithm == "linear":
                 a = linear.check_encoded(self.spec, e, init_state)
+            elif mesh is not None:
+                a = self._check_sharded(e, init_state)
             elif self.algorithm == "jax-wgl":
                 a = torch_wgl.check_encoded(self.spec, e, init_state,
                                             **self.engine_opts)
@@ -144,6 +165,26 @@ class Linearizable(Checker):
                                exc_info=True)
         a["valid?"] = a["valid"]
         return a
+
+    #: engine_opts the mesh-sharded search takes
+    _SHARDED_OPTS = frozenset({"max_configs", "frontier_width",
+                               "stack_size", "table_size", "timeout_s",
+                               "chunk_iters", "steal", "rollout_seeds",
+                               "device"})
+
+    def _check_sharded(self, e, init_state):
+        """ONE search sharded over ``engine_opts["mesh"]``
+        (``parallel/searchshard.py``): the options the sharded engine
+        supports are forwarded, the rest dropped with a warning."""
+        from .. import parallel
+        opts = {k: v for k, v in self.engine_opts.items() if k != "mesh"}
+        dropped = sorted(set(opts) - self._SHARDED_OPTS)
+        if dropped:
+            logger.warning("engine_opts %s are not supported by the "
+                           "mesh-sharded search; ignoring", dropped)
+        return parallel.check_encoded_sharded(
+            self.spec, e, init_state, self.engine_opts["mesh"],
+            **{k: v for k, v in opts.items() if k in self._SHARDED_OPTS})
 
     #: engine_opts the planned batch path takes: everything
     #: check_batch_encoded supports, checkpoint/resume included (its

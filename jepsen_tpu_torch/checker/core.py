@@ -5,13 +5,12 @@ True, False, or "unknown" (couldn't decide). Validity merges with
 False > "unknown" > True (checker.clj:29-50).
 
 The part of ``jepsen_tpu.checker.core`` the port needs: validity merging,
-the checker protocol and its combinators, and ``check``, which certifies
-a decided Linearizable verdict after the checker returns
-(``certify_verdict``, ``analysis/certify.py``), and ``check_safe``,
-which traces every (sub)checker run. The history lint and the plan
-report of record that ``jepsen_tpu.checker.core.check`` also runs
-(``lint_history``, ``plan_history``) wait for the host harness
-(ROADMAP.md A.11(a)).
+the checker protocol and its combinators; ``check``, which lints the
+history (``lint_history``, histlint) and reports its search plan
+(``plan_history``, the plan report of record) once per test map before
+the checker runs, and certifies a decided Linearizable verdict after it
+returns (``certify_verdict``, ``analysis/certify.py``); and
+``check_safe``, which traces every (sub)checker run.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ from ..util import real_pmap
 
 __all__ = ["Checker", "check", "check_safe", "compose", "noop",
            "unbridled_optimism", "merge_valid", "valid_prio",
-           "certify_verdict"]
+           "lint_history", "plan_history", "certify_verdict"]
 
 logger = logging.getLogger(__name__)
 
@@ -89,7 +88,79 @@ def checker_name(checker):
     return getattr(checker, "name", None) or type(checker).__name__
 
 
-_certify_lock = threading.Lock()
+_lint_lock = threading.Lock()
+
+
+def lint_history(test, hist):
+    """Run histlint over ``hist`` once per test map, before checkers see
+    it: diagnostics land in ``test["analysis"]["history"]``
+    (``store.write_analysis`` persists them as analysis.json) and error
+    findings are logged. Opt out per test with ``test["analysis?"] =
+    False``. Runs at most once per test dict -- Compose fans every
+    subchecker back through check(), and the history doesn't change.
+
+    Lint failures are contained: a bug in the analyzer must never
+    change a verdict."""
+    if not isinstance(test, dict) or not test.get("analysis?", True):
+        return
+    with _lint_lock:
+        if test.get("analysis-done?"):
+            return
+        test["analysis-done?"] = True
+    try:
+        from .. import analysis
+        diags = analysis.run_analyzer(
+            "histlint", analysis.lint_test_history, test, hist)
+        report = analysis.to_json(diags)
+        test.setdefault("analysis", {})["history"] = report
+        errs = analysis.errors(diags)
+        if errs:
+            logger.warning(
+                "%s", analysis.render_text(
+                    errs, title="history lint found structural "
+                                "defects; the verdict below may not "
+                                "be trustworthy:"))
+    except Exception:  # noqa: BLE001 - telemetry, never verdict-bearing
+        logger.warning("history lint crashed", exc_info=True)
+
+
+def plan_history(test, hist):
+    """Run the search planner over ``hist`` once per test map, next to
+    histlint: the SearchPlan's SP/JX007 diagnostics land in
+    ``test["analysis"]["searchplan"]`` with the plan summary alongside.
+    The executing checkers (Linearizable, independent's batched path)
+    derive their own segments -- this hook is the report of record, and
+    like histlint it is contained: a planner fault must never change a
+    verdict. Opt out per test with ``test["searchplan?"] = False`` (or
+    ``test["analysis?"] = False`` for all analyzers)."""
+    if not isinstance(test, dict) or not test.get("analysis?", True):
+        return
+    from ..analysis import searchplan
+    if not searchplan.enabled(test):
+        return
+    with _lint_lock:
+        if test.get("searchplan-done?"):
+            return
+        test["searchplan-done?"] = True
+    try:
+        from .. import analysis
+        holder = {}
+
+        def build():
+            plan = searchplan.build_plan(test, hist)
+            if plan is None:
+                return []
+            holder["summary"] = plan.summary()
+            return plan.diagnostics
+
+        diags = analysis.run_analyzer("searchplan", build)
+        summary = holder.get("summary")
+        if summary is not None:
+            report = analysis.to_json(diags)
+            report["summary"] = summary
+            test.setdefault("analysis", {})["searchplan"] = report
+    except Exception:  # noqa: BLE001 - telemetry, never verdict-bearing
+        logger.warning("search planning crashed", exc_info=True)
 
 
 def certify_verdict(checker, test, hist, result, key=None):
@@ -114,7 +185,7 @@ def certify_verdict(checker, test, hist, result, key=None):
         from .checkers import Linearizable
         if not isinstance(checker, Linearizable):
             return
-        with _certify_lock:
+        with _lint_lock:
             if test.get("certify-done?"):
                 return
             test["certify-done?"] = True
@@ -128,7 +199,7 @@ def certify_verdict(checker, test, hist, result, key=None):
                 checker.spec, client, result, test=test,
                 samples=cfg["samples"], budget=cfg["budget"],
                 init_ops=checker.init_ops, key=key,
-                device=checker.engine_opts.get("device"))
+                device=checker.device)
             holder["cert"] = cert
             return diags
 
@@ -157,9 +228,11 @@ def certify_verdict(checker, test, hist, result, key=None):
 
 
 def check(checker, test, hist, opts=None):
-    """Run a checker over an indexed history, then certify its verdict
-    (``certify_verdict``)."""
+    """Lint and plan an indexed history (once per test map), run the
+    checker over it, then certify its verdict (``certify_verdict``)."""
     hist = h.ensure_indexed(hist)
+    lint_history(test, hist)
+    plan_history(test, hist)
     result = as_checker(checker).check(test, hist, opts or {})
     certify_verdict(checker, test, hist, result)
     return result

@@ -37,8 +37,16 @@ search snapshotted by one engine resumes in the other. Under a bound obs
 registry the search reports the JAX engine's series: ``wgl.phase_s`` by
 phase (``obs/phases.py``), one heartbeat per chunk and a summary
 (``obs/search.py``). Unbound, or with ``phases?`` off, it makes exactly
-the syncs and launches it makes without obs. Not ported yet (ROADMAP.md
-A.10): the mesh block.
+the syncs and launches it makes without obs.
+
+Given a process group, ``_build_search`` builds one shard of a single
+search spread over the group's ranks (``parallel/searchshard.py``): each
+rank holds its own stack and dedup table, and ``body`` ends with the JAX
+engine's mesh block -- an ``all_gather`` of the frontier sizes, the
+deepest configs donated to a starving right neighbour over a
+``batch_isend_irecv`` ring -- while ``run_chunk`` continues only while
+some rank holds work and none has succeeded (one ``all_reduce`` per
+iteration, in place of the status read).
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import _build, resolve_device
 from ..history import INF_TIME
@@ -94,6 +103,17 @@ KEYED = (0, 1, 2, 3, 5, 6, 7, 8, 9, 10, 11)
 
 #: twin-claim scratch size (fixed so carries are W-independent)
 TC = 1 << 16
+
+#: collective calls made by the sharded searches (``_collective``): a
+#: plain module counter, like ``rollout.launches``
+collective_calls = 0
+
+
+def _collective(fn, *args, **kwargs):
+    """Call one ``torch.distributed`` collective and count it."""
+    global collective_calls
+    collective_calls += 1
+    return fn(*args, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +379,8 @@ def _winning_index(idx, lane, drop):
 
 @functools.lru_cache(maxsize=32)
 def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
-                  rollout_kernel="auto", device="cuda"):
+                  rollout_kernel="auto", device="cuda", group=None,
+                  steal=16):
     """Build the search for one shape bundle. Returns
 
         init_carry(init_states (K,S) int32) -> carry
@@ -376,7 +397,13 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
     int64, dropped (K,) bool, status (K,) int32, explored (K,) int64,
     best_depth (K, TOPK) int64, best_lin (K, TOPK, B) int32, best_state
     (K, TOPK, S) int32, its (K,) int64, it (G,) int64, claim (G, TC)
-    int64, tfail (G,) int64."""
+    int64, tfail (G,) int64.
+
+    ``group`` (a ``torch.distributed`` process group, K = 1) makes this
+    search one shard of a single search over the group's ranks, with
+    the steal ring's hand-off of ``steal`` configs
+    (``jax_wgl.py:746-796``, ``:841-857``). Each rank is one table
+    group, as each device is in the reference's local view."""
     if rollout_kernel not in ("auto", "scan", "kernel"):
         raise ValueError(f"rollout_kernel must be 'auto', 'scan' or "
                          f"'kernel', not {rollout_kernel!r}")
@@ -408,6 +435,7 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
                              or dev.type == "cuda")
     ML = M + NS * R if R else M
     KML = K * ML
+    on_cpu = dev.type == "cpu"
     keys = words.Keys(B, S, dev)
 
     def i64(x):
@@ -511,6 +539,54 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
         ch_lin, prev = rollout.chain_bitsets(seed_lin[0], j)
         return words.to_i32(ch_lin)[None], prev[None], st[None], j[None]
 
+    if group is not None:
+        if K != 1:
+            raise ValueError(f"a sharded search runs one key per rank, "
+                             f"not K={K}")
+        D = dist.get_world_size(group)
+        me = dist.get_rank(group)
+        right = dist.get_global_rank(group, (me + 1) % D)
+        left = dist.get_global_rank(group, (me - 1) % D)
+        arange_H = torch.arange(steal, dtype=torch.int64, device=dev)
+
+    def steal_ring(buf_lin, buf_state, buf_fp, top, dropped, status):
+        """The mesh block (``jax_wgl.py:746-796``): every rank learns the
+        frontier sizes; a rank whose right neighbour starves donates its
+        ``steal`` deepest configs to it, and pushes what its left
+        neighbour donated (reversed, so the deepest ends on top). The
+        stack buffers are written in place; returns (top, dropped)."""
+        H = steal
+        loads = torch.empty(D, dtype=torch.int64, device=dev)
+        _collective(dist.all_gather_into_tensor, loads, top, group=group)
+        starving = loads[(me + 1) % D] == 0
+        donate = (top[0] > 2 * H) & starving & (status[0] == running_c)
+        idxh = (top[0] - 1 - arange_H) % O                     # (H,)
+        top = torch.where(donate, top - H, top)
+        if D == 1:
+            # the ring is (0, 0): a rank never starves while it holds
+            # more than 2H configs, so nothing moves
+            return top, dropped
+        # the four hand-off buffers travel as one int64 tensor
+        sent = torch.cat([buf_lin[idxh].to(torch.int64),
+                          buf_state[idxh].to(torch.int64), buf_fp[idxh],
+                          donate.to(torch.int64).expand(H)[:, None]], 1)
+        got = torch.empty_like(sent)
+        reqs = _collective(dist.batch_isend_irecv, [
+            dist.P2POp(dist.isend, sent, right, group=group),
+            dist.P2POp(dist.irecv, got, left, group=group)])
+        for req in reqs:
+            req.wait()
+        got = got.flip(0)
+        r_val = got[:, -1] != 0
+        cnt_r = r_val.sum()
+        pos_r = top[0] + r_val.to(torch.int64).cumsum(0) - 1
+        dropped = dropped | ((status == running_c) & (top + cnt_r > O))
+        fpos_r = torch.where(r_val, pos_r % O, O)    # O: the sentinel row
+        buf_lin.index_put_((fpos_r,), got[:, :B].to(torch.int32))
+        buf_state.index_put_((fpos_r,), got[:, B:B + S].to(torch.int32))
+        buf_fp.index_put_((fpos_r,), got[:, B + S:B + S + 2])
+        return top + cnt_r, dropped
+
     def body(carry, consts):
         (buf_lin, buf_state, buf_fp, top, tab, dropped, status,
          explored, best_depth, best_lin, best_state, its, it,
@@ -534,7 +610,9 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
         cand = unlin & (invoke[:, None, :] < rmin[..., None]) \
             & fvalid[..., None]
         rank = cand.to(torch.int64).cumsum(dim=2)             # (K,W,n)
-        if n * C <= 32768:
+        if n * C <= 32768 and not on_cpu:
+            # (the one-hot product is the card's fast form; on the CPU
+            # the scatter below computes the same indices cheaper)
             onehot = (rank[..., None] == (arange_C + 1)) & cand[..., None]
             ci = (onehot * arange_n[None, None, :, None]).sum(dim=2)
         else:
@@ -613,6 +691,13 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
                 for _ in range(R):
                     *c, j = roll_step(*c, invoke, ret, fop, args, rets)
                     steps.append((c[0], c[1], j))
+                    if on_cpu and not bool(c[2].any()):
+                        # every chain is dead, so each later step is the
+                        # identity (j = -1): stop reading them (a host
+                        # read per step is free on the CPU only)
+                        dead = (c[0], c[1], torch.full_like(j, -1))
+                        steps += [dead] * (R - len(steps))
+                        break
                 ch_lin, ch_st, ch_j = (torch.stack(xs, dim=2)
                                        for xs in zip(*steps))
                 prev = u32(torch.cat([seed_lin[:, :, None],
@@ -706,6 +791,10 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
         top = top + cnt
         top = torch.where(top >= 2 * O, top - O, top)
 
+        if group is not None:
+            top, dropped = steal_ring(buf_lin, buf_state, buf_fp, top,
+                                      dropped, status)
+
         explored = explored + torch.where(running, fvalid.sum(dim=1), 0)
         its = its + running.to(torch.int64)
         it = it + 1
@@ -739,12 +828,25 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
         """Advance the search until every key succeeds/exhausts or the
         iteration counter reaches ``bound``. The status is read between
         iterations (one host sync each); ``body`` is a no-op for keys no
-        longer running, so the reading cadence changes no result."""
+        longer running, so the reading cadence changes no result. A
+        sharded search continues while any rank holds work and no rank
+        has succeeded, so every rank runs the same iterations: the
+        status read is one ``all_reduce`` of (work, found)."""
         it = int(carry[IDX_IT][0])
         while it < bound:
-            if not bool(((carry[IDX_STATUS] == running_c)
-                         & (carry[IDX_TOP] > 0)).any()):
-                break
+            local = ((carry[IDX_STATUS] == running_c)
+                     & (carry[IDX_TOP] > 0)).any()
+            if group is None:
+                if not bool(local):
+                    break
+            else:
+                flags = torch.stack([
+                    local.to(torch.int64),
+                    (carry[IDX_STATUS] == valid_c).sum()])
+                _collective(dist.all_reduce, flags, group=group)
+                work, found = flags.tolist()
+                if work == 0 or found > 0:
+                    break
             carry = body(carry, consts)
             it += 1
         return carry

@@ -233,3 +233,24 @@ def test_core_check_certifies_once():
     assert r["failures"] == [1]
     assert test["certificate"]["context"]["key"] == 1
     assert test["certificate"]["verdict"] is False
+
+
+@pytest.mark.parametrize("bad", [False, True])
+def test_sharded_verdict_gets_the_device_differential(bad):
+    """``"jax-wgl-sharded"`` is a device engine (the reference's
+    ``DEVICE_ENGINES``): its verdict's differential replays through the
+    device engine too, and a sharded verdict without a witness is VC006
+    -- the same certificates as the JAX certifier's."""
+    model = "cas-register"
+    client, r = _device_result(model, _history(model, 2 if bad else 1,
+                                               bad))
+    r["engine"] = "jax-wgl-sharded"
+    r["witness"]["engine"] = "jax-wgl-sharded"
+    (got, gcodes), (want, wcodes) = _both(model, client, r, samples=1)
+    assert got == want and gcodes == wcodes
+    diff = [c for c in got["checks"] if c["name"] == "differential"]
+    assert diff and "jax-wgl" in diff[0]["verdicts"]
+    bare = {k: v for k, v in r.items() if k not in ("witness", "configs")}
+    (got, gcodes), (want, wcodes) = _both(model, client, bare)
+    assert got == want
+    assert "VC006" in gcodes and gcodes == wcodes

@@ -150,12 +150,13 @@ def test_device_racer_fault_raises(monkeypatch, when):
 
 def test_batch_algorithm_and_mesh():
     """"batch" is accepted: a single history races like competition;
-    ``mesh`` is the one option that is not ported."""
+    ``mesh`` is refused under any algorithm but "jax-wgl" (the JAX
+    package would fail inside a racer)."""
     r = ck.linearizable({"model": "cas-register", "algorithm": "batch",
                          "engine_opts": dict(CPU)}).check({}, BAD_CAS)
     assert r["valid"] is False and r["engine"] in ("wgl", "linear",
                                                    "jax-wgl")
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="jax-wgl"):
         ck.linearizable({"model": "cas-register",
                          "engine_opts": {"mesh": object()}})
     with pytest.raises(ValueError, match="unknown algorithm"):

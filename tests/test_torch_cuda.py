@@ -11,7 +11,10 @@ and on the CPU; under a bound obs registry, the main histories and a key
 batch make the launches they make unbound (and with ``phases?`` off),
 the phase plane's synchronize runs only while phases are on, and the
 compile phase is armed only when the kernel's library is not yet
-loaded. Every test is marked ``cuda`` and skips without a card (the kernels
+loaded; the multi-device search at world size 1 over NCCL (the sharded
+single search and the mesh key batch equal to the flat ones, verdicts,
+iterations and rollout launches included; a 2-D mesh refused). Every
+test is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
 
@@ -432,3 +435,87 @@ def test_obs_compile_phase_armed_only_before_the_library_loads(
         names[loaded] = [x["name"] for x in test["obs"]["tracer"].events()
                          if x["name"] == "wgl.phase.compile"]
     assert names[True] == [] and names[False] == ["wgl.phase.compile"]
+
+
+@pytest.fixture(scope="module")
+def cuda_mesh():
+    """A 1-D "cuda" DeviceMesh over a world of one NCCL rank (a
+    ``HashStore``, no TCP port), torn down after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the NCCL mesh runs on the card "
+                    "(tests/test_torch_searchshard.py runs gloo ranks on "
+                    "the CPU)")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=card)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("search",))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", SPECS)
+def test_sharded_search_at_world_size_one_equals_flat(cuda_mesh, name):
+    """One rank of the sharded search is the flat search plus its
+    collectives: the same verdict, iterations, explored configs, table
+    diagnostics and witness, and the same rollout kernel launches."""
+    spec = models.model_spec(name)
+    hist = simulate.random_history(random.Random(7), name, 8, 400, 0.05)
+    e, st = spec.encode(hist)
+    rollout.launches = 0
+    flat = torch_wgl.check_encoded(spec, e, st)
+    n_flat = rollout.launches
+    rollout.launches = 0
+    torch_wgl.collective_calls = 0
+    got = parallel.check_encoded_sharded(spec, e, st, cuda_mesh)
+    assert rollout.launches == n_flat > 0
+    assert torch_wgl.collective_calls >= 2 * got["iterations"]
+    assert got["engine"] == "jax-wgl-sharded" and got["shards"] == 1
+    assert got["shard_explored"] == [got["configs_explored"]]
+    for k in ("valid", "iterations", "configs_explored", "table_load",
+              "table_insert_failures", "op", "configs"):
+        assert got.get(k) == flat.get(k), k
+    if "witness" in flat:
+        assert {**got["witness"], "engine": "jax-wgl"} == flat["witness"]
+
+
+def test_mesh_batch_at_world_size_one_equals_batch(cuda_mesh):
+    spec = models.cas_register_spec
+    rng = random.Random(45100)
+    hists = [simulate.random_history(rng, "cas-register", 4, 90, 0.05)
+             for _ in range(6)]
+    pairs = [spec.encode(hh) for hh in hists]
+    rollout.launches = 0
+    want = parallel.check_batch_encoded(spec, pairs, chunk_iters=1)
+    got = parallel.check_batch_encoded(spec, pairs, mesh=cuda_mesh,
+                                       chunk_iters=1)
+    assert got == want and rollout.launches == 0
+
+
+def test_mesh_gate_and_refusals_on_card(cuda_mesh):
+    """``linearizable(jax-wgl, {"mesh": mesh})`` under ``core.check``
+    decides and certifies on the card; a 2-D mesh and a device the mesh
+    does not name are refused."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from jepsen_tpu_torch.checker import core
+    hist = simulate.random_history(random.Random(3), "cas-register", 6, 200,
+                                   0.05)
+    test = {}
+    r = core.check(checkers.linearizable(
+        {"model": "cas-register", "algorithm": "jax-wgl",
+         "engine_opts": {"mesh": cuda_mesh}}), test, hist)
+    assert r["engine"] == "jax-wgl-sharded" and r["valid"] is True
+    assert test["certificate"]["verdict"] is True
+    assert not test["analysis"]["certify"]["counts"]["error"]
+    spec = models.cas_register_spec
+    e, st = spec.encode(hist)
+    with pytest.raises(ValueError, match="1-D"):
+        parallel.check_encoded_sharded(
+            spec, e, st, init_device_mesh("cuda", (1, 1),
+                                          mesh_dim_names=("a", "b")))
+    with pytest.raises(ValueError, match="disagrees"):
+        parallel.check_encoded_sharded(spec, e, st, cuda_mesh,
+                                       device="cpu")

@@ -205,3 +205,43 @@ print("ok")
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_mesh_and_checking_front_modules_import_without_jax():
+    """The multi-device search (the mesh helpers, the sharded single
+    search, the collective counter) and the checking front of a run
+    (histlint, the plan report of record with JX007 and the gate walk,
+    ``certify_run``) stand alone too; building a mesh is not needed to
+    import them."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+from jepsen_tpu_torch import analysis, parallel
+from jepsen_tpu_torch.analysis import certify, histlint, searchplan, shapelint
+from jepsen_tpu_torch.checker import core, torch_wgl
+from jepsen_tpu_torch.monitor import core as mcore
+from jepsen_tpu_torch.parallel import keyshard, searchshard
+for f in (parallel.check_encoded_sharded, parallel.check_history_sharded,
+          parallel.check_batch_encoded, keyshard.mesh_group,
+          keyshard.mesh_device, keyshard.block_rows, keyshard.gather_rows,
+          keyshard.mesh_table_stats, histlint.lint_history,
+          histlint.lint_encoded, histlint.model_op_set,
+          histlint.lint_test_history, analysis.lint_history,
+          shapelint.lint_searchplan_shapes, mcore.find_linearizable,
+          searchplan.build_plan, searchplan.per_key_parts,
+          searchplan.per_value_parts, searchplan.estimate_configs,
+          core.lint_history, core.plan_history, certify.certify_run,
+          certify.find_linearizable_result):
+    assert callable(f)
+assert searchshard.ENGINE in certify.DEVICE_ENGINES
+assert torch_wgl.collective_calls == 0
+assert searchplan.SearchPlan([], [], []).summary()["subsearches"] == 0
+assert mcore.find_linearizable(core.noop()) == (None, False)
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -291,7 +291,9 @@ def test_batch_default_chunking_matches_oracle():
 def test_batch_refuses_what_is_not_ported(monkeypatch, tmp_path):
     _, tspec = _specs("cas-register")
     pairs = [tspec.encode(h) for h in _histories(n_keys=2)]
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # the mesh batch is ported (tests/test_torch_keyshard_mesh.py): a
+    # mesh that is not a torch DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         check_batch_encoded(tspec, pairs, mesh=object(), device="cpu")
     # checkpoint/resume is ported now (tests/test_torch_checkpoint.py): a
     # decided batch leaves no snapshot behind

@@ -73,10 +73,8 @@ def _join():
 
 def _skip(key):
     """Series one side has for reasons outside this slice: the JAX
-    package's compile ledger, and the JAX check's history lint and plan
-    report (ROADMAP.md A.11(a))."""
-    return (key.startswith("campaign.") or "analyzer=histlint" in key
-            or "analyzer=searchplan" in key)
+    package's compile ledger."""
+    return key.startswith("campaign.")
 
 
 def _series(reg):
@@ -102,8 +100,7 @@ def _events(tr, prefix=""):
     out = []
     for e in tr.events():
         name = e["name"].replace("wgl.phase.compile", "wgl.phase.device")
-        if not name.startswith(prefix) or name.startswith(
-                ("analysis.histlint", "analysis.searchplan")):
+        if not name.startswith(prefix):
             continue
         if e.get("cat") == "phase" or e["ph"] == "X":
             out.append((name, e["ph"]))
