@@ -102,7 +102,27 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    kernel launch. (d) A 2-D
    (1, 1) mesh is refused with ValueError. The process group is torn
    down at the end of the phase.
-8. ``batch``: the JAX package's headline key batch at full width
+8. ``run``: ``core.run`` drives a test from its first op to its verdict
+   on the card (dummy remote, each test's store in a temporary
+   directory, certification left to the gate phase). (a) The main-path
+   shape recorded live: 10,000 read/write/cas ops over five nodes at 64
+   workers, 5% left indeterminate by the atom client, the
+   ``partition_random_halves`` nemesis switching every 0.5 s, checked by
+   ``compose({linearizable(jax-wgl), timeline.html()})``: valid, no
+   ``error`` anywhere in the results, rollout launches > 0, 20,000
+   client entries beside the nemesis's, the history, results and
+   timeline in the store, partition commands in the dummy log; the
+   run's wall, the interpreter's ops/s, the analyze and checker
+   seconds. (b) The register workload (``tests/linearizable_register``)
+   at its defaults ("competition") with a keyed atom client,
+   per-key-limit 200, 12,800 ops (about 64 keys): every key valid, one
+   store directory per key. (c) 2,000 ops at concurrency 16 against a
+   register that drops 1 write in 50 yet answers ok: ``False``, equal to
+   ``oracle_verdict``; ``linear.png`` in the store with matplotlib, its
+   contained ModuleNotFoundError without. (d) A ``time-limit-s`` of 1 s
+   on an endless generator: results salvaged, the partial history
+   decided True or False on the card with no error, no journal left.
+9. ``batch``: the JAX package's headline key batch at full width
    (``simulate.bench_histories``, as ``bench.py`` rungs 2 and 2b draw
    it): 256 cas-register keys, 8 processes, 200 ops per key, crash_p
    0.02, every 8th key corrupted, through
@@ -113,14 +133,14 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    Both calls must decide alike. No key may be
    unknown, at least one must be invalid, and the first 32 verdicts must
    equal the CPU oracle's (the gate phase's).
-9. ``independent``: the first 64 of those keys wrapped in
+10. ``independent``: the first 64 of those keys wrapped in
    ``independent.tuple_`` and merged into one history, through
    ``independent.checker(compose({"linearizable": ..., "ok":
    unbridled_optimism()}))`` with the default gate and planning on:
    exactly one call of ``parallel.check_batch_encoded``, with every
    key's segments (92 pairs), and ``failures`` equal to the corrupted
    keys.
-10. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
+11. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
    batch (150 ops and 6 processes per key, crash_p 0.02, every 8th key
    corrupted) with the fast check off, so the device search with padded
    queue states decides, within ``QUEUE_MAX_CONFIGS`` (128 iterations of
@@ -136,7 +156,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``bench.py``'s rung-4 FIFO history through
    ``checkers.linearizable``, fast check on.
 
-11. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
+12. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
    torch ops) on keys of the batch above: (a) the offline face at the
    hard frontier cap on ``OFFLINE_KEYS`` (one of them corrupted), each
    verdict equal to the CPU sweep's (``linear``) and each violating op
@@ -150,7 +170,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    by the port's WGL engine: seconds, host syncs, passes and frontier
    peak per event. (b) and (c) are not profiled: gathering the
    profiler's events costs more than the run itself (PERF.md).
-12. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
+13. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
    serial list-append history of 16,384 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
    decides it valid on the card (one profiled call: squarings, closure
@@ -163,8 +183,9 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    same on the CPU; one squaring at n=16384 timed in float32, TF32 and
    bf16, all three boolean-identical.
 
-The competition, checkpoint, certify, obs and mesh paths run the
-rollout kernel (each counted). The planned, batch, independent, queue, streamlin and
+The competition, checkpoint, certify, obs, mesh and run paths run the
+rollout kernel (each counted; ``run_keyed`` may not, as the key batch
+rolls on the scan). The planned, batch, independent, queue, streamlin and
 txn paths do not run it: each of them is run with the rollout kernel's
 launch
 count set to 0 and must leave it at 0. The batch pins the scan rollout,
@@ -1359,6 +1380,420 @@ def mesh_phase(dev, main_rows, trials, trial_rows, keys, gate_verdicts,
     return out
 
 
+#: the run phase (core.run on the card): (a) RUN_OPS client ops over
+#: RUN_NODES nodes at RUN_CONCURRENCY workers, RUN_INFO_P of them left
+#: indeterminate, the partitioner switching every RUN_NEMESIS_S seconds
+#: RUN_NEMESIS_CYCLES times; (b) the register workload at per-key-limit
+#: RUN_PER_KEY and RUN_KEYED_OPS ops (about 64 keys); (c) RUN_LOST_OPS
+#: ops at concurrency RUN_LOST_CONCURRENCY, the second write of every
+#: RUN_LOST_EVERY dropped, the ops staggered RUN_LOST_STAGGER_S apart on
+#: average: with all 16 workers busy, the proof that the history is
+#: invalid must exhaust the orders of the ~15 reads in flight at each
+#: point before the violation (264,419 configs in one CPU rehearsal, and
+#: the CPU oracle did not finish), against 30-1,844 configs in five
+#: rehearsals at this stagger; (d) a hard limit of RUN_SALVAGE_S on an
+#: endless generator
+RUN_NODES = ["n1", "n2", "n3", "n4", "n5"]
+RUN_OPS, RUN_CONCURRENCY, RUN_INFO_P = 10_000, 64, 0.05
+#: each op of (a) and (d) sleeps this long before it applies: long
+#: enough that every worker is busy at the interpreter's rate
+RUN_OP_S = 0.04
+RUN_NEMESIS_S, RUN_NEMESIS_CYCLES = 0.5, 3
+RUN_PER_KEY, RUN_KEYED_OPS, RUN_KEYED_CONCURRENCY = 200, 12_800, 40
+RUN_LOST_OPS, RUN_LOST_CONCURRENCY, RUN_LOST_EVERY = 2_000, 16, 50
+RUN_LOST_STAGGER_S = 0.002
+RUN_SALVAGE_S = 1.0
+
+
+def errors_in(x, path="results"):
+    """Paths of every ``error`` key in a results tree: a run must not hide
+    a device fault behind ``check_safe``'s "unknown"."""
+    if isinstance(x, dict):
+        return [f"{path}.error" for k in x if k == "error"] + [
+            p for k, v in x.items() for p in errors_in(v, f"{path}.{k}")]
+    if isinstance(x, (list, tuple)):
+        return [p for i, v in enumerate(x)
+                for p in errors_in(v, f"{path}[{i}]")]
+    return []
+
+
+def run_clients():
+    """The run phase's clients, over the port's ``tests.Atom``. Imported
+    lazily: ``jepsen_tpu_torch`` is found beside this script only once
+    ``main`` has put the checkout on ``sys.path``."""
+    import threading
+    from jepsen_tpu_torch import client, independent
+    from jepsen_tpu_torch import tests as tst
+
+    class IndeterminateClient(tst.AtomClient):
+        """The cas-register atom client, except that a seeded ``info_p``
+        of its ops apply and then complete as ``info``, and that its ops
+        take effect in the order the history records their completions,
+        as the main-path histories' ops do. An op sleeps ``RUN_OP_S``,
+        then applies once the previous op's completion is recorded:
+        ``recorded``, the run's op sink, hands the turn on. Without the
+        turn, two threads can apply in one order and reach the history
+        in the other; with 1 ms ops, the interpreter's ~1,500 ops/s keep
+        only ~2 of 64 workers busy. Either way the 5% of ops left open
+        for ever make the search's greedy chains take a later write for
+        an open one's effect: such 10,000-op runs took 916-5,498
+        iterations on the card, or stayed unknown after 60 s (PERF.md
+        §6), against 7 for the main-path history."""
+
+        def __init__(self, state, rng, info_p, turn=None, meta_log=None):
+            super().__init__(state, meta_log)
+            self.rng, self.info_p = rng, info_p
+            self.turn = turn if turn is not None else threading.Lock()
+
+        def open(self, test, node):
+            return IndeterminateClient(self.state, self.rng, self.info_p,
+                                       self.turn, self.meta_log)
+
+        def recorded(self, op):
+            # an info the interpreter writes off at an abort never took
+            # the turn: release only a turn that is held
+            if isinstance(op.get("process"), int) \
+                    and op["type"] != "invoke" and self.turn.locked():
+                self.turn.release()
+
+        def invoke(self, test, op):
+            time.sleep(RUN_OP_S)
+            self.turn.acquire()
+            out = dict(op, type="ok")
+            if op["f"] == "write":
+                self.state.reset(op["value"])
+            elif op["f"] == "cas":
+                if not self.state.compare_and_set(*op["value"]):
+                    out["type"] = "fail"
+            else:
+                out["value"] = self.state.deref()
+            if self.rng.random() < self.info_p:
+                out = dict(op, type="info", error="indeterminate")
+            return out
+
+    class KeyedAtomClient(client.Client):
+        """One atom register per key (``[k v]`` values)."""
+
+        def __init__(self, registers=None):
+            self.registers = registers if registers is not None else {}
+
+        def open(self, test, node):
+            return KeyedAtomClient(self.registers)
+
+        def invoke(self, test, op):
+            k, v = op["value"]
+            reg = self.registers.setdefault(k, tst.Atom(None))
+            if op["f"] == "read":
+                return dict(op, type="ok",
+                            value=independent.tuple_(k, reg.deref()))
+            if op["f"] == "write":
+                reg.reset(v)
+                return dict(op, type="ok")
+            return dict(op, type="ok" if reg.compare_and_set(*v)
+                        else "fail")
+
+    class LostWriteClient(client.Client):
+        """A register that drops the second write of every ``every`` yet
+        answers ok (not the first: a read of the initial None is a
+        wildcard to the model). Every op takes effect as it starts and
+        then sleeps 1 ms, so ops take effect in the order they return.
+        The run gives the writes to one thread, which pauses between
+        them: a dropped write is then never concurrent with the write
+        that set the value the reads after it return, and no
+        linearization can order it before that write."""
+
+        def __init__(self, state, every, counter=None):
+            self.state, self.every = state, every
+            self.counter = counter if counter is not None \
+                else tst.Atom(0)
+
+        def open(self, test, node):
+            return LostWriteClient(self.state, self.every, self.counter)
+
+        def invoke(self, test, op):
+            out = dict(op, type="ok")
+            if op["f"] == "read":
+                out["value"] = self.state.deref()
+            elif self.counter.swap(lambda x: x + 1) % self.every != 2:
+                self.state.reset(op["value"])
+            time.sleep(0.001)
+            return out
+
+    return IndeterminateClient, KeyedAtomClient, LostWriteClient
+
+
+def run_spans(test):
+    """Seconds of the run's ``run-case``, ``analyze`` and preflight
+    (``analysis.planlint``) spans and of its checker's (the Linearizable
+    gate's where the test composes it, else the test's checker's), from
+    its ``trace.jsonl``."""
+    from jepsen_tpu_torch import obs, store
+    evs = obs.load_trace(os.path.join(store.path(test), "trace.jsonl"))
+    spans = {}
+    for e in evs:
+        if e.get("ph") == "X":
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+    top = f"checker.{type(test['checker']).__name__}"
+    checker = "checker.Linearizable" if "checker.Linearizable" in spans \
+        else top
+    for name in ("run-case", "analyze", "analysis.planlint", checker):
+        if name not in spans:
+            raise AssertionError(f"run: no {name} span in the trace")
+    return {"run_case_s": spans["run-case"], "analyze_s": spans["analyze"],
+            "checker_s": spans[checker], "checker_span": checker,
+            "preflight_s": spans["analysis.planlint"]}
+
+
+def run_phase(dev, n_ops=RUN_OPS, keyed_ops=RUN_KEYED_OPS,
+              lost_ops=RUN_LOST_OPS, salvage_s=RUN_SALVAGE_S):
+    """``core.run`` end to end on the card, with ``ssh={"dummy?": True}``
+    and each test's store in a temporary directory. (a) A cas-register
+    run: ``n_ops`` client ops (read, write, cas) over five nodes at 64
+    workers, 5% of them left indeterminate by the client, the
+    ``partition_random_halves`` nemesis switching every 0.5 s, checked
+    by ``compose({linearizable(jax-wgl), timeline.html()})``: valid, no
+    ``error`` in the results, the rollout kernel launched, 2 x
+    ``n_ops`` client entries beside the nemesis's, the history, results
+    and timeline in the store, partition commands in the dummy log.
+    (b) The register workload (``tests/linearizable_register.py``) at
+    its defaults ("competition") with a keyed atom client, per-key-limit
+    200 and ``keyed_ops`` ops: every key valid. (c) ``lost_ops`` ops
+    against a register that drops 1 write in 50 yet answers ok: the
+    verdict False and equal to the CPU oracle's, the failure render
+    (with matplotlib) or its containment (without). (d) A hard
+    ``time-limit-s`` of ``salvage_s`` on an endless generator: the
+    history salvaged, checked on the card to a definite verdict with no
+    error, and no journal left behind. Each case's rollout launches are
+    counted from 0. Certification is the gate phase's: the run's tests
+    opt out of it (at 10k ops its CPU replays take minutes, ROADMAP.md
+    C.2)."""
+    import importlib.util
+    import itertools
+    import logging
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import core, independent, nemesis, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch import tests as tst
+    from jepsen_tpu_torch.checker import checkers, rollout, timeline
+    from jepsen_tpu_torch.checker import core as ccore
+    from jepsen_tpu_torch.tests import linearizable_register
+    IndeterminateClient, KeyedAtomClient, LostWriteClient = run_clients()
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    engine_opts = {} if cuda else {"device": "cpu"}
+    base = store.base_dir
+    store.base_dir = tempfile.mkdtemp(prefix="jepsen-run-")
+    out = {"phase": "run"}
+    launches = {}
+
+    def lin():
+        return checkers.linearizable({"model": "cas-register",
+                                      "algorithm": "jax-wgl",
+                                      "engine_opts": engine_opts})
+
+    def register_mix(rng):
+        return gen.mix([
+            lambda: {"f": "read"},
+            lambda: {"f": "write", "value": rng.randint(0, 4)},
+            lambda: {"f": "cas",
+                     "value": [rng.randint(0, 4), rng.randint(0, 4)]}])
+
+    def run(path, t):
+        t = {**tst.noop_test(), "ssh": {"dummy?": True},
+             "certify?": False, **t}
+        rollout.launches = 0
+        t0 = time.monotonic()
+        test = core.run(t)
+        sync(dev)
+        wall = time.monotonic() - t0
+        # a keyed run's per-key races may leave losers running: wait for
+        # them, so none launches into a later path's count
+        checkers.join_racers()
+        launches[path] = rollout.launches
+        errs = errors_in(test["results"])
+        if errs:
+            raise AssertionError(f"run {t['name']}: {errs}: "
+                                 f"{test['results']}")
+        return test, {"wall_s": wall, "rollout_launches": rollout.launches,
+                      **run_spans(test)}
+
+    def segments(lr):
+        """The searches a Linearizable verdict ran: one flat search, or
+        the planner's segments, which ride the key batch and so roll on
+        the scan, not the rollout kernel."""
+        return (lr.get("searchplan") or {}).get("segments", 1)
+
+    def need_launches(what, path, lr):
+        """A flat device search that iterated must have launched the
+        rollout kernel (on the card)."""
+        if cuda and segments(lr) == 1 and (lr.get("iterations") or 0) > 0 \
+                and launches[path] <= 0:
+            raise AssertionError(f"run {what}: the rollout kernel was "
+                                 f"never launched")
+
+    try:
+        # (a) the main-path shape, recorded live
+        rng = random.Random(45100)
+        nem_gen = [g for _ in range(RUN_NEMESIS_CYCLES) for g in (
+            gen.sleep(RUN_NEMESIS_S), {"type": "info", "f": "start"},
+            gen.sleep(RUN_NEMESIS_S), {"type": "info", "f": "stop"})]
+        register = IndeterminateClient(tst.Atom(None), random.Random(45101),
+                                       RUN_INFO_P)
+        test, row = run("run", {
+            "name": "run-register", "nodes": RUN_NODES,
+            "concurrency": RUN_CONCURRENCY, "client": register,
+            "op-sinks": [register.recorded],
+            "nemesis": nemesis.partition_random_halves(),
+            "generator": gen.nemesis(
+                nem_gen, gen.clients(gen.limit(n_ops, register_mix(rng)))),
+            "checker": ccore.compose({"linearizable": lin(),
+                                      "timeline": timeline.html()})})
+        r, hist = test["results"], test["history"]
+        client_ops = [o for o in hist if isinstance(o["process"], int)]
+        nem_ops = [o for o in hist if o["process"] == "nemesis"]
+        lr = r["linearizable"]
+        if r["valid"] is not True or lr["valid"] is not True:
+            raise AssertionError(f"run register: decided {r['valid']!r}")
+        if cuda and launches["run"] <= 0:
+            raise AssertionError(f"run register: the rollout kernel was "
+                                 f"never launched ({segments(lr)} "
+                                 f"segments, {lr.get('iterations')} "
+                                 f"iterations)")
+        if len(client_ops) != 2 * n_ops or \
+                len(nem_ops) != 4 * RUN_NEMESIS_CYCLES:
+            raise AssertionError(f"run register: {len(client_ops)} client "
+                                 f"and {len(nem_ops)} nemesis entries")
+        files = set(os.listdir(store.path(test)))
+        if not {"history.jsonl", "history.txt", "results.json",
+                "timeline.html"} <= files:
+            raise AssertionError(f"run register: store holds {files}")
+        cmds = [cmd for _, cmd in test.get("dummy-log", [])]
+        drops = sum("iptables -A INPUT" in cmd for cmd in cmds)
+        if not drops or not any("iptables -F" in cmd for cmd in cmds):
+            raise AssertionError("run register: no partition commands in "
+                                 "the dummy log")
+        span_s = (max(o["time"] for o in client_ops)
+                  - min(o["time"] for o in client_ops)) / 1e9
+        out["register"] = {
+            **row, "valid": True, "client_entries": len(client_ops),
+            "client_span_s": span_s,
+            "interpreter_ops_per_s": n_ops / span_s,
+            "nemesis_entries": len(nem_ops),
+            "info_ops": sum(o["type"] == "info" for o in client_ops),
+            "iterations": lr.get("iterations"), "segments": segments(lr),
+            "partition_drop_commands": drops, "store_files": sorted(files)}
+
+        # (b) the register workload at its defaults, keyed
+        workload = linearizable_register.test({
+            "nodes": RUN_NODES, "per-key-limit": RUN_PER_KEY,
+            "engine_opts": engine_opts})
+        test, row = run("run_keyed", {
+            "name": "run-keyed", "nodes": RUN_NODES,
+            "concurrency": RUN_KEYED_CONCURRENCY,
+            "client": KeyedAtomClient(),
+            "generator": gen.limit(keyed_ops, workload["generator"]),
+            "checker": workload["checker"]})
+        r = test["results"]
+        bad = [k for k, kr in r["results"].items()
+               if kr["valid"] is not True]
+        if r["valid"] is not True or bad:
+            raise AssertionError(f"run keyed: decided {r['valid']!r}, "
+                                 f"keys {bad}")
+        per_key = sorted(os.listdir(store.path(test, independent.DIR)))
+        if len(per_key) != len(r["results"]):
+            raise AssertionError(f"run keyed: {len(per_key)} key "
+                                 f"directories, {len(r['results'])} keys")
+        out["keyed"] = {**row, "valid": True, "keys": len(r["results"]),
+                        "history_entries": len(test["history"])}
+
+        # (c) lost writes: invalid, as the CPU oracle decides
+        values = itertools.count(1)
+        caught = []
+
+        class Catch(logging.Handler):
+            def emit(self, record):
+                caught.append(record)
+
+        log = logging.getLogger("jepsen_tpu_torch.checker.checkers")
+        handler = Catch(logging.WARNING)
+        log.addHandler(handler)
+        try:
+            test, row = run("run_invalid", {
+                "name": "run-lost-write", "nodes": RUN_NODES,
+                "concurrency": RUN_LOST_CONCURRENCY,
+                "client": LostWriteClient(tst.Atom(None), RUN_LOST_EVERY),
+                "generator": gen.clients(gen.limit(lost_ops, gen.stagger(
+                    RUN_LOST_STAGGER_S, gen.reserve(
+                        1, gen.cycle(gen.once(
+                            lambda: {"f": "write", "value": next(values)}),
+                            gen.sleep(0.001)),
+                        gen.repeat({"f": "read"}))))),
+                "checker": lin()})
+        finally:
+            log.removeHandler(handler)
+        r, hist = test["results"], test["history"]
+        client_ops = [o for o in hist if isinstance(o["process"], int)]
+        t0 = time.monotonic()
+        want = oracle_verdict(client_ops)
+        oracle_s = time.monotonic() - t0
+        if r["valid"] is not False or want is not False:
+            raise AssertionError(f"run lost-write: decided {r['valid']!r}, "
+                                 f"the CPU oracle {want!r}")
+        need_launches("lost-write", "run_invalid", r)
+        png = store.path(test, "linear.png")
+        have_mpl = importlib.util.find_spec("matplotlib") is not None
+        if have_mpl != os.path.exists(png) or (not have_mpl and (
+                len(caught) != 1 or caught[0].exc_info is None
+                or getattr(caught[0].exc_info[1], "name", None)
+                != "matplotlib")):
+            raise AssertionError(f"run lost-write: linear.png "
+                                 f"{os.path.exists(png)} with matplotlib "
+                                 f"{have_mpl}; contained "
+                                 f"{[c.exc_info for c in caught]}")
+        writes = sum(o["f"] == "write" and o["type"] == "ok"
+                     for o in client_ops)
+        out["lost_write"] = {
+            **row, "valid": False, "oracle_valid": want,
+            "oracle_s": oracle_s, "ok_writes": writes,
+            "segments": segments(r), "iterations": r.get("iterations"),
+            "dropped_writes": (writes + RUN_LOST_EVERY - 2) // RUN_LOST_EVERY,
+            "witness_op": r.get("op", {}).get("index"),
+            "matplotlib": have_mpl, "linear_png": os.path.exists(png),
+            "contained": [type(c.exc_info[1]).__name__ for c in caught
+                          if c.exc_info]}
+
+        # (d) a hard time limit: the partial history is salvaged and checked
+        rng = random.Random(45102)
+        salvaged = IndeterminateClient(tst.Atom(None), rng, 0.0)
+        test, row = run("run_salvage", {
+            "name": "run-salvage", "nodes": RUN_NODES,
+            "concurrency": RUN_LOST_CONCURRENCY, "client": salvaged,
+            "op-sinks": [salvaged.recorded],
+            "time-limit-s": salvage_s, "abort-grace-s": 1.0,
+            "generator": gen.clients(register_mix(rng)),
+            "checker": lin()})
+        r = test["results"]
+        if r.get("salvaged") is not True or r["valid"] not in (True, False):
+            raise AssertionError(f"run salvage: salvaged "
+                                 f"{r.get('salvaged')!r}, valid "
+                                 f"{r['valid']!r}")
+        need_launches("salvage", "run_salvage", r)
+        if os.path.exists(store.path(test, store.JOURNAL_FILE)):
+            raise AssertionError("run salvage: the journal was left behind")
+        out["salvage"] = {**row, "valid": r["valid"], "salvaged": True,
+                          "segments": segments(r),
+                          "iterations": r.get("iterations"),
+                          "abort_reason": r.get("abort-reason"),
+                          "history_entries": len(test["history"])}
+    finally:
+        shutil.rmtree(store.base_dir, ignore_errors=True)
+        store.base_dir = base
+    out["launches"] = launches
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
 def batch_phase(keys, oracle):
     """The 256-key headline batch: a profiled call (the warm-up), then a
     timed call; the first 32 verdicts against the CPU oracle's
@@ -1942,7 +2377,11 @@ def main(argv):
                           gate["planned"])
     emit(mesh_row)
 
-    # -- 8-10. the key batch, independent, the queue models ----------------
+    # -- 8. run: core.run end to end, from the first op to the verdict -----
+    run_row = run_phase(dev)
+    emit(run_row)
+
+    # -- 9-11. the key batch, independent, the queue models ----------------
     row = batch_phase(keys, oracle)
     emit(row)
     ind = independent_phase(keys[:INDEPENDENT_KEYS])
@@ -1950,7 +2389,7 @@ def main(argv):
     queues = queue_phase(fifo)
     emit(queues)
 
-    # -- 11-12. the streaming fold and the txn closure ---------------------
+    # -- 12-13. the streaming fold and the txn closure ---------------------
     rollout.launches = 0
     emit(streamlin_phase(keys, dev))
     stream_launches = scan_only("streamlin")
@@ -1959,6 +2398,7 @@ def main(argv):
     txn_launches = scan_only("txn")
     by_path = {"main": main_launches, **gate["launches"],
                **obs_row["launches"], "mesh": mesh_row["launches"],
+               **run_row["launches"],
                "batch": row["rollout_launches"],
                "independent": ind["rollout_launches"],
                **{c["model"]: c["rollout_launches"]

@@ -25,21 +25,30 @@
   ``test["certify?"] = False``); ``certify_run`` re-certifies a run
   directory written by ``store`` from its artifacts (VC012).
 
+* **planlint** -- pre-flight validation of a test map before any node
+  contact (``core.run``'s preflight phase; fatal codes raise
+  ``PlanLintError``). The port has the test-map pass; the campaign,
+  fleet, service, coalesce, capacity, fleetlint and HA lints wait for
+  ROADMAP.md A.11(d).
+
 All report through one ``Diagnostic`` model and its renderers. The other
-lint analyzers (planlint, jaxlint's tracing checks, codelint,
-fleetlint, capplan) wait for the host harness (ROADMAP.md queue A.11).
+lint analyzers (jaxlint's tracing checks, codelint, fleetlint, capplan)
+wait for the host harness (ROADMAP.md queue A.11(d)).
 """
 
-from . import certify, histlint, searchplan, shapelint  # noqa: F401
+from . import (certify, histlint, planlint, searchplan,  # noqa: F401
+               shapelint)
 from .diagnostics import (Diagnostic, ERROR, INFO,  # noqa: F401
                           SEVERITIES, WARNING, diag, errors, render_text,
                           run_analyzer, severity_counts, to_json)
 from .histlint import (lint_encoded, lint_history,  # noqa: F401
                        lint_test_history, model_op_set)
+from .planlint import PlanLintError, lint_plan, preflight  # noqa: F401
 
 __all__ = [
     "Diagnostic", "ERROR", "WARNING", "INFO", "SEVERITIES", "diag",
     "errors", "severity_counts", "render_text", "to_json", "run_analyzer",
-    "histlint", "searchplan", "shapelint", "certify",
+    "histlint", "planlint", "searchplan", "shapelint", "certify",
     "lint_history", "lint_encoded", "lint_test_history", "model_op_set",
+    "lint_plan", "preflight", "PlanLintError",
 ]

@@ -1,10 +1,10 @@
 """Lifting single-key tests to maps of keys (reference
-jepsen/src/jepsen/independent.clj), the checker half.
+jepsen/src/jepsen/independent.clj).
 
 Some tests are expensive to check — linearizability needs short histories —
 but short histories may not sample long enough to reveal concurrency
 errors. This module splits a test into independent keyed components:
-values are wrapped in ``(k, v)`` tuples, and the checker splits the
+generators wrap values in ``(k, v)`` tuples, and the checker splits the
 history into per-key subhistories.
 
 As in ``jepsen_tpu.independent``, the per-key checker's linearizable
@@ -17,19 +17,22 @@ segments, and the segments of every key ride the same batch. Unlike the
 JAX package, a failure of that batched path raises: it does not fall
 back to per-key checks, so a fault of the device path cannot hide behind
 slower per-key results. One key's Linearizable verdict is certified
-(``_certify_keyed``).
-
-Not ported yet (ROADMAP.md queue A): the keyed generators (they need
-``generator``, A.11) and the per-key store files (``store``, A.11).
+(``_certify_keyed``), and each key's results and history land in the
+store under ``independent/<key>/`` (independent.clj:318-326).
 """
 
 from __future__ import annotations
 
+import logging
 import time
+from dataclasses import dataclass, replace
 
+from . import generator as gen
 from . import history as h
 from .checker.core import Checker, as_checker, check_safe, merge_valid
 from .util import bounded_pmap
+
+logger = logging.getLogger(__name__)
 
 #: Subdirectory for per-key results in the store (independent.clj:18-20).
 DIR = "independent"
@@ -63,6 +66,159 @@ def tuple_(k, v):
 
 def is_tuple(value):
     return isinstance(value, Tuple)
+
+
+def _tuple_gen(k, g):
+    """Wraps a generator so ops carry :value [k v] tuples
+    (independent.clj:96-101)."""
+    def wrap(op):
+        op = dict(op)
+        op["value"] = Tuple(k, op.get("value"))
+        return op
+    return gen.map(wrap, g)
+
+
+def sequential_generator(keys, fgen):
+    """One key at a time: builds (fgen k1), drains it, moves to k2, ...
+    wrapping each value in a [k v] tuple (independent.clj:31-47). fgen must
+    be pure."""
+    return [_tuple_gen(k, fgen(k)) for k in keys]
+
+
+def _group_threads(n, ctx):
+    """Partition sorted worker threads into groups of n
+    (independent.clj:49-77)."""
+    threads = sorted(ctx.all_threads(), key=lambda t: (isinstance(t, str), t))
+    thread_count = len(threads)
+    group_count = thread_count // n
+    assert n <= thread_count, (
+        f"With {thread_count} worker threads, concurrent-generator cannot "
+        f"run a key with {n} threads concurrently. Consider raising your "
+        f"test's concurrency to at least {n}.")
+    assert thread_count == n * group_count, (
+        f"This concurrent-generator has {thread_count} threads but can only "
+        f"use {n * group_count} of them to run {group_count} concurrent "
+        f"keys with {n} threads apiece. Consider a concurrency that is a "
+        f"multiple of {n}.")
+    return [threads[i * n:(i + 1) * n] for i in range(group_count)]
+
+
+class _LazyKeys:
+    """A persistent, memoized view over a (possibly endless) key iterable:
+    ``get(i)`` always returns the same key for the same i, so the pure
+    generator can be re-entered/copied safely (the reference's lazy seq of
+    keys, e.g. ``(range)`` in linearizable_register.clj:45)."""
+
+    def __init__(self, iterable):
+        self._it = iter(iterable)
+        self._cache = []
+
+    def get(self, i):
+        """The i-th key, or None when the sequence is exhausted."""
+        while len(self._cache) <= i:
+            try:
+                self._cache.append(next(self._it))
+            except StopIteration:
+                return None
+        return self._cache[i]
+
+
+@dataclass(frozen=True)
+class ConcurrentGenerator(gen.Generator):
+    """Splits threads into groups of n; each group works one key's
+    generator, rotating to a fresh key when it exhausts
+    (independent.clj:103-236).
+
+    n: group size; fgen: key -> generator; keys: _LazyKeys; key_idx: next
+    unconsumed key position; group_threads: list of thread lists (lazy);
+    thread_group: {thread: group} (lazy); gens: per-group generator vector
+    (lazy)."""
+
+    n: int
+    fgen: object
+    keys: object
+    key_idx: int = 0
+    group_threads: object = None
+    thread_group: object = None
+    gens: object = None
+
+    def _init(self, ctx):
+        gt = self.group_threads or _group_threads(self.n, ctx)
+        tg = self.thread_group or {t: g for g, ts in enumerate(gt)
+                                   for t in ts}
+        gens = self.gens
+        idx = self.key_idx
+        if gens is None:
+            gens = []
+            for _ in range(len(gt)):
+                k = self.keys.get(idx)
+                if k is None:
+                    gens.append(None)
+                else:
+                    gens.append(_tuple_gen(k, self.fgen(k)))
+                    idx += 1
+        return gt, tg, idx, list(gens)
+
+    def op(self, test, ctx):
+        gt, tg, idx, gens = self._init(ctx)
+        free_groups = {tg[t] for t in ctx.free_threads if t in tg}
+
+        soonest = None
+        for group in sorted(free_groups):
+            while True:
+                g = gens[group]
+                if g is None:
+                    break
+                gctx = ctx.restrict(set(gt[group]).__contains__)
+                res = gen.gen_op(g, test, gctx)
+                if res is None:
+                    # group generator exhausted: rotate to a fresh key
+                    k = self.keys.get(idx)
+                    if k is not None:
+                        idx += 1
+                        gens[group] = _tuple_gen(k, self.fgen(k))
+                        continue
+                    gens[group] = None
+                    break
+                op, g2 = res
+                cand = {"op": op, "group": group, "gen2": g2,
+                        "weight": len(gt[group])}
+                soonest = gen.soonest_op_map(soonest, cand)
+                break
+
+        if soonest is not None and soonest["op"] is not gen.PENDING:
+            group = soonest["group"]
+            gens[group] = soonest["gen2"]
+            return soonest["op"], replace(
+                self, key_idx=idx, group_threads=gt, thread_group=tg,
+                gens=tuple(gens))
+        # No dispatchable op now; if any generator (or pending candidate)
+        # remains, stay pending
+        if soonest is not None or any(g is not None for g in gens):
+            return gen.PENDING, replace(
+                self, key_idx=idx, group_threads=gt, thread_group=tg,
+                gens=tuple(gens))
+        return None
+
+    def update(self, test, ctx, event):
+        if self.thread_group is None or self.gens is None:
+            return self
+        thread = ctx.process_to_thread(event.get("process"))
+        group = self.thread_group.get(thread)
+        if group is None or self.gens[group] is None:
+            return self
+        gctx = ctx.restrict(set(self.group_threads[group]).__contains__)
+        gens = list(self.gens)
+        gens[group] = gen.gen_update(gens[group], test, gctx, event)
+        return replace(self, gens=tuple(gens))
+
+
+def concurrent_generator(n, keys, fgen):
+    """n threads per key; groups rotate to fresh keys as their generator
+    exhausts. ``keys`` may be endless (e.g. itertools.count()). Excludes
+    the nemesis by design (independent.clj:238-264)."""
+    assert isinstance(n, int) and n > 0
+    return gen.clients(ConcurrentGenerator(n, fgen, _LazyKeys(keys)))
 
 
 def history_keys(history):
@@ -118,9 +274,11 @@ class _IndependentChecker(Checker):
 
             def one(k):
                 subdir = list(opts.get("subdirectory") or []) + [DIR, k]
-                return k, check_safe(self.inner, test, subs[k],
-                                     {**opts, "subdirectory": subdir,
-                                      "history-key": k})
+                r = check_safe(self.inner, test, subs[k],
+                               {**opts, "subdirectory": subdir,
+                                "history-key": k})
+                self._write_key_files(test, subdir, r, subs[k])
+                return k, r
 
             results = dict(bounded_pmap(one, ks))
             if reserved:
@@ -249,20 +407,40 @@ class _IndependentChecker(Checker):
                 # defers to the per-key race (device vs the CPU engines)
                 lr = check_safe(lin, test, subs[k], opts)
             lr["valid?"] = lr["valid"]
-            if name is None:
-                return k, lr
-            # mimic the Compose result shape for the whole inner map
             subdir = list(opts.get("subdirectory") or []) + [DIR, k]
-            r = {name: lr}
-            for rn, rc in rest.items():
-                r[rn] = check_safe(rc, test, subs[k],
-                                   {**opts, "subdirectory": subdir,
-                                    "history-key": k})
-            r["valid"] = merge_valid(
-                [v.get("valid") for v in r.values() if isinstance(v, dict)])
+            if name is None:
+                r = lr
+            else:
+                # mimic the Compose result shape for the whole inner map
+                r = {name: lr}
+                for rn, rc in rest.items():
+                    r[rn] = check_safe(rc, test, subs[k],
+                                       {**opts, "subdirectory": subdir,
+                                        "history-key": k})
+                r["valid"] = merge_valid(
+                    [v.get("valid") for v in r.values()
+                     if isinstance(v, dict)])
+            self._write_key_files(test, subdir, r, subs[k])
             return k, r
 
         return dict(bounded_pmap(finish, list(zip(ks, per_key))))
+
+    def _write_key_files(self, test, subdir, results, sub):
+        """Per-key results.json + history.txt in the store
+        (independent.clj:318-326)."""
+        if not test.get("name") or not test.get("start-time"):
+            return
+        try:
+            from . import store
+            from .util import op_str
+            store._dump_json(results, store.make_path(test, subdir,
+                                                      "results.json"))
+            with open(store.make_path(test, subdir, "history.txt"),
+                      "w") as f:
+                for op in sub:
+                    f.write(op_str(op) + "\n")
+        except Exception:  # noqa: BLE001 - persistence is best-effort here
+            logger.warning("couldn't write per-key files", exc_info=True)
 
 
 def checker(inner):

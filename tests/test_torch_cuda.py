@@ -13,7 +13,8 @@ the phase plane's synchronize runs only while phases are on, and the
 compile phase is armed only when the kernel's library is not yet
 loaded; the multi-device search at world size 1 over NCCL (the sharded
 single search and the mesh key batch equal to the flat ones, verdicts,
-iterations and rollout launches included; a 2-D mesh refused). Every
+iterations and rollout launches included; a 2-D mesh refused); and
+``core.run`` end to end, its flat search launching the kernel. Every
 test is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
@@ -519,3 +520,34 @@ def test_mesh_gate_and_refusals_on_card(cuda_mesh):
     with pytest.raises(ValueError, match="disagrees"):
         parallel.check_encoded_sharded(spec, e, st, cuda_mesh,
                                        device="cpu")
+
+
+def test_core_run_on_card(dev, tmp_path, monkeypatch):
+    """``core.run`` end to end on the card: 1,000 cas-register ops at 16
+    workers through the default device (no ``engine_opts``), the verdict
+    valid with no error and the rollout kernel launched by the flat
+    search."""
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch import tests as tst
+    monkeypatch.setattr(store, "base_dir", str(tmp_path / "store"))
+    rng = random.Random(45100)
+    t = tst.noop_test()
+    t.update({
+        "name": "card-run", "ssh": {"dummy?": True}, "certify?": False,
+        # one flat search (no planned segments, which roll on the scan)
+        "searchplan?": False,
+        "concurrency": 16, "client": tst.atom_client(tst.Atom(None)),
+        "checker": checkers.linearizable({"model": "cas-register",
+                                          "algorithm": "jax-wgl"}),
+        "generator": gen.clients(gen.limit(1000, gen.mix([
+            lambda: {"f": "read"},
+            lambda: {"f": "write", "value": rng.randint(0, 4)},
+            lambda: {"f": "cas",
+                     "value": [rng.randint(0, 4), rng.randint(0, 4)]}])))})
+    rollout.launches = 0
+    test = core.run(t)
+    r = test["results"]
+    assert r["valid"] is True and "error" not in r, r
+    assert len(test["history"]) == 2000
+    assert rollout.launches > 0

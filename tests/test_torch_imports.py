@@ -245,3 +245,50 @@ print("ok")
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_run_loop_modules_import_without_jax():
+    """The run loop (``core.run`` with its generators, interpreter,
+    clients, nemeses, control plane, robustness core, the preflight lint,
+    the timeline and the register workload) stands alone too."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+from jepsen_tpu_torch import (client, core, db, generator, independent,
+                              interpreter, monitor, nemesis, net, robust,
+                              util)
+from jepsen_tpu_torch import os as jos
+from jepsen_tpu_torch import tests
+from jepsen_tpu_torch.analysis import planlint
+from jepsen_tpu_torch.checker import timeline
+from jepsen_tpu_torch.control import core as ccore, net as cnet
+from jepsen_tpu_torch.control import remotes, util as cutil
+from jepsen_tpu_torch.generator import testing
+from jepsen_tpu_torch.nemesis import _grudges
+from jepsen_tpu_torch.obs import profile
+from jepsen_tpu_torch.robust import leases, retry, watchdog
+from jepsen_tpu_torch.tests import linearizable_register
+for f in (core.run, core.analyze, core.salvage, core.prepare_test,
+          core.preflight, core.synchronize, core.primary, core.run_case,
+          interpreter.run, generator.testing.simulate, testing.quick,
+          independent.concurrent_generator,
+          independent.sequential_generator, planlint.lint_plan,
+          planlint.preflight, monitor.install, monitor.finalize,
+          monitor.config, profile.scope, timeline.html, nemesis.partitioner,
+          nemesis.partition_random_halves, _grudges.complete_grudge,
+          util.with_relative_time, util.timeout_call, util.majority,
+          robust.signal_scope, linearizable_register.test, tests.noop_test,
+          cutil.exists, ccore.escape, cnet.ip, jos.noop.setup,
+          remotes.DummyRemote, db.cycle, net.iptables.drop_all):
+    assert callable(f)
+assert issubclass(robust.RetryPolicy, object) and watchdog.WATCHDOG_FIRED
+assert leases.LeaseTable and retry.RetryPolicy and client.noop
+assert monitor.install({}) is None and monitor.finalize(None, {}) is None
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
