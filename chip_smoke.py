@@ -122,7 +122,28 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    contained ModuleNotFoundError without. (d) A ``time-limit-s`` of 1 s
    on an endless generator: results salvaged, the partial history
    decided True or False on the card with no error, no journal left.
-9. ``batch``: the JAX package's headline key batch at full width
+9. ``monitor``: monitored runs through ``core.run`` (``test["monitor"]``),
+   with run's harness and clients, each case's rollout launches counted
+   from 0. (a) Run (a)'s register run at the monitor's default chunk
+   (64) and engine ("jax-wgl", the flat search with the rollout
+   kernel): the monitor's verdict True and equal to the offline one,
+   ``monitor.json`` in the store, the monitor's checks (counted until
+   ``analyze`` starts) launching the kernel; its checks, chunks, check
+   seconds, time to the first verdict and the interpreter's client ops/s
+   beside run (a)'s. (b) Run (c)'s lost writes: the monitor aborts the
+   run ("monitor-violation"), the offline verdict on the salvaged history
+   False and equal to ``oracle_verdict``, the monitor's evidence
+   certified (the cross-check confirms, no VC error); again with
+   ``skip-offline?`` (``monitor-only``). (c) The "streamlin" engine at
+   chunk 8 on a clean and a lost-write run of 300 ops: each verdict equal
+   to the CPU oracle's, no fall-back; seconds per event. (d) The
+   list-append workload (``tests/cycle/append``) against a serializable
+   in-memory client, 16,384 txns at 8 processes, monitored by the txn
+   family at chunks of 1,024: the monitor's verdict True and equal to the
+   offline check's; (e) a stale-read copy of 2,048 txns: aborted, False
+   offline with the monitor's anomaly types, its cycle witness
+   certified. The txn cases launch no rollout kernel.
+10. ``batch``: the JAX package's headline key batch at full width
    (``simulate.bench_histories``, as ``bench.py`` rungs 2 and 2b draw
    it): 256 cas-register keys, 8 processes, 200 ops per key, crash_p
    0.02, every 8th key corrupted, through
@@ -133,14 +154,14 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    Both calls must decide alike. No key may be
    unknown, at least one must be invalid, and the first 32 verdicts must
    equal the CPU oracle's (the gate phase's).
-10. ``independent``: the first 64 of those keys wrapped in
+11. ``independent``: the first 64 of those keys wrapped in
    ``independent.tuple_`` and merged into one history, through
    ``independent.checker(compose({"linearizable": ..., "ok":
    unbridled_optimism()}))`` with the default gate and planning on:
    exactly one call of ``parallel.check_batch_encoded``, with every
    key's segments (92 pairs), and ``failures`` equal to the corrupted
    keys.
-11. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
+12. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
    batch (150 ops and 6 processes per key, crash_p 0.02, every 8th key
    corrupted) with the fast check off, so the device search with padded
    queue states decides, within ``QUEUE_MAX_CONFIGS`` (128 iterations of
@@ -156,7 +177,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``bench.py``'s rung-4 FIFO history through
    ``checkers.linearizable``, fast check on.
 
-12. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
+13. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
    torch ops) on keys of the batch above: (a) the offline face at the
    hard frontier cap on ``OFFLINE_KEYS`` (one of them corrupted), each
    verdict equal to the CPU sweep's (``linear``) and each violating op
@@ -170,7 +191,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    by the port's WGL engine: seconds, host syncs, passes and frontier
    peak per event. (b) and (c) are not profiled: gathering the
    profiler's events costs more than the run itself (PERF.md).
-13. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
+14. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
    serial list-append history of 16,384 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
    decides it valid on the card (one profiled call: squarings, closure
@@ -183,9 +204,9 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    same on the CPU; one squaring at n=16384 timed in float32, TF32 and
    bf16, all three boolean-identical.
 
-The competition, checkpoint, certify, obs, mesh and run paths run the
-rollout kernel (each counted; ``run_keyed`` may not, as the key batch
-rolls on the scan). The planned, batch, independent, queue, streamlin and
+The competition, checkpoint, certify, obs, mesh, run and monitor paths
+run the rollout kernel (each counted; ``run_keyed`` may not, as the key
+batch rolls on the scan; the monitor's txn paths do not). The planned, batch, independent, queue, streamlin and
 txn paths do not run it: each of them is run with the rollout kernel's
 launch
 count set to 0 and must leave it at 0. The batch pins the scan rollout,
@@ -1407,10 +1428,12 @@ RUN_SALVAGE_S = 1.0
 
 def errors_in(x, path="results"):
     """Paths of every ``error`` key in a results tree: a run must not hide
-    a device fault behind ``check_safe``'s "unknown"."""
+    a device fault behind ``check_safe``'s "unknown". A certificate's
+    ``counts`` (findings by severity) are not errors."""
     if isinstance(x, dict):
         return [f"{path}.error" for k in x if k == "error"] + [
-            p for k, v in x.items() for p in errors_in(v, f"{path}.{k}")]
+            p for k, v in x.items() if k != "counts"
+            for p in errors_in(v, f"{path}.{k}")]
     if isinstance(x, (list, tuple)):
         return [p for i, v in enumerate(x)
                 for p in errors_in(v, f"{path}[{i}]")]
@@ -1787,6 +1810,416 @@ def run_phase(dev, n_ops=RUN_OPS, keyed_ops=RUN_KEYED_OPS,
                           "abort_reason": r.get("abort-reason"),
                           "history_entries": len(test["history"])}
     finally:
+        shutil.rmtree(store.base_dir, ignore_errors=True)
+        store.base_dir = base
+    out["launches"] = launches
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+#: the monitor phase: (a) at run (a)'s shape, the default engine at the
+#: monitor's default chunk; (b) run (c)'s lost writes; (c) the streamlin
+#: engine, whose StreamCheck costs ~0.02 s per event on the card
+#: (PERF.md), on MONITOR_STREAM_OPS client ops at MONITOR_STREAM_WORKERS
+#: workers (few ops in flight keep the frontier small), no op left open;
+#: (d) bench.py rung 15's txn count through the list-append workload at
+#: 8 processes, checked every MONITOR_TXN_CHUNK completions; (e) its
+#: stale-read copy, cut to MONITOR_BAD_TXNS txns and checked every
+#: MONITOR_BAD_CHUNK completions, its txns taking MONITOR_BAD_TXN_S each,
+#: so that the first check, which finds the first stale read, ends while
+#: the run goes on (at the interpreter's rate the 2,048 txns take about
+#: as long as that check, and the monitor saw the whole run)
+MONITOR_BAD_TXN_S = 0.01
+MONITOR_CHUNK, MONITOR_STREAM_CHUNK = 64, 8
+MONITOR_STREAM_OPS, MONITOR_STREAM_WORKERS = 300, 8
+MONITOR_TXNS, MONITOR_TXN_PROCS, MONITOR_TXN_CHUNK = 16_384, 8, 1024
+MONITOR_BAD_TXNS, MONITOR_BAD_CHUNK, MONITOR_STALE_EVERY = 2048, 256, 50
+
+
+def txn_clients():
+    """The monitor phase's list-append client over an in-memory store:
+    serializable (each txn applies under one lock). With ``stale_every``
+    set, every ``stale_every``-th txn's reads omit the appends of the last
+    txn that appended to each key they read (unless it is the reading
+    txn): acknowledged appends which a later read omits while the reads
+    after it see them again, a G-single cycle (the read's
+    anti-dependency on the append the read missed, closed by the
+    append's later observers). Each txn takes ``delay_s`` before it
+    applies."""
+    import threading
+    from jepsen_tpu_torch import client
+
+    class ListAppendClient(client.Client):
+        def __init__(self, stale_every=0, delay_s=0.0, shared=None):
+            self.stale_every, self.delay_s = stale_every, delay_s
+            self.shared = shared if shared is not None else {
+                "lists": {}, "last": {}, "txns": 0,
+                "lock": threading.Lock()}
+
+        def open(self, test, node):
+            return ListAppendClient(self.stale_every, self.delay_s,
+                                    self.shared)
+
+        def invoke(self, test, op):
+            time.sleep(self.delay_s)
+            sh, out = self.shared, []
+            with sh["lock"]:
+                sh["txns"] += 1
+                txn = sh["txns"]
+                stale = self.stale_every and txn % self.stale_every == 0
+                for f, k, v in op["value"]:
+                    seen = sh["lists"].setdefault(k, [])
+                    if f == "r":
+                        writer, before = sh["last"].get(k, (txn, 0))
+                        out.append([f, k, list(
+                            seen[:before] if stale and writer != txn
+                            else seen)])
+                    else:
+                        if sh["last"].get(k, (None,))[0] != txn:
+                            sh["last"][k] = (txn, len(seen))
+                        seen.append(v)
+                        out.append([f, k, v])
+            return dict(op, type="ok", value=out)
+
+    return ListAppendClient
+
+
+def monitor_check_stats(test):
+    """Seconds of a run's monitor checks: from each ``monitor.check``
+    span of its ``trace.jsonl`` (the WGL monitor), else from the
+    ``monitor.check_s`` histogram of its ``metrics.json`` (the txn
+    monitor traces no span; the median is then the bound of the bucket
+    that holds it)."""
+    from jepsen_tpu_torch import obs, store
+    from jepsen_tpu_torch.obs import metrics
+    evs = obs.load_trace(os.path.join(store.path(test), "trace.jsonl"))
+    spans = sorted(e["dur"] / 1e6 for e in evs
+                   if e.get("ph") == "X" and e["name"] == "monitor.check")
+    if spans:
+        return {"check_s_median": spans[len(spans) // 2],
+                "check_s_max": spans[-1], "check_s_sum": sum(spans),
+                "check_s_from": "trace"}
+    with open(os.path.join(store.path(test), "metrics.json")) as f:
+        hists = json.load(f)["histograms"]
+    (h,) = [v for k, v in hists.items()
+            if metrics.parse_flat_key(k)[0] == "monitor.check_s"]
+    seen = 0
+    for bound, c in zip(h["buckets_le"] + [h["max"]], h["counts"]):
+        seen += c
+        if c and seen >= h["count"] / 2:
+            break
+    return {"check_s_median": min(bound, h["max"]), "check_s_max": h["max"],
+            "check_s_sum": h["sum"], "check_s_from": "metrics"}
+
+
+def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
+                  lost_ops=RUN_LOST_OPS, stream_ops=MONITOR_STREAM_OPS,
+                  txns=MONITOR_TXNS, bad_txns=MONITOR_BAD_TXNS):
+    """Monitored runs (``test["monitor"]``) through ``core.run`` on the
+    card, with run_phase's harness: ``ssh={"dummy?": True}``, each test's
+    store in a temporary directory, run_phase's clients and checker
+    (``linearizable(jax-wgl)``). (a) Run (a)'s register run with
+    ``{"chunk": 64}`` (the monitor's default engine, "jax-wgl": the flat
+    search with the rollout kernel): the monitor's verdict True and equal to the offline one,
+    ``monitor.json`` in the store, rollout launches by the monitor's
+    checks (counted until ``analyze`` starts) > 0; the interpreter's
+    client ops/s beside ``unmonitored_ops_per_s``, run (a)'s in this
+    process. (b) Run (c)'s lost writes: aborted with "monitor-violation",
+    the offline verdict on the salvaged history False and equal to the
+    CPU oracle's, the monitor's evidence certified (the cross-check
+    confirms, no VC error); again with ``skip-offline?``: ``monitor-only``
+    False, certified. (c) The "streamlin" engine at chunk 8, unkeyed, on
+    a clean run and a lost-write run of ``stream_ops`` ops: each verdict
+    equal to the CPU oracle's on the recorded history, no fall-back.
+    (d) ``tests/cycle/append`` with its ``txn_generator`` against a
+    serializable list-append client, ``txns`` txns at 8 processes,
+    ``{"family": "txn", "chunk": 1024}``: the monitor's verdict True and
+    equal to the offline ``cycle.append`` verdict. (e) The stale-read
+    client, ``bad_txns`` txns of 10 ms, checked every 256 completions:
+    aborted
+    with "monitor-violation", the
+    offline verdict on the salvaged history False with the monitor's
+    anomaly classes among its own (a class's -realtime variant counts as
+    the class), the cycle witness certified (no VC013).
+    Each case's rollout launches are counted from 0; the txn cases' must
+    stay 0."""
+    import itertools
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import core, cycle, nemesis, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch import tests as tst
+    from jepsen_tpu_torch.checker import checkers, rollout
+    from jepsen_tpu_torch.tests.cycle import append as append_workload
+    IndeterminateClient, _, LostWriteClient = run_clients()
+    ListAppendClient = txn_clients()
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    engine_opts = {} if cuda else {"device": "cpu"}
+    base = store.base_dir
+    store.base_dir = tempfile.mkdtemp(prefix="jepsen-monitor-")
+    out = {"phase": "monitor"}
+    launches = {}
+    at_analyze = {}
+    real_analyze = core.analyze
+
+    def analyze(test):
+        # what the monitor launched: the count when the run hands over
+        # to the offline check
+        sync(dev)
+        at_analyze.update(launches=rollout.launches,
+                          closure_s=cycle.closure_busy_s())
+        return real_analyze(test)
+
+    def lin():
+        return checkers.linearizable({"model": "cas-register",
+                                      "algorithm": "jax-wgl",
+                                      "engine_opts": engine_opts})
+
+    def run(path, t):
+        t = {**tst.noop_test(), "ssh": {"dummy?": True}, "certify?": False,
+             **t}
+        t["monitor"] = dict(t["monitor"], **({"engine-opts": engine_opts}
+                                             if not cuda else {}))
+        rollout.launches = 0
+        at_analyze.clear()
+        t0 = time.monotonic()
+        test = core.run(t)
+        sync(dev)
+        wall = time.monotonic() - t0
+        checkers.join_racers()
+        launches[path] = rollout.launches
+        errs = errors_in(test["results"])
+        if errs:
+            raise AssertionError(f"monitor {t['name']}: {errs}: "
+                                 f"{test['results']}")
+        mon = test["results"].get("monitor")
+        if not isinstance(mon, dict):
+            raise AssertionError(f"monitor {t['name']}: no monitor block")
+        if not os.path.exists(store.path(test, "monitor.json")):
+            raise AssertionError(f"monitor {t['name']}: no monitor.json")
+        return test, mon, {
+            "wall_s": wall, "rollout_launches": rollout.launches,
+            "monitor_rollout_launches": at_analyze.get("launches"),
+            "checks": mon["checks"], "chunks": mon["chunks"],
+            "ops_consumed": mon["ops_consumed"],
+            "time_to_first_verdict_s": mon["time_to_first_verdict_s"],
+            **monitor_check_stats(test)}
+
+    def client_rate(hist):
+        """Completed client ops over the client ops' span of history
+        time (run (a)'s interpreter rate, for a run that may stop early)."""
+        ops = [o for o in hist if isinstance(o["process"], int)]
+        span = (max(o["time"] for o in ops)
+                - min(o["time"] for o in ops)) / 1e9
+        return sum(o["type"] != "invoke" for o in ops) / span
+
+    def violation(what, test, mon, aborted=True):
+        """The violation's record; the run aborted by the monitor unless
+        ``aborted`` is False (its last check may come at the final
+        flush), the evidence certified either way."""
+        r = test["results"]
+        if mon["verdict"] is not False or (aborted and (
+                r.get("abort-reason") != "monitor-violation"
+                or not r.get("salvaged"))):
+            raise AssertionError(f"monitor {what}: abort "
+                                 f"{r.get('abort-reason')!r}, monitor "
+                                 f"{mon['verdict']!r}")
+        cert = r.get("monitor-certification") or {}
+        summary = (test.get("analysis") or {}).get("certify-monitor") or {}
+        if cert.get("confirmed") is not True \
+                or (cert.get("counts") or {}).get("error"):
+            raise AssertionError(f"monitor {what}: certification {cert}")
+        return {"aborted": r.get("abort-reason") == "monitor-violation",
+                "detected_at_index": mon["detected_at_index"],
+                "detection_latency_s": mon["detection_latency_s"],
+                "checked_ops": mon["checked_ops"],
+                "certification": cert,
+                "cross_checks": [c for c in summary.get("checks", [])
+                                 if c["name"] in ("cross-check",
+                                                  "cycle-witness")]}
+
+    core.analyze = analyze
+    try:
+        # (a) run (a)'s shape, monitored by the default engine
+        rng = random.Random(45100)
+        nem_gen = [g for _ in range(RUN_NEMESIS_CYCLES) for g in (
+            gen.sleep(RUN_NEMESIS_S), {"type": "info", "f": "start"},
+            gen.sleep(RUN_NEMESIS_S), {"type": "info", "f": "stop"})]
+        register = IndeterminateClient(tst.Atom(None), random.Random(45101),
+                                       RUN_INFO_P)
+        mix = [lambda: {"f": "read"},
+               lambda: {"f": "write", "value": rng.randint(0, 4)},
+               lambda: {"f": "cas",
+                        "value": [rng.randint(0, 4), rng.randint(0, 4)]}]
+        test, mon, row = run("monitor", {
+            "name": "monitor-register", "nodes": RUN_NODES,
+            "concurrency": RUN_CONCURRENCY, "client": register,
+            "op-sinks": [register.recorded],
+            "monitor": {"chunk": MONITOR_CHUNK},
+            "nemesis": nemesis.partition_random_halves(),
+            "generator": gen.nemesis(
+                nem_gen, gen.clients(gen.limit(n_ops, gen.mix(mix)))),
+            "checker": lin()})
+        r = test["results"]
+        if r["valid"] is not True or mon["verdict"] is not True \
+                or mon["engine"] != "jax-wgl":
+            raise AssertionError(f"monitor register: offline "
+                                 f"{r['valid']!r}, monitor "
+                                 f"{mon['verdict']!r} ({mon['engine']})")
+        if cuda and not row["monitor_rollout_launches"]:
+            raise AssertionError("monitor register: the monitor's checks "
+                                 "never launched the rollout kernel")
+        rate = client_rate(test["history"])
+        out["register"] = {
+            **row, "valid": True, "monitor_verdict": True,
+            "quiescent_truncated_ops": mon["quiescent_truncated_ops"],
+            "interpreter_ops_per_s": rate,
+            "unmonitored_ops_per_s": unmonitored_ops_per_s,
+            "monitored_to_unmonitored": rate / unmonitored_ops_per_s}
+
+        # (b) lost writes: the monitor aborts the run
+        def lost_write_run(name, monitor, ops=lost_ops):
+            values = itertools.count(1)
+            return run(name, {
+                "name": f"monitor-{name}", "nodes": RUN_NODES,
+                "concurrency": RUN_LOST_CONCURRENCY,
+                "certify?": True, "certify": GATE_CERTIFY,
+                "client": LostWriteClient(tst.Atom(None), RUN_LOST_EVERY),
+                "monitor": monitor,
+                "generator": gen.clients(gen.limit(ops, gen.stagger(
+                    RUN_LOST_STAGGER_S, gen.reserve(
+                        1, gen.cycle(gen.once(
+                            lambda: {"f": "write", "value": next(values)}),
+                            gen.sleep(0.001)),
+                        gen.repeat({"f": "read"}))))),
+                "checker": lin()})
+
+        test, mon, row = lost_write_run("monitor_violation",
+                                        {"chunk": MONITOR_CHUNK})
+        client_ops = [o for o in test["history"]
+                      if isinstance(o["process"], int)]
+        want = oracle_verdict(client_ops)
+        if test["results"]["valid"] is not False or want is not False:
+            raise AssertionError(f"monitor lost-write: offline "
+                                 f"{test['results']['valid']!r}, the CPU "
+                                 f"oracle {want!r}")
+        out["lost_write"] = {**row, **violation("lost-write", test, mon),
+                             "valid": False, "oracle_valid": want,
+                             "history_entries": len(test["history"])}
+        test, mon, row = lost_write_run(
+            "monitor_skip_offline",
+            {"chunk": MONITOR_CHUNK, "skip-offline?": True})
+        r = test["results"]
+        client_ops = [o for o in test["history"]
+                      if isinstance(o["process"], int)]
+        if r.get("monitor-only") is not True or r["valid"] is not False:
+            writes = sum(o["f"] == "write" and o["type"] == "ok"
+                         for o in client_ops)
+            raise AssertionError(f"monitor skip-offline: {r}; the CPU "
+                                 f"oracle {oracle_verdict(client_ops)!r} "
+                                 f"on {len(client_ops)} entries with "
+                                 f"{writes} ok writes")
+        out["skip_offline"] = {**row, **violation("skip-offline", test,
+                                                  mon),
+                               "valid": False, "monitor_only": True}
+
+        # (c) the streamlin engine, unkeyed
+        rng = random.Random(45102)
+        clean = IndeterminateClient(tst.Atom(None), random.Random(45103),
+                                    0.0)
+        stream = {"engine": "streamlin", "chunk": MONITOR_STREAM_CHUNK}
+        mix = [lambda: {"f": "read"},
+               lambda: {"f": "write", "value": rng.randint(0, 4)},
+               lambda: {"f": "cas",
+                        "value": [rng.randint(0, 4), rng.randint(0, 4)]}]
+        test, mon, row = run("monitor_streamlin", {
+            "name": "monitor-streamlin", "nodes": RUN_NODES,
+            "concurrency": MONITOR_STREAM_WORKERS, "client": clean,
+            "op-sinks": [clean.recorded], "monitor": stream,
+            "generator": gen.clients(gen.limit(stream_ops, gen.mix(mix))),
+            "checker": lin()})
+        rows = {}
+        for what, (test, mon, row) in (
+                ("clean", (test, mon, row)),
+                ("lost_write", lost_write_run(
+                    "monitor_streamlin_violation", stream,
+                    ops=stream_ops))):
+            client_ops = [o for o in test["history"]
+                          if isinstance(o["process"], int)]
+            want = oracle_verdict(client_ops)
+            st = mon.get("stream") or {}
+            if mon["verdict"] is not want \
+                    or test["results"]["valid"] is not want \
+                    or "fallback" in st or st.get("flat_checks"):
+                raise AssertionError(f"monitor streamlin {what}: monitor "
+                                     f"{mon['verdict']!r}, offline "
+                                     f"{test['results']['valid']!r}, the "
+                                     f"CPU oracle {want!r}; stream {st}")
+            events = mon["ops_consumed"]
+            rows[what] = {**row, "valid": want, "oracle_valid": want,
+                          "stream": st,
+                          "check_s_per_event": row["check_s_sum"] / events}
+            if want is False:
+                rows[what].update(violation(f"streamlin {what}", test,
+                                            mon, aborted=False))
+        out["streamlin"] = rows
+
+        # (d) the list-append workload, monitored by the txn family
+        def append_run(name, n, chunk, stale_every=0, delay_s=0.0):
+            random.seed(45104)
+            w = append_workload.test({"device": engine_opts.get("device")})
+            c0 = cycle.closure_busy_s()
+            test, mon, row = run(name, {
+                "name": f"monitor-{name}", "nodes": RUN_NODES,
+                "concurrency": MONITOR_TXN_PROCS,
+                "certify?": True,
+                "client": ListAppendClient(stale_every, delay_s),
+                "monitor": {"family": "txn", "chunk": chunk},
+                "generator": gen.clients(gen.limit(n, w["generator"])),
+                "checker": w["checker"]})
+            row["monitor_closure_s"] = at_analyze["closure_s"] - c0
+            row["closure_s"] = cycle.closure_busy_s() - c0
+            row["txns_per_s"] = client_rate(test["history"])
+            row["closure_rebuilds"] = mon["closure_rebuilds"]
+            return test, mon, row
+
+        test, mon, row = append_run("monitor_txn", txns, MONITOR_TXN_CHUNK)
+        scan_only("monitor txn")
+        r = test["results"]
+        if r["valid"] is not True or mon["verdict"] is not True \
+                or mon["txns"] != txns:
+            raise AssertionError(f"monitor txn: offline {r['valid']!r}, "
+                                 f"monitor {mon['verdict']!r} over "
+                                 f"{mon['txns']} txns")
+        out["txn"] = {**row, "valid": True, "txns": txns}
+
+        # (e) the stale-read copy: a G-single cycle aborts the run
+        test, mon, row = append_run("monitor_txn_violation", bad_txns,
+                                    MONITOR_BAD_CHUNK, MONITOR_STALE_EVERY,
+                                    MONITOR_BAD_TXN_S)
+        scan_only("monitor txn violation")
+        r = test["results"]
+
+        def classes(types):
+            # the Adya class, whatever edge closed its cycle: the
+            # monitor's prefix may need an rt edge the whole history
+            # does not
+            return {t.replace("-realtime", "").replace("-process", "")
+                    for t in types}
+
+        if r["valid"] is not False or not mon["anomaly_types"] \
+                or not classes(mon["anomaly_types"]) \
+                <= classes(r["anomaly_types"]):
+            raise AssertionError(f"monitor txn stale read: offline "
+                                 f"{r['valid']!r} {r['anomaly_types']}, "
+                                 f"monitor {mon['anomaly_types']}")
+        out["txn_violation"] = {
+            **row, **violation("txn stale read", test, mon),
+            "valid": False, "anomaly_types": mon["anomaly_types"],
+            "offline_anomaly_types": r["anomaly_types"]}
+    finally:
+        core.analyze = real_analyze
         shutil.rmtree(store.base_dir, ignore_errors=True)
         store.base_dir = base
     out["launches"] = launches
@@ -2381,7 +2814,11 @@ def main(argv):
     run_row = run_phase(dev)
     emit(run_row)
 
-    # -- 9-11. the key batch, independent, the queue models ----------------
+    # -- 9. monitor: monitored runs, the monitors on the card --------------
+    mon_row = monitor_phase(dev, run_row["register"]["interpreter_ops_per_s"])
+    emit(mon_row)
+
+    # -- 10-12. the key batch, independent, the queue models ---------------
     row = batch_phase(keys, oracle)
     emit(row)
     ind = independent_phase(keys[:INDEPENDENT_KEYS])
@@ -2389,7 +2826,7 @@ def main(argv):
     queues = queue_phase(fifo)
     emit(queues)
 
-    # -- 12-13. the streaming fold and the txn closure ---------------------
+    # -- 13-14. the streaming fold and the txn closure ---------------------
     rollout.launches = 0
     emit(streamlin_phase(keys, dev))
     stream_launches = scan_only("streamlin")
@@ -2398,7 +2835,7 @@ def main(argv):
     txn_launches = scan_only("txn")
     by_path = {"main": main_launches, **gate["launches"],
                **obs_row["launches"], "mesh": mesh_row["launches"],
-               **run_row["launches"],
+               **run_row["launches"], **mon_row["launches"],
                "batch": row["rollout_launches"],
                "independent": ind["rollout_launches"],
                **{c["model"]: c["rollout_launches"]

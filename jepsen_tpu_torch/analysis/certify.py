@@ -48,10 +48,14 @@ Code catalogue:
   VC012 error  persisted certificate unreadable or disagreeing with the
                run's results.json (``certify_run``, over a run directory
                written by the port's ``store``)
+  VC013 error  cycle witness does not replay through host-side
+               dependency inference (txn family: missing edge, wrong
+               edge type, or class/edge-composition mismatch;
+               ``certify_cycle_witness``, ``certify_txn_verdict``)
 
-VC013 (txn cycle witnesses) waits for the txn certifier of the host
-harness (ROADMAP.md queue A.11), as do the monitor and campaign entry
-points.
+``certify_monitor`` certifies a streaming monitor's violation from the
+evidence it parked (both families). The campaign entry point waits for
+ROADMAP.md A.11(d).
 """
 
 from __future__ import annotations
@@ -515,6 +519,270 @@ def certify_with_diagnostics(spec, client_hist, result, test=None,
     cert["diagnostics"] = rep["diagnostics"]
     cert["counts"] = rep["counts"]
     return cert, diags
+
+
+# ---------------------------------------------------------------------------
+# cycle-family (txn) witnesses: replay the implicated cycle host-side
+
+#: per-class edge-composition rules (base names; -realtime/-process
+#: variants additionally require >=1 edge of the extending type)
+_CYCLE_RULES = {
+    "G0": {"allowed": {"ww"}, "rw": (0, 0)},
+    "G1c": {"allowed": {"ww", "wr"}, "require": "wr", "rw": (0, 0)},
+    "G-single": {"allowed": {"ww", "wr", "rw"}, "rw": (1, 1)},
+    "G2": {"allowed": {"ww", "wr", "rw"}, "rw": (2, None)},
+}
+
+
+def _txn_graph(history, workload, opts):
+    """Re-infer the dependency graph the verdict claims to come from."""
+    from ..cycle import DEFAULT_ANOMALIES
+    opts = dict(opts or {})
+    if workload == "wr":
+        from ..cycle import wr as engine
+        graph, _found, oks, _garbage = engine.infer(list(history), opts)
+        return graph, oks
+    from ..cycle import append as engine
+    graph, _found, oks = engine.infer(
+        list(history),
+        tuple(opts.get("anomalies", DEFAULT_ANOMALIES)),
+        opts.get("realtime", True), opts.get("process", False),
+        opts.get("skew-bound", opts.get("skew_bound", 0)))
+    return graph, oks
+
+
+def certify_cycle_witness(result, history, workload="append", opts=None,
+                          checks=None):
+    """Certify a cycle-family (txn) verdict's witnesses: re-run the
+    host-side dependency inference over the history and replay every
+    implicated cycle through the re-inferred graph -- each claimed edge
+    must exist with its claimed type bits, and the cycle's edge
+    composition must match its anomaly class (G0 ww-only, G1c >=1 wr,
+    G-single exactly 1 rw, G2 >=2 rw; *-realtime/-process need an edge
+    of the extending type). Any mismatch is VC013. Returns
+    diagnostics; appends per-witness check records.
+
+    An edge can carry several types at once (``ww+wr+rw``): such an
+    edge serves the class as any one of them, as the classifier uses it
+    (a G-single's return path runs over ww/wr edges, whatever rw bits
+    they also carry). The JAX package counts every edge carrying rw as
+    an anti-dependency and every type of an edge against the class, so
+    it reports VC013 on such valid witnesses (ROADMAP.md C.6)."""
+    diags = []
+    checks = checks if checks is not None else []
+    anomalies = (result or {}).get("anomalies")
+    wits = [(cls, w) for cls, ws in (anomalies or {}).items()
+            if isinstance(ws, list)
+            for w in ws
+            if isinstance(w, dict) and isinstance(w.get("steps"), list)]
+    if not wits:
+        checks.append({"name": "cycle-witness", "status": "skipped",
+                       "detail": "no cycle witnesses in the result"})
+        return diags
+    try:
+        graph, oks = _txn_graph(history, workload, opts)
+    except Exception as exc:  # noqa: BLE001 - reported, never raised
+        diags.append(diag(
+            "VC013", ERROR,
+            f"cycle-witness replay inference crashed: {exc!r}",
+            location="certificate.cycle_witness",
+            fix_hint="the history artifact no longer matches the "
+                     "verdict; re-run the offline checker"))
+        checks.append({"name": "cycle-witness", "status": "failed",
+                       "detail": repr(exc)})
+        return diags
+    for cls, w in wits:
+        loc = f"certificate.cycle_witness[{cls}]"
+        problems = []
+        base = cls.replace("-realtime", "").replace("-process", "")
+        rule = _CYCLE_RULES.get(base)
+        seen_types = set()
+        edge_types = []
+        for step in w["steps"]:
+            a, b = step.get("from"), step.get("to")
+            claimed = set(str(step.get("type", "")).split("+")) - {""}
+            if not (isinstance(a, int) and isinstance(b, int)
+                    and 0 <= a < graph.n and 0 <= b < graph.n):
+                problems.append(f"edge {a}->{b} indexes outside the "
+                                f"{graph.n}-txn graph")
+                continue
+            from ..cycle import edge_name
+            actual = set(edge_name(int(graph.adj[a, b])).split("+"))
+            if int(graph.adj[a, b]) == 0 or not claimed <= actual:
+                problems.append(
+                    f"edge {a}->{b} claimed {'+'.join(sorted(claimed))}"
+                    f" but re-inference found "
+                    f"{'+'.join(sorted(actual)) if graph.adj[a, b] else 'no edge'}")
+                continue
+            seen_types |= claimed
+            edge_types.append(claimed)
+        if rule is not None and not problems:
+            lo, hi = rule["rw"]
+            usable = rule["allowed"] | {"rt", "process"}
+            # the non-rw types this class's paths run over: an rw edge
+            # that also has one may serve as it
+            other = (rule["allowed"] - {"rw"}) \
+                | ({"rt"} if cls.endswith("-realtime") else set()) \
+                | ({"process"} if cls.endswith("-process") else set())
+            rw_edges = sum("rw" in t and not t & other for t in edge_types)
+            rw_most = sum("rw" in t for t in edge_types)
+            if base in ("G0", "G1c") \
+                    and any(not t & usable for t in edge_types):
+                problems.append(
+                    f"{cls}: cycle uses edge types "
+                    f"{sorted(seen_types)} outside the class")
+            if rule.get("require") and rule["require"] not in seen_types:
+                problems.append(f"{cls}: no {rule['require']} edge in "
+                                "the witness")
+            if rw_most < lo or (hi is not None and rw_edges > hi):
+                n_rw = rw_most if rw_most < lo else rw_edges
+                problems.append(f"{cls}: witness has {n_rw} rw "
+                                f"edge(s), class requires "
+                                f"[{lo}, {hi if hi is not None else 'inf'}]")
+            if cls.endswith("-realtime") and "rt" not in seen_types:
+                problems.append(f"{cls}: no rt edge in the witness")
+            if cls.endswith("-process") and "process" not in seen_types:
+                problems.append(f"{cls}: no process edge in the witness")
+        if problems:
+            diags.append(diag(
+                "VC013", ERROR,
+                f"cycle witness for {cls} does not replay: "
+                + "; ".join(problems),
+                location=loc,
+                fix_hint="the verdict's witness disagrees with "
+                         "host-side re-inference over the same "
+                         "history; treat the verdict as suspect"))
+            checks.append({"name": "cycle-witness", "class": cls,
+                           "status": "failed",
+                           "detail": "; ".join(problems)})
+        else:
+            checks.append({"name": "cycle-witness", "class": cls,
+                           "status": "confirmed",
+                           "edges": len(w["steps"])})
+    return diags
+
+
+def certify_txn_verdict(test, hist, result, workload="append",
+                        opts=None):
+    """In-run hook for cycle-family verdicts (the FnChecker wrapper in
+    tests/cycle calls it after analysis): replay every cycle witness
+    host-side, land findings in ``test["analysis"]["certify"]`` and
+    the proof in ``test["certificate"]`` (persisted as
+    certificate.json). Contained exactly like certify_verdict: a
+    certifier bug must NEVER flip a verdict or exit code. The
+    certificate's ``opts`` leave out ``device`` (where the checker's
+    closures ran), so it equals the JAX package's."""
+    if not isinstance(test, dict) or not isinstance(result, dict) \
+            or result.get("valid") not in (True, False):
+        return
+    try:
+        if not enabled(test):
+            return
+        if test.get("certify-done?"):
+            return
+        test["certify-done?"] = True
+        from .. import analysis
+        checks = []
+
+        def build():
+            return certify_cycle_witness(result, hist, workload, opts,
+                                         checks=checks)
+
+        diags = analysis.run_analyzer("certify-txn", build)
+        rep = to_json(diags)
+        cert = {"schema": SCHEMA,
+                "family": "txn",
+                "model": f"txn-{workload}",
+                "engine": f"txn-{workload}",
+                "verdict": result.get("valid"),
+                "anomaly_types": list(result.get("anomaly_types")
+                                      or ()),
+                "context": {"workload": workload,
+                            "opts": {k: v for k, v in (opts or {}).items()
+                                     if k != "device"}},
+                "checks": checks,
+                "diagnostics": rep["diagnostics"],
+                "counts": rep["counts"]}
+        report = to_json(diags)
+        report["summary"] = {"verdict": cert["verdict"],
+                             "engine": cert["engine"],
+                             "checks": checks}
+        test.setdefault("analysis", {})["certify"] = report
+        test["certificate"] = cert
+        errs = analysis.errors(diags)
+        if errs:
+            logger.warning(
+                "%s", analysis.render_text(
+                    errs, title="cycle-witness certification FAILED; "
+                                "the verdict above does not replay "
+                                "from its own witness:"))
+    except Exception:  # noqa: BLE001 - contained, never verdict-bearing
+        logger.warning("txn verdict certification crashed",
+                       exc_info=True)
+
+
+# ---------------------------------------------------------------------------
+# monitor backstop: certify a violation's parked evidence
+
+def certify_monitor(evidence, budget=DEFAULT_BUDGET):
+    """Certify a monitor violation from the evidence the monitor
+    parked at detection time (the encoded prefix + the engine result
+    that decided False): replay its witness, then cross-check the
+    same prefix through an independent CPU engine. This is the
+    backstop the ``skip-offline?`` handoff never had -- the monitor's
+    word becomes the verdict of record there, so its False must be
+    independently confirmable. Returns ``(summary, diagnostics)``;
+    the summary is JSON-able. Txn-family evidence (the streaming cycle
+    monitor) replays the implicated cycle host-side instead (VC013)."""
+    if evidence.get("family") == "txn":
+        checks = []
+        diags = certify_cycle_witness(
+            evidence.get("result") or {}, evidence.get("history") or [],
+            evidence.get("workload", "append"), evidence.get("opts"),
+            checks=checks)
+        rep = to_json(diags)
+        confirmed = any(c.get("name") == "cycle-witness"
+                        and c.get("status") == "confirmed"
+                        for c in checks)
+        return {"schema": SCHEMA, "verdict": False, "family": "txn",
+                "engine": f"txn-{evidence.get('workload', 'append')}",
+                "key": None,
+                "rows": len(evidence.get("history") or []),
+                "confirmed": confirmed, "checks": checks,
+                "diagnostics": rep["diagnostics"],
+                "counts": rep["counts"]}, diags
+    spec = evidence["spec"]
+    e = evidence["e"]
+    init_state = evidence["init_state"]
+    r = evidence.get("result") or {}
+    checks = []
+    diags = []
+    w = r.get("witness")
+    if isinstance(w, dict) and w.get("segment") is None:
+        diags += _witness_diags(spec, e, init_state, w, False, checks)
+    # independence: a monitor that decided on the CPU linear engine
+    # cross-checks through the WGL oracle instead of itself
+    if r.get("engine") == "linear":
+        def engine_fn(spec, e, init_state, budget):
+            from ..checker import wgl
+            return wgl.check_encoded(spec, e, init_state,
+                                     max_configs=budget)
+        cross = "wgl"
+    else:
+        engine_fn, cross = _linear_check, "linear"
+    diags += _cross_check_diags(spec, None, e, init_state,
+                                {"valid": False}, 0, budget, checks,
+                                engine_fn=engine_fn, cross_name=cross)
+    rep = to_json(diags)
+    confirmed = any(c.get("name") == "cross-check"
+                    and c.get("status") == "confirmed" for c in checks)
+    return {"schema": SCHEMA, "verdict": False,
+            "engine": r.get("engine"),
+            "key": repr(evidence.get("key"))
+            if evidence.get("key") is not None else None,
+            "rows": int(len(e)), "confirmed": confirmed,
+            "checks": checks, "diagnostics": rep["diagnostics"],
+            "counts": rep["counts"]}, diags
 
 
 # ---------------------------------------------------------------------------

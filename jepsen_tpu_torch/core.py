@@ -9,11 +9,12 @@ around the interpreter) -> save-1 -> analyze (save-2) -> log-results.
 
 Every phase is host code; the device work is the checker's, in
 ``analyze``, on the caller's thread after every worker has stopped (a
-Linearizable gate reaches ``torch_wgl`` and the rollout kernel there).
-Two branches need modules that are not ported yet and raise
-``NotImplementedError`` naming them: ``test["monitor"]`` (the monitor
-thread, ROADMAP.md A.11(c)) and ``test["profile?"]`` (the profiler
-capture, A.11(d)).
+Linearizable gate reaches ``torch_wgl`` and the rollout kernel there),
+and, with ``test["monitor"]`` set, the streaming monitor's, on its own
+thread while the interpreter runs (``monitor/core.py``). One branch
+needs a module that is not ported yet and raises
+``NotImplementedError`` naming it: ``test["profile?"]`` (the profiler
+capture, ROADMAP.md A.11(d)).
 """
 
 from __future__ import annotations
@@ -298,6 +299,48 @@ def run_case(test):
             return interpreter.run(test)
 
 
+def _certify_monitor_verdict(test, mv):
+    """Certify a monitor violation from the evidence the monitor
+    parked at detection time (``analysis.certify``): replay its
+    witness and cross-check the violating prefix through an
+    independent CPU engine. This is the backstop for the
+    ``skip-offline?`` handoff, where the monitor's False becomes the
+    verdict of record with no offline re-check behind it. Contained as
+    ``checker.core.certify_verdict`` is: certification never flips a
+    verdict or exit code."""
+    ev = test.pop("monitor-evidence", None)
+    if ev is None or not (isinstance(mv, dict)
+                          and mv.get("verdict") is False):
+        return
+    try:
+        from .analysis import certify
+        if not certify.enabled(test):
+            return
+        budget = certify.config(test)["budget"]
+        holder = {}
+
+        def build():
+            summary, diags = certify.certify_monitor(ev, budget=budget)
+            holder["summary"] = summary
+            return diags
+
+        janalysis.run_analyzer("certify-monitor", build)
+        summary = holder.get("summary")
+        if summary is None:
+            return
+        test.setdefault("analysis", {})["certify-monitor"] = summary
+        if isinstance(test.get("results"), dict):
+            test["results"]["monitor-certification"] = {
+                "confirmed": summary.get("confirmed"),
+                "counts": summary.get("counts")}
+        if (summary.get("counts") or {}).get("error"):
+            logger.warning(
+                "monitor violation FAILED certification: %s",
+                summary["counts"])
+    except Exception:  # noqa: BLE001 - contained, never verdict-bearing
+        logger.warning("monitor certification crashed", exc_info=True)
+
+
 def analyze(test):
     """Index the history, run the checker, save results
     (core.clj:221-236). Salvaged runs (abort mid-run: the history is a
@@ -333,6 +376,7 @@ def analyze(test):
         # persist the monitor's verdict next to the offline one so the
         # two can be cross-checked from results.json alone
         test["results"]["monitor"] = mv
+    _certify_monitor_verdict(test, mv)
     logger.info("Analysis complete")
     if test.get("name"):
         store.save_2(test)
@@ -440,15 +484,19 @@ def run(test):
       time-limit-s    hard harness deadline -> graceful abort
       abort-grace-s   drain window for outstanding ops on abort
 
-    Online monitoring (monitor; optional; raises NotImplementedError
-    in the port until ROADMAP.md A.11(c)):
+    Online monitoring (monitor; optional):
 
       monitor         True | chunk int | options dict -- run the
-                      streaming linearizability monitor concurrently
+                      streaming linearizability monitor (or, with
+                      ``family: "txn"``, the txn monitor) concurrently
                       with the interpreter; a proven violation aborts
                       the run immediately (reason "monitor-violation")
                       and ``results["monitor"]`` records the verdict,
-                      detection index, and detection latency
+                      detection index, and detection latency. A monitor
+                      that cannot be built raises before the first op;
+                      an exception on the monitor thread aborts the run
+                      (reason "monitor-error"), the partial history is
+                      salvaged, and the exception is re-raised
       op-sinks        extra per-op subscriber callables for the
                       interpreter's history tap
 
@@ -501,15 +549,25 @@ def run(test):
                                                 run_case(test)
                             # sessions still open: snarfing happened
                             # inside with_db
+                        # the final check. An exception of the monitor
+                        # thread is re-raised here: the salvage below
+                        # then persists and checks the whole history
+                        try:
+                            jmonitor.finalize(mon, test)
+                        except BaseException:
+                            test["partial-history"] = test["history"]
+                            raise
                     except BaseException as e:
                         # stop the monitor (no final check: the run is
                         # already dead) so its verdict-so-far rides the
-                        # salvage path into results.json
-                        jmonitor.finalize(mon, test, finish=False)
-                        salvage(test, e)
+                        # salvage path into results.json; salvage runs
+                        # even if the monitor thread raised too
+                        try:
+                            jmonitor.finalize(mon, test, finish=False)
+                        finally:
+                            salvage(test, e)
                         raise
                     finally:
-                        jmonitor.finalize(mon, test)
                         journal = test.pop("journal", None)
                         if journal is not None:
                             journal.close()

@@ -29,7 +29,7 @@ callables invoked once per recorded op, AFTER the single point where
 ``__op_serial__`` stripping and zombie-completion dropping happen, so
 every subscriber sees exactly the ops the history holds, in history
 order, on the event-loop thread. The store journal and the streaming
-monitor (monitor; A.11(c) in the port) both subscribe this way; sinks must be
+monitor (``monitor.core``) both subscribe this way; sinks must be
 fast, must not mutate the op, and a raising sink is logged and
 detached rather than allowed to take down the run.
 """

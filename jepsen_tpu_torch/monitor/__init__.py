@@ -1,20 +1,27 @@
-"""Streaming checks (the PyTorch port of ``jepsen_tpu.monitor``'s
-synchronous cores): ``StreamCheck`` keeps a linearizability frontier on
-the card across chunks (``wgl_stream.py``), ``TxnCheck`` keeps a txn
-dependency closure there (``txn.py``), and ``engine`` dispatches a
-prefix check to one engine. ``config``, ``install`` and ``finalize``
-(``core.py``) are the run loop's hooks and exist with monitoring off:
-``install`` returns None then. The monitor thread, its latch and
-``TxnMonitor`` are still ROADMAP.md A.11(c): with ``test["monitor"]``
-set, ``install`` raises ``NotImplementedError``."""
+"""Streaming monitors (the PyTorch port of ``jepsen_tpu.monitor``): online
+checking over a run's live op stream, with early abort on violation.
+
+* ``core.Monitor`` consumes the interpreter's op-sink fan-out and, every
+  ``chunk`` completions, re-checks the prefix through one engine
+  (``engine.check_prefix``: ``jax-wgl``, the device search with the
+  rollout kernel, by default); ``StreamCheck`` (``wgl_stream.py``)
+  keeps a linearizability frontier on the card across chunks instead
+  (engine ``streamlin``).
+* ``txn.TxnMonitor`` does the same for the txn family over ``TxnCheck``,
+  which keeps a txn dependency closure on the card.
+* The first violation flips the run's ``robust.ChainedLatch`` (reason
+  ``monitor-violation``); ``install`` and ``finalize`` are the run
+  loop's hooks (``core.run``).
+"""
 
 from __future__ import annotations
 
-from .core import (DEFAULT_CHUNK, config, finalize,  # noqa: F401
+from .core import (DEFAULT_CHUNK, Monitor, config, finalize,  # noqa: F401
                    find_linearizable, install)
 from .stream import StreamEncoder  # noqa: F401
-from .txn import TxnCheck  # noqa: F401
+from .txn import TxnCheck, TxnMonitor  # noqa: F401
 from .wgl_stream import StreamCheck  # noqa: F401
 
-__all__ = ["StreamCheck", "StreamEncoder", "TxnCheck", "install",
-           "finalize", "config", "find_linearizable", "DEFAULT_CHUNK"]
+__all__ = ["Monitor", "StreamCheck", "StreamEncoder", "TxnCheck",
+           "TxnMonitor", "install", "finalize", "config",
+           "find_linearizable", "DEFAULT_CHUNK"]

@@ -158,6 +158,10 @@ class StreamCheck:
     def __len__(self):
         return len(self.enc)
 
+    @property
+    def last_index(self):
+        return self.enc.last_index
+
     def materialize(self):
         return self.enc.materialize()
 

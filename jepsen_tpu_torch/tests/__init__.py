@@ -3,9 +3,8 @@ DB/clients used by the integration tests (reference
 jepsen/src/jepsen/tests.clj).
 
 Workload submodules live alongside, mirroring the reference's
-jepsen.tests.* namespaces: `.linearizable_register` is ported; the
-bank, long_fork, causal, causal_reverse, adya and cycle workloads wait
-for ROADMAP.md A.11(b).
+jepsen.tests.* namespaces: `.linearizable_register`, `.bank`,
+`.long_fork`, `.causal`, `.causal_reverse`, `.adya` and `.cycle`.
 """
 
 from __future__ import annotations

@@ -4,8 +4,11 @@ CPU: the same certificate -- checks, findings, counts, context -- for
 results of the port's device search on register, cas-register and mutex
 histories (valid and invalid, with the differential sampled), and for a
 planned, segmented result; the same VC codes for every tampered
-witness; and ``checker.core.check`` certifying a decided Linearizable
-verdict once per test. Tolerance zero: certificates compare as dicts."""
+witness; ``checker.core.check`` certifying a decided Linearizable
+verdict once per test; and the monitor backstop (``certify_monitor``,
+both families, on the evidence each package's monitor parked on the
+same stream) and the txn hook (``certify_txn_verdict``, VC013), clean
+and tampered. Tolerance zero: certificates compare as dicts."""
 
 import copy
 import random
@@ -254,3 +257,204 @@ def test_sharded_verdict_gets_the_device_differential(bad):
     (got, gcodes), (want, wcodes) = _both(model, client, bare)
     assert got == want
     assert "VC006" in gcodes and gcodes == wcodes
+
+
+# ---------------------------------------------------------------------------
+# the monitor backstop (certify_monitor, both families) and the txn hook
+# (certify_txn_verdict): the same summaries and VC codes as the JAX
+# package's on the same evidence
+
+
+def _monitor_evidence(engine, keyed):
+    """Both packages' Monitors driven on the same falsified stream (as
+    tests/test_torch_monitor.py drives them); their parked evidence with
+    the spec, as ``finalize`` parks it."""
+    from jepsen_tpu import independent as jind
+    from jepsen_tpu import monitor as jmonitor
+    from jepsen_tpu.robust import ChainedLatch as JLatch
+    from jepsen_tpu_torch import independent as tind
+    from jepsen_tpu_torch.monitor import core as mcore
+    from jepsen_tpu_torch.robust import ChainedLatch
+    from test_torch_monitor import _drive, _history, _keyed
+    spec, jspec = tm.model_spec("cas-register"), jm.model_spec(
+        "cas-register")
+    ours = _keyed(tind.tuple_, 4) if keyed else _history(4)
+    theirs = _keyed(jind.tuple_, 4) if keyed else _history(4)
+    mon = mcore.Monitor(spec, ChainedLatch(), chunk=8, engine=engine,
+                        engine_opts=CPU, keyed=keyed)
+    jmon = jmonitor.Monitor(jspec, JLatch(), chunk=8, engine=engine,
+                            keyed=keyed)
+    _drive(mon, ours, 8)
+    _drive(jmon, theirs, 8)
+    return dict(mon.evidence, spec=spec), dict(jmon.evidence, spec=jspec)
+
+
+def _codes(diags):
+    return sorted(d.code for d in diags)
+
+
+@pytest.mark.parametrize("keyed", [False, True], ids=["unkeyed", "keyed"])
+@pytest.mark.parametrize("engine", ["jax-wgl", "linear", "wgl",
+                                    "streamlin"])
+def test_certify_monitor_equals_jax(engine, keyed):
+    ev, jev = _monitor_evidence(engine, keyed)
+    got, gd = tcert.certify_monitor(ev)
+    want, wd = jcert.certify_monitor(jev)
+    assert got == want and _codes(gd) == _codes(wd) == []
+    assert got["confirmed"] is True
+    # a linear-engine monitor cross-checks through wgl (independence)
+    cross = [c["engine"] for c in got["checks"]
+             if c["name"] == "cross-check"]
+    assert cross == (["wgl"] if engine == "linear" else ["linear"])
+
+
+def test_certify_monitor_refutation_equals_jax():
+    """A monitor claiming False on a valid prefix: the cross-check
+    refutes it (VC008) in both packages."""
+    hist = _history("cas-register", 1, False)
+    spec, jspec = tm.model_spec("cas-register"), jm.model_spec(
+        "cas-register")
+    e, st = spec.encode(h.client_ops(hist))
+    je, jst = jspec.encode(h.client_ops(hist))
+    result = {"valid": False, "engine": "jax-wgl"}
+    got, gd = tcert.certify_monitor({"e": e, "init_state": st,
+                                     "result": dict(result), "key": None,
+                                     "spec": spec})
+    want, wd = jcert.certify_monitor({"e": je, "init_state": jst,
+                                      "result": dict(result), "key": None,
+                                      "spec": jspec})
+    assert got == want and _codes(gd) == _codes(wd) == ["VC008"]
+    assert got["confirmed"] is False
+
+
+def _txn_evidence(name):
+    """Both packages' TxnMonitors on one violating fixture of
+    tests/test_txn_monitor.py at chunk 1: their parked evidence."""
+    from jepsen_tpu.monitor import txn as jtxn
+    from jepsen_tpu.robust import ChainedLatch as JLatch
+    from jepsen_tpu_torch.monitor import txn as ttxn
+    from jepsen_tpu_torch.robust import ChainedLatch
+    from test_torch_txn_monitor import _drive_monitor
+    from test_txn_monitor import _fixtures
+    (hist, _, _, kw), = [f[1:] for f in _fixtures() if f[0] == name]
+    mon = ttxn.TxnMonitor(ChainedLatch(), chunk=1, device="cpu", **kw)
+    jmon = jtxn.TxnMonitor(JLatch(), chunk=1, **kw)
+    _drive_monitor(mon, hist, 1)
+    _drive_monitor(jmon, hist, 1)
+    return mon.evidence, jmon.evidence
+
+
+TXN_BAD = ["G0", "G1c", "G-single", "G2", "G0-realtime", "G1c-realtime",
+           "G-single-realtime", "G2-realtime", "G1c-process", "G2-process"]
+
+
+@pytest.mark.parametrize("name", TXN_BAD)
+def test_certify_monitor_txn_equals_jax(name):
+    ev, jev = _txn_evidence(name)
+    got, gd = tcert.certify_monitor(ev)
+    want, wd = jcert.certify_monitor(jev)
+    assert got == want and _codes(gd) == _codes(wd) == []
+    assert got["confirmed"] is True and got["family"] == "txn"
+
+
+def _tamper_cycle(result):
+    """Claim the first cycle step's edge is of another type."""
+    for ws in result["anomalies"].values():
+        for w in ws if isinstance(ws, list) else ():
+            if isinstance(w, dict) and isinstance(w.get("steps"), list):
+                step = w["steps"][0]
+                step["type"] = "ww" if step["type"] != "ww" else "wr"
+                return
+
+
+@pytest.mark.parametrize("name", ["G1c", "G-single-realtime", "G2"])
+def test_certify_monitor_txn_tampered_same_codes(name):
+    ev, jev = _txn_evidence(name)
+    ev, jev = copy.deepcopy(ev), copy.deepcopy(jev)
+    _tamper_cycle(ev["result"])
+    _tamper_cycle(jev["result"])
+    got, gd = tcert.certify_monitor(ev)
+    want, wd = jcert.certify_monitor(jev)
+    assert got == want and _codes(gd) == _codes(wd)
+    assert "VC013" in _codes(gd)
+
+
+def _txn_cert(pkg_check, cert_mod, hist, workload, opts, tamper=False):
+    test = {}
+    res = pkg_check(hist)
+    if tamper:
+        _tamper_cycle(res)
+    cert_mod.certify_txn_verdict(test, hist, res, workload=workload,
+                                 opts=opts)
+    return test
+
+
+@pytest.mark.parametrize("name,tamper", [
+    ("valid", False), ("G1c", False), ("G1c", True),
+    ("G-single-realtime", False), ("G-single-realtime", True),
+    ("G2-process", False), ("G2-process", True)])
+def test_certify_txn_verdict_equals_jax(name, tamper):
+    from jepsen_tpu.cycle import append as japp
+    from jepsen_tpu_torch.cycle import append as tapp
+    from test_txn_monitor import _fixtures
+    (hist, valid, _, kw), = [f[1:] for f in _fixtures() if f[0] == name]
+    opts = {"anomalies": list(kw.get("anomalies", ())) or None,
+            "process": kw.get("process", False)}
+    opts = {k: v for k, v in opts.items() if v is not None}
+    got = _txn_cert(lambda x: tapp.check(x, opts, device="cpu"), tcert,
+                    hist, "append", dict(opts, device="cpu"), tamper)
+    want = _txn_cert(lambda x: japp.check(x, opts), jcert, hist, "append",
+                     opts, tamper)
+    assert got["certificate"] == want["certificate"]
+    assert got["analysis"] == want["analysis"]
+    codes = [d["code"] for d in got["certificate"]["diagnostics"]]
+    assert codes == (["VC013"] if tamper else [])
+    assert got["certificate"]["verdict"] is valid
+
+
+def test_certify_txn_verdict_wr_equals_jax():
+    from jepsen_tpu.cycle import wr as jwr
+    from jepsen_tpu_torch.cycle import wr as twr
+    hist = simulate.txn_wr_history(random.Random(2), 90, 8)
+    got = _txn_cert(lambda x: twr.check(x, {}, device="cpu"), tcert, hist,
+                    "wr", {"device": "cpu"})
+    want = _txn_cert(lambda x: jwr.check(x, {}), jcert, hist, "wr", {})
+    assert got["certificate"] == want["certificate"]
+    assert got["certificate"]["verdict"] is True
+
+
+def test_multi_type_edge_witness_certifies_clean():
+    """ROADMAP.md C.6, a fault of the JAX package's certifier: a G-single
+    cycle whose return path runs over a ``ww+wr+rw`` edge (a dependency
+    that is also an anti-dependency) is a valid G-single witness, but the
+    JAX certifier counts that edge as a second rw edge and reports
+    VC013. The port's certifier lets a multi-type edge serve as any of
+    its types. Six txns cut down from a stale-read run of the list-append
+    workload under the txn monitor, where the JAX rule failed the smoke's
+    certification; both packages' analyses agree on the verdict and the
+    witness."""
+    from jepsen_tpu.monitor import engine as jeng
+    from jepsen_tpu_torch.monitor import engine as teng
+    from test_txn_monitor import A, P, R
+    x = [23, 24, 27, 25, 26]
+    hist = P(
+        (0, 100, [R("y", [8]), R("z", [5]), A("y", 3)], 6),
+        (70, 170, [R("y", [8, 3]), R("z", [5, 7]), A("x", 23)], 3),
+        (110, 180, [R("x", x[:1]), R("z", [5, 7]), A("x", 24)], 7),
+        (140, 190, [A("z", 8), R("x", x[:2]), A("z", 9), A("x", 27)], 5),
+        (130, 200, [A("x", 25), A("x", 26), R("x", x), R("y", [8])], 1),
+        (150, 300, [R("z", [5, 7, 8, 9, 12]), A("z", 10), R("x", x),
+                    A("z", 11)], 4))
+    result = teng.check_txn_prefix(hist, "append", CPU)
+    assert result == jeng.check_txn_prefix(hist, "append", {})
+    (w,) = result["anomalies"]["G-single"]
+    assert [s["type"] for s in w["steps"]] \
+        == ["rw", "wr", "ww+wr", "ww+wr+rw", "ww"]
+    ev = {"family": "txn", "workload": "append", "opts": {},
+          "history": hist, "result": result}
+    got, gd = tcert.certify_monitor(ev)
+    want, wd = jcert.certify_monitor(copy.deepcopy(ev))
+    assert _codes(wd) == ["VC013"] and _codes(gd) == []
+    assert got["confirmed"] is True
+    assert {c["class"]: c["status"] for c in got["checks"]} \
+        == {"G-single": "confirmed", "G2": "confirmed"}

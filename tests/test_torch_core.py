@@ -486,8 +486,6 @@ def test_lost_write_history_is_invalid_under_both():
 # branches that need modules not ported yet raise, naming the queue item
 
 @pytest.mark.parametrize("knob,item", [
-    ({"monitor": True}, r"A\.11\(c\)"),
-    ({"monitor": {"chunk": 8, "engine": "streamlin"}}, r"A\.11\(c\)"),
     ({"profile?": True}, r"A\.11\(d\)"),
 ])
 def test_unported_branches_raise(knob, item):

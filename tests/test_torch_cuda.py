@@ -14,7 +14,10 @@ compile phase is armed only when the kernel's library is not yet
 loaded; the multi-device search at world size 1 over NCCL (the sharded
 single search and the mesh key batch equal to the flat ones, verdicts,
 iterations and rollout launches included; a 2-D mesh refused); and
-``core.run`` end to end, its flat search launching the kernel. Every
+``core.run`` end to end, its flat search launching the kernel; and a
+monitored run on the card, whose recorded history, replayed through the
+streaming monitor chunk by chunk, gives the same summary on the card as
+on the CPU, valid and with one read falsified. Every
 test is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
@@ -551,3 +554,61 @@ def test_core_run_on_card(dev, tmp_path, monkeypatch):
     assert r["valid"] is True and "error" not in r, r
     assert len(test["history"]) == 2000
     assert rollout.launches > 0
+
+
+def test_monitored_run_on_card_equals_cpu(dev, tmp_path, monkeypatch):
+    """A monitored ``core.run`` on the card (the default engine,
+    "jax-wgl", on the default device): valid, the monitor's verdict
+    True. Its recorded history replayed through ``Monitor`` chunk by
+    chunk (offer, then ``_step`` on this thread) gives the same summary
+    on the card and on the CPU, time fields aside, as is and with a read
+    falsified to a value never written."""
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch import tests as tst
+    from jepsen_tpu_torch.monitor import core as mcore
+    from jepsen_tpu_torch.robust import ChainedLatch
+    monkeypatch.setattr(store, "base_dir", str(tmp_path / "store"))
+    rng = random.Random(45101)
+    t = tst.noop_test()
+    t.update({
+        "name": "card-monitor", "ssh": {"dummy?": True}, "certify?": False,
+        "concurrency": 8, "client": tst.atom_client(tst.Atom(None)),
+        "monitor": {"chunk": 64},
+        "checker": checkers.linearizable({"model": "cas-register",
+                                          "algorithm": "jax-wgl"}),
+        "generator": gen.clients(gen.limit(1000, gen.mix([
+            lambda: {"f": "read"},
+            lambda: {"f": "write", "value": rng.randint(0, 4)},
+            lambda: {"f": "cas",
+                     "value": [rng.randint(0, 4), rng.randint(0, 4)]}])))})
+    test = core.run(t)
+    r = test["results"]
+    assert r["valid"] is True and r["monitor"]["verdict"] is True, r
+    assert r["monitor"]["engine"] == "jax-wgl"
+    hist = [o for o in test["history"] if isinstance(o["process"], int)]
+    spec = models.model_spec("cas-register")
+
+    def replay(ops, device):
+        mon = mcore.Monitor(spec, ChainedLatch(), chunk=64,
+                            engine="jax-wgl", engine_opts={"device": device})
+        done = 0
+        for op in ops:
+            mon.offer(op)
+            if op["type"] != "invoke":
+                done += 1
+                if done % 64 == 0:
+                    mon._step()
+        mon._step()
+        return {k: v for k, v in mon.summary().items()
+                if k not in ("time_to_first_verdict_s",
+                             "detection_latency_s")}
+
+    bad = list(hist)
+    i = next(i for i in range(len(bad) // 2, len(bad))
+             if bad[i]["type"] == "ok" and bad[i]["f"] == "read")
+    bad[i] = dict(bad[i], value=77)
+    for ops, verdict in ((hist, True), (bad, False)):
+        card = replay(ops, "cuda")
+        assert card == replay(ops, "cpu")
+        assert card["verdict"] is verdict

@@ -292,3 +292,39 @@ print("ok")
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_monitored_run_and_workload_modules_import_without_jax():
+    """The monitored run (``Monitor``, ``TxnMonitor``, their installers
+    and certifiers) and the workload library (the cycle workloads, bank,
+    long-fork, causal, causal-reverse, adya, the perf and clock
+    checkers) stand alone too."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+from jepsen_tpu_torch import core, monitor
+from jepsen_tpu_torch.analysis import certify
+from jepsen_tpu_torch.checker import clock, perf
+from jepsen_tpu_torch.monitor import core as mcore, txn as mtxn
+from jepsen_tpu_torch.tests import (adya, bank, causal, causal_reverse,
+                                    long_fork)
+from jepsen_tpu_torch.tests import cycle
+from jepsen_tpu_torch.tests.cycle import append, wr
+for f in (monitor.Monitor, monitor.TxnMonitor, mtxn.install_txn,
+          mcore.install, mcore.finalize, core._certify_monitor_verdict,
+          certify.certify_monitor, certify.certify_txn_verdict,
+          certify.certify_cycle_witness, cycle.checker, cycle.txn_generator,
+          append.test, wr.test, perf.perf, perf.latency_graph,
+          perf.rate_graph_checker, perf.shade_nemeses, clock.clock_plot,
+          bank.test, bank.plotter, long_fork.workload, causal.test,
+          causal_reverse.workload, adya.workload):
+    assert callable(f)
+assert mcore.ABORT_REASON == "monitor-violation"
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
