@@ -143,7 +143,36 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    offline check's; (e) a stale-read copy of 2,048 txns: aborted, False
    offline with the monitor's anomaly types, its cycle witness
    certified. The txn cases launch no rollout kernel.
-10. ``batch``: the JAX package's headline key batch at full width
+10. ``cli``: the command line as a user runs it, through
+   ``jepsen_tpu_torch.__main__.main(argv)`` and the suites' ``main``
+   called in process (each run's exit code from its ``SystemExit``,
+   its store in a temporary directory, its rollout launches counted
+   from 0). (a) ``test --workload register --no-ssh --monitor
+   --concurrency 10n --per-key-limit 200 --time-limit 10``: exit 0,
+   valid, the monitor's verdict True, the history, results, test map,
+   log and ``monitor.json`` in the store, rollout launches > 0; its
+   keys, ops, client ops/s, monitor checks and the ``run-case`` and
+   ``analyze`` spans beside the wall. (b) The same with ``--bug
+   dirty-read --monitor-chunk 8`` and 30 s to abort in: exit 1,
+   aborted by the monitor
+   ("monitor-violation", salvaged), invalid with a numeric
+   ``detected_at_index``, the offline failures equal to the CPU
+   oracle's (``wgl``) on the stored history, the monitor's evidence
+   certified. (c) ``analyze`` with (b)'s options: exit 1, the same
+   failures. (d) A subprocess, ``python3 -m jepsen_tpu_torch.suites.etcd
+   test --stub --no-ssh ... --time-limit 60 --hard-time-limit 4``:
+   salvaged with ``"abort-reason": "time-limit"``, no journal left, the
+   exit code ``hard_main`` maps from the verdict. (e) ``suites.txn test
+   --workload append --nemesis faketime --monitor --time-limit 8``: exit
+   0, the clock nemesis's ops contained as info completions under the
+   dummy remote, the txn monitor's verdict True; then with ``--bug
+   future-read --monitor-chunk 8``: exit 1, aborted mid-run, a G1c
+   anomaly, its cycle witness certified. (f) ``--profile``
+   (``--per-key-limit 50 --time-limit 3``): ``profile.json`` with status
+   "done" naming a non-empty Chrome trace whose CUDA kernel events
+   ``profile_main.kernel_stats`` counts, with the device's idle share
+   over the capture.
+11. ``batch``: the JAX package's headline key batch at full width
    (``simulate.bench_histories``, as ``bench.py`` rungs 2 and 2b draw
    it): 256 cas-register keys, 8 processes, 200 ops per key, crash_p
    0.02, every 8th key corrupted, through
@@ -154,14 +183,14 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    Both calls must decide alike. No key may be
    unknown, at least one must be invalid, and the first 32 verdicts must
    equal the CPU oracle's (the gate phase's).
-11. ``independent``: the first 64 of those keys wrapped in
+12. ``independent``: the first 64 of those keys wrapped in
    ``independent.tuple_`` and merged into one history, through
    ``independent.checker(compose({"linearizable": ..., "ok":
    unbridled_optimism()}))`` with the default gate and planning on:
    exactly one call of ``parallel.check_batch_encoded``, with every
    key's segments (92 pairs), and ``failures`` equal to the corrupted
    keys.
-12. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
+13. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
    batch (150 ops and 6 processes per key, crash_p 0.02, every 8th key
    corrupted) with the fast check off, so the device search with padded
    queue states decides, within ``QUEUE_MAX_CONFIGS`` (128 iterations of
@@ -177,7 +206,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``bench.py``'s rung-4 FIFO history through
    ``checkers.linearizable``, fast check on.
 
-13. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
+14. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
    torch ops) on keys of the batch above: (a) the offline face at the
    hard frontier cap on ``OFFLINE_KEYS`` (one of them corrupted), each
    verdict equal to the CPU sweep's (``linear``) and each violating op
@@ -191,7 +220,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    by the port's WGL engine: seconds, host syncs, passes and frontier
    peak per event. (b) and (c) are not profiled: gathering the
    profiler's events costs more than the run itself (PERF.md).
-14. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
+15. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
    serial list-append history of 16,384 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
    decides it valid on the card (one profiled call: squarings, closure
@@ -204,8 +233,8 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    same on the CPU; one squaring at n=16384 timed in float32, TF32 and
    bf16, all three boolean-identical.
 
-The competition, checkpoint, certify, obs, mesh, run and monitor paths
-run the rollout kernel (each counted; ``run_keyed`` may not, as the key
+The competition, checkpoint, certify, obs, mesh, run, monitor and cli
+paths run the rollout kernel (each counted; ``run_keyed`` may not, as the key
 batch rolls on the scan; the monitor's txn paths do not). The planned, batch, independent, queue, streamlin and
 txn paths do not run it: each of them is run with the rollout kernel's
 launch
@@ -2227,6 +2256,290 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
     return out
 
 
+#: the cli phase: the port's entry points as a user runs them. (a) The
+#: demo's register workload at the default 5 nodes and 10n workers (5
+#: keys in flight), CLI_PER_KEY ops per key (the batch phase's key size)
+#: for CLI_TIME_LIMIT s; (b) its dirty-read copy checked every
+#: CLI_BUG_CHUNK completions, given CLI_BUG_TIME_LIMIT s to abort in (one
+#: H100 run's monitor reported the first dirty read 7.75 s after it
+#: landed, 9.8 s into a 10 s run; PERF.md); (d) the etcd stub past its
+#: hard limit of CLI_HARD_LIMIT s; (e) the txn suite for
+#: CLI_TXN_TIME_LIMIT s; (f) a profiled register run of
+#: CLI_PROFILE_PER_KEY ops per key for CLI_PROFILE_TIME_LIMIT s
+CLI_TIME_LIMIT, CLI_PER_KEY, CLI_BUG_CHUNK, CLI_BUG_TIME_LIMIT = \
+    10, 200, 8, 30
+CLI_HARD_LIMIT, CLI_TXN_TIME_LIMIT = 4, 8
+CLI_PROFILE_PER_KEY, CLI_PROFILE_TIME_LIMIT = 50, 3
+
+
+def cli_phase(dev, time_limit=CLI_TIME_LIMIT,
+              txn_time_limit=CLI_TXN_TIME_LIMIT,
+              profile_time_limit=CLI_PROFILE_TIME_LIMIT):
+    """The port's command line on the card: ``jepsen_tpu_torch.__main__``
+    and the suites' ``main(argv)`` called in process (``SystemExit``
+    caught for the exit code, so the rollout kernel's launches can be
+    counted from 0 around each run), each store in a temporary directory;
+    run (d) is a real subprocess. (a) ``test --workload register --no-ssh
+    --monitor --concurrency 10n --per-key-limit 200``: exit 0, valid, the
+    monitor's verdict True, the store's files, rollout launches > 0 (the
+    monitor's per-key checks run the single-key search). (b) The same
+    with ``--bug dirty-read --monitor-chunk 8`` and a ``--time-limit`` of
+    at least ``CLI_BUG_TIME_LIMIT``: exit 1, aborted by the monitor
+    mid-run and salvaged, invalid, the monitor's verdict False
+    at a numeric index, the offline failures equal to the CPU oracle's
+    (``wgl``) on the stored history, the monitor's evidence certified.
+    (c) ``analyze`` with (b)'s options: exit 1, the same failures. (d)
+    ``python3 -m jepsen_tpu_torch.suites.etcd test --stub ...
+    --hard-time-limit 4``: salvaged at the limit ("time-limit"), no
+    journal left, the exit code ``hard_main`` maps from the verdict. (e)
+    ``suites.txn test --workload append --nemesis faketime --monitor``:
+    exit 0, the clock nemesis's ops contained as info completions under
+    the dummy remote, the txn monitor's verdict True; then with ``--bug
+    future-read --monitor-chunk 8``: exit 1, aborted mid-run, a G1c
+    anomaly whose cycle witness certifies. (f) ``--profile``: the
+    marker's status "done" naming a non-empty Chrome trace that holds
+    CUDA kernel events (``profile_main.kernel_stats``). Each run's exit
+    code, wall, rollout launches and client ops/s are in the phase's
+    line. On the CPU (a rehearsal) every command gets ``--device cpu``
+    and the kernel and profiler checks that need a card are skipped."""
+    import contextlib
+    import logging
+    import shutil
+    import tempfile
+    import threading
+    from jepsen_tpu_torch import __main__ as demo_main
+    from jepsen_tpu_torch import independent, obs, store
+    from jepsen_tpu_torch.checker import checkers, rollout
+    from jepsen_tpu_torch.obs import profile as obs_profile
+    from jepsen_tpu_torch.profile_main import kernel_stats
+    from jepsen_tpu_torch.suites import txn as txn_suite
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    device = [] if cuda else ["--device", "cpu"]
+    root = logging.getLogger()
+    saved_log = (root.level, list(root.handlers))
+    base = store.base_dir
+    tmp = tempfile.mkdtemp(prefix="jepsen-cli-")
+    store.base_dir = os.path.join(tmp, "store")
+    # the process's threads when the phase starts: each competes with the
+    # interpreter and the monitor for the GIL
+    out = {"phase": "cli", "threads_at_start": threading.active_count()}
+    launches = {}
+
+    def client_rate(hist):
+        ops = [o for o in hist if isinstance(o["process"], int)]
+        span = (max(o["time"] for o in ops)
+                - min(o["time"] for o in ops)) / 1e9
+        return sum(o["type"] != "invoke" for o in ops) / span
+
+    def run(name, main, argv, want):
+        rollout.launches = 0
+        t0 = time.monotonic()
+        # a run prints its results map: keep this script's output to
+        # its phase lines
+        with contextlib.redirect_stdout(sys.stderr):
+            try:
+                main(argv + device)
+                code = 0
+            except SystemExit as exc:
+                code = exc.code
+        sync(dev)
+        wall = time.monotonic() - t0
+        checkers.join_racers()
+        launches[f"cli_{name}"] = rollout.launches
+        if code != want:
+            raise AssertionError(f"cli {name}: exit {code}, want {want}")
+        test = store.latest()
+        hist = test["history"]
+        row = {"exit": code, "wall_s": wall,
+               "rollout_launches": rollout.launches,
+               "client_ops_per_s": client_rate(hist),
+               "history_ops": len(hist)}
+        mon = test["results"].get("monitor")
+        if isinstance(mon, dict):
+            row.update(monitor_checks=mon["checks"],
+                       monitor_chunks=mon["chunks"],
+                       monitor_verdict=mon["verdict"],
+                       time_to_first_verdict_s=mon[
+                           "time_to_first_verdict_s"],
+                       detection_latency_s=mon.get("detection_latency_s"))
+        return test, row
+
+    def files(test, *names):
+        missing = [n for n in names
+                   if not os.path.exists(store.path(test, n))]
+        if missing:
+            raise AssertionError(f"cli {test['name']}: no {missing} in "
+                                 f"the store")
+
+    def certified(what, test):
+        cert = test["results"].get("monitor-certification") or {}
+        if cert.get("confirmed") is not True \
+                or (cert.get("counts") or {}).get("error"):
+            raise AssertionError(f"cli {what}: certification {cert}")
+        return cert
+
+    def oracle_failures(test):
+        chk = independent.checker(checkers.linearizable(
+            {"model": "cas-register", "algorithm": "wgl"}))
+        return sorted(chk.check({}, test["history"], {})["failures"])
+
+    try:
+        def register(limit):
+            return ["--workload", "register", "--no-ssh", "--monitor",
+                    "--concurrency", "10n", "--per-key-limit",
+                    str(CLI_PER_KEY), "--time-limit", str(limit)]
+        # (a) the normal entry point at a realistic size
+        test, row = run("a", demo_main.main, ["test"] + register(time_limit),
+                        0)
+        r = test["results"]
+        if r["valid"] is not True or r["monitor"]["verdict"] is not True:
+            raise AssertionError(f"cli a: valid {r['valid']!r}, monitor "
+                                 f"{r['monitor']['verdict']!r}")
+        errs = errors_in(r)
+        if errs:
+            raise AssertionError(f"cli a: {errs}")
+        files(test, "history.jsonl", "results.json", "test.json",
+              "jepsen.log", "monitor.json")
+        if cuda and not row["rollout_launches"]:
+            raise AssertionError("cli a: the run never launched the "
+                                 "rollout kernel")
+        keys = {o["value"][0] for o in test["history"]
+                if isinstance(o["process"], int)}
+        spans = {}
+        for e in obs.load_trace(store.path(test, "trace.jsonl")):
+            if e.get("ph") == "X" and e["name"] in ("run-case", "analyze"):
+                spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+        row.update(monitor_check_stats(test))
+        out["a"] = {**row, "keys": len(keys),
+                    "run_case_s": spans["run-case"],
+                    "analyze_s": spans["analyze"]}
+
+        # (b) the dirty-read bug caught mid-run
+        bug = register(max(time_limit, CLI_BUG_TIME_LIMIT)) + [
+            "--bug", "dirty-read", "--monitor-chunk", str(CLI_BUG_CHUNK)]
+        test, row = run("b", demo_main.main, ["test"] + bug, 1)
+        row.update(monitor_check_stats(test))
+        r = test["results"]
+        mon = r["monitor"]
+        if r.get("abort-reason") != "monitor-violation" \
+                or r.get("salvaged") is not True or r["valid"] is not False \
+                or mon["verdict"] is not False \
+                or not isinstance(mon.get("detected_at_index"), int):
+            raise AssertionError(f"cli b: abort {r.get('abort-reason')!r}, "
+                                 f"valid {r['valid']!r}, monitor {mon}")
+        failures = sorted(r["workload"]["failures"])
+        oracle = oracle_failures(test)
+        if failures != oracle:
+            raise AssertionError(f"cli b: failures {failures} != the CPU "
+                                 f"oracle's {oracle}")
+        out["b"] = {**row, "detected_at_index": mon["detected_at_index"],
+                    "failures": len(failures),
+                    "certification": certified("b", test)}
+
+        # (c) analyze re-checks the stored history
+        test, row = run("c", demo_main.main, ["analyze"] + bug, 1)
+        if sorted(test["results"]["workload"]["failures"]) != failures:
+            raise AssertionError("cli c: analyze's failures differ from "
+                                 "the run's")
+        out["c"] = row
+
+        # (d) the process boundary: the etcd stub past its hard limit
+        cwd = os.path.join(tmp, "etcd")
+        os.makedirs(cwd)
+        here = os.path.dirname(os.path.abspath(__file__))
+        rollout.launches = 0
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "jepsen_tpu_torch.suites.etcd", "test",
+             "--stub", "--no-ssh", "--node", "n1", "--node", "n2", "--node",
+             "n3", "--workload", "register", "--time-limit", "60",
+             "--hard-time-limit", str(CLI_HARD_LIMIT)] + device,
+            cwd=cwd, env={**os.environ, "PYTHONPATH": here},
+            capture_output=True, text=True, timeout=300)
+        wall = time.monotonic() - t0
+        latest = os.path.join(cwd, "store", "latest")
+        with open(os.path.join(latest, "results.json")) as f:
+            r = json.load(f)
+        want = {True: 0, False: 1}.get(r["valid"], 2)
+        if r.get("salvaged") is not True \
+                or r.get("abort-reason") != "time-limit" \
+                or os.path.exists(os.path.join(latest,
+                                               "history.jsonl.journal")) \
+                or proc.returncode != want:
+            raise AssertionError(f"cli d: exit {proc.returncode} (want "
+                                 f"{want}), {r.get('abort-reason')!r}, "
+                                 f"salvaged {r.get('salvaged')!r}: "
+                                 f"{proc.stderr[-2000:]}")
+        out["d"] = {"exit": proc.returncode, "wall_s": wall,
+                    "valid": r["valid"], "hard_limit_s": CLI_HARD_LIMIT}
+
+        # (e) the txn suite under the contained clock nemesis
+        txn = ["--node", "n1", "--no-ssh", "--workload", "append",
+               "--nemesis", "faketime", "--monitor", "--time-limit",
+               str(txn_time_limit)]
+        test, row = run("e", txn_suite.main, ["test"] + txn, 0)
+        nem = [o for o in test["history"] if o["process"] == "nemesis"]
+        if test["results"]["monitor"]["verdict"] is not True or not nem \
+                or any(o["type"] != "info" for o in nem):
+            raise AssertionError(f"cli e: monitor "
+                                 f"{test['results']['monitor']}, nemesis "
+                                 f"{nem[:4]}")
+        row["nemesis_ops"] = len(nem)
+        row["nemesis_contained"] = sum(
+            isinstance(o.get("value"), list)
+            and o["value"][:1] == ["nemesis-unavailable"] for o in nem)
+        out["e"] = row
+        test, row = run("e_bug", txn_suite.main,
+                        ["test"] + txn + ["--bug", "future-read",
+                                          "--monitor-chunk",
+                                          str(CLI_BUG_CHUNK)], 1)
+        r = test["results"]
+        anomalies = r["workload"].get("anomaly_types") or []
+        if r.get("abort-reason") != "monitor-violation" \
+                or not any(a.startswith(("G0", "G1c")) for a in anomalies):
+            raise AssertionError(f"cli e_bug: abort "
+                                 f"{r.get('abort-reason')!r}, anomalies "
+                                 f"{anomalies}")
+        out["e_bug"] = {**row, "anomaly_types": anomalies,
+                        "certification": certified("e_bug", test)}
+
+        # (f) --profile: the capture around the run's device searches
+        test, row = run("f", demo_main.main, [
+            "test", "--workload", "register", "--no-ssh", "--profile",
+            "--per-key-limit", str(CLI_PROFILE_PER_KEY), "--time-limit",
+            str(profile_time_limit)], 0)
+        with open(store.path(test, obs_profile.MARKER_FILE)) as f:
+            marker = json.load(f)
+        trace = os.path.join(marker.get("dir") or "",
+                             marker.get("trace") or "")
+        if marker.get("status") != "done" or not os.path.isfile(trace) \
+                or not os.path.getsize(trace):
+            raise AssertionError(f"cli f: profile marker {marker}")
+        with open(trace) as f:
+            evs = [(e["ts"], e["ts"] + e["dur"], e["name"],
+                    e.get("cat") == "kernel")
+                   for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X"]
+        stats = kernel_stats(evs, marker["wall_s"], top=5)
+        if cuda and not stats["kernel_launches"]:
+            raise AssertionError("cli f: the profile holds no CUDA kernel")
+        out["f"] = {**row, "profile_status": marker["status"],
+                    "activities": marker.get("activities"),
+                    "capture_wall_s": marker["wall_s"],
+                    "trace_bytes": os.path.getsize(trace), **stats}
+    finally:
+        store.base_dir = base
+        shutil.rmtree(tmp, ignore_errors=True)
+        root.setLevel(saved_log[0])
+        for h in list(root.handlers):
+            if h not in saved_log[1]:
+                root.removeHandler(h)
+    out["launches"] = launches
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
 def batch_phase(keys, oracle):
     """The 256-key headline batch: a profiled call (the warm-up), then a
     timed call; the first 32 verdicts against the CPU oracle's
@@ -2818,7 +3131,11 @@ def main(argv):
     mon_row = monitor_phase(dev, run_row["register"]["interpreter_ops_per_s"])
     emit(mon_row)
 
-    # -- 10-12. the key batch, independent, the queue models ---------------
+    # -- 10. cli: the command line, python -m jepsen_tpu_torch and suites --
+    cli_row = cli_phase(dev)
+    emit(cli_row)
+
+    # -- 11-13. the key batch, independent, the queue models ---------------
     row = batch_phase(keys, oracle)
     emit(row)
     ind = independent_phase(keys[:INDEPENDENT_KEYS])
@@ -2826,7 +3143,7 @@ def main(argv):
     queues = queue_phase(fifo)
     emit(queues)
 
-    # -- 13-14. the streaming fold and the txn closure ---------------------
+    # -- 14-15. the streaming fold and the txn closure ---------------------
     rollout.launches = 0
     emit(streamlin_phase(keys, dev))
     stream_launches = scan_only("streamlin")
@@ -2836,6 +3153,8 @@ def main(argv):
     by_path = {"main": main_launches, **gate["launches"],
                **obs_row["launches"], "mesh": mesh_row["launches"],
                **run_row["launches"], **mon_row["launches"],
+               "cli": sum(cli_row["launches"].values()),
+               **cli_row["launches"],
                "batch": row["rollout_launches"],
                "independent": ind["rollout_launches"],
                **{c["model"]: c["rollout_launches"]

@@ -33,10 +33,16 @@ every rank calls the checker with the same history), unplanned, as the
 JAX package does; the ``independent`` checker hands the mesh to the
 mesh key batch instead. A mesh under any other algorithm raises
 ValueError: the JAX package would fail inside a racer.
+
+The module also carries the JAX package's host checkers that the demo and
+the suites compose beside the gate: ``unhandled_exceptions``, ``stats``
+and ``set_checker`` (checker.clj:124-183, 240-291), copied unchanged.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import contextvars
 import logging
 import sys
@@ -46,9 +52,10 @@ import time
 from .. import history as h
 from .. import obs
 from ..models import base as mbase
-from .core import Checker
+from .core import Checker, merge_valid
 
-__all__ = ["Linearizable", "linearizable", "join_racers"]
+__all__ = ["unhandled_exceptions", "stats", "Linearizable", "linearizable",
+           "join_racers", "set_checker"]
 
 logger = logging.getLogger(__name__)
 
@@ -68,7 +75,95 @@ _races_lock = threading.Lock()
 #: run (``race_ab.py``, PERF.md). Set while any race runs, restored when
 #: the last one ends.
 RACE_SWITCH_INTERVAL = 5e-6
-_switch = {"races": 0, "saved": None}
+#: the switch interval while a streaming monitor's check runs beside the
+#: interpreter's busy workers (``monitor/``), for the same reason. The
+#: command line's monitored dirty-read demo run (50 workers, chunk 8)
+#: reached its first verdict after 27 s at the default 5 ms on the CPU,
+#: 1.6 s at 5 us. On an H100 (``monitor_ab.py``, PERF.md) it aborted
+#: within 0.48-1.33 s in six runs at 50 us; at 5 ms it took 1.23-7.72 s
+#: and in one run of six the 8 s run ended first. 5 us cut the
+#: interpreter to 230-260 client ops/s; 50 us costs it ~18% against
+#: 5 ms (542-768 against 568-955 in four turns).
+MONITOR_SWITCH_INTERVAL = 5e-5
+#: the intervals of the scopes now open (``short_switch``)
+_switch = {"open": [], "saved": None}
+
+
+@contextlib.contextmanager
+def short_switch(interval=None):
+    """Run the body with the interpreter's switch interval at
+    ``interval`` (default ``RACE_SWITCH_INTERVAL``): a thread whose torch
+    calls each release the GIL (a device racer, a monitor's check) then
+    takes it back from busy pure-Python threads (the CPU racers, the
+    interpreter's workers) within the interval, not within the default
+    5 ms. Concurrent and nested scopes run at the shortest interval open;
+    the last to leave restores the saved one."""
+    interval = RACE_SWITCH_INTERVAL if interval is None else interval
+    with _races_lock:
+        if not _switch["open"]:
+            _switch["saved"] = sys.getswitchinterval()
+        _switch["open"].append(interval)
+        sys.setswitchinterval(min(_switch["open"]))
+    try:
+        yield
+    finally:
+        with _races_lock:
+            _switch["open"].remove(interval)
+            sys.setswitchinterval(min(_switch["open"])
+                                  if _switch["open"] else _switch["saved"])
+
+
+class _UnhandledExceptions(Checker):
+    """Aggregates info ops carrying exceptions by class
+    (checker.clj:124-151)."""
+
+    def check(self, test, hist, opts=None):
+        exes = [o for o in hist
+                if o.get("exception") and o.get("type") == "info"]
+        groups = collections.defaultdict(list)
+        for o in exes:
+            groups[o.get("exception")].append(o)
+        out = sorted(groups.values(), key=len, reverse=True)
+        result = {"valid": True}
+        if out:
+            result["exceptions"] = [
+                {"count": len(ops), "class": ops[0].get("exception"),
+                 "example": ops[0]} for ops in out]
+        return result
+
+
+def unhandled_exceptions():
+    return _UnhandledExceptions()
+
+
+def _stats_map(hist):
+    ok = sum(1 for o in hist if h.ok(o))
+    fail = sum(1 for o in hist if h.fail(o))
+    info = sum(1 for o in hist if h.info(o))
+    return {"valid": ok > 0, "count": ok + fail + info,
+            "ok-count": ok, "fail-count": fail, "info-count": info}
+
+
+class _Stats(Checker):
+    """ok/fail/info counts overall and by :f; valid iff every f saw an ok
+    (checker.clj:153-183)."""
+
+    def check(self, test, hist, opts=None):
+        hist = [o for o in hist
+                if not h.invoke(o) and o.get("process") != "nemesis"]
+        by_f = collections.defaultdict(list)
+        for o in hist:
+            by_f[o.get("f")].append(o)
+        groups = {f: _stats_map(sub) for f, sub in sorted(
+            by_f.items(), key=lambda kv: str(kv[0]))}
+        out = _stats_map(hist)
+        out["by-f"] = groups
+        out["valid"] = merge_valid([g["valid"] for g in groups.values()])
+        return out
+
+
+def stats():
+    return _Stats()
 
 
 class Linearizable(Checker):
@@ -272,11 +367,7 @@ class Linearizable(Checker):
             while len(_races) >= _KEEP_RACES and _races[0].settled():
                 _races.pop(0)
             _races.append(race)
-            if _switch["races"] == 0:
-                _switch["saved"] = sys.getswitchinterval()
-                sys.setswitchinterval(RACE_SWITCH_INTERVAL)
-            _switch["races"] += 1
-        try:
+        with short_switch():
             threads = [race.start(name, fn, first_done)
                        for name, fn in engines]
             # wait for the first DEFINITE verdict (or everyone to finish)
@@ -295,11 +386,6 @@ class Linearizable(Checker):
             cancel.set()
             for t in threads:
                 t.join(timeout=0.5)
-        finally:
-            with _races_lock:
-                _switch["races"] -= 1
-                if _switch["races"] == 0:
-                    sys.setswitchinterval(_switch["saved"])
         with race.lock:
             err = race.unraised_error()
         if err is not None:
@@ -415,3 +501,39 @@ def linearizable(opts):
                             opts.get("engine_opts"),
                             opts.get("init-ops"))
     return Linearizable(opts)
+
+
+class _SetChecker(Checker):
+    """adds + final read: lost/unexpected/recovered analysis
+    (checker.clj:240-291)."""
+
+    def check(self, test, hist, opts=None):
+        attempts = {o.get("value") for o in hist
+                    if h.invoke(o) and o.get("f") == "add"}
+        adds = {o.get("value") for o in hist
+                if h.ok(o) and o.get("f") == "add"}
+        final_read = None
+        for o in hist:
+            if h.ok(o) and o.get("f") == "read":
+                final_read = o.get("value")
+        if final_read is None:
+            return {"valid": "unknown", "error": "Set was never read"}
+        final = set(final_read)
+        ok = final & attempts
+        unexpected = final - attempts
+        lost = adds - final
+        recovered = ok - adds
+        return {"valid": not lost and not unexpected,
+                "attempt-count": len(attempts),
+                "acknowledged-count": len(adds),
+                "ok-count": len(ok),
+                "lost-count": len(lost),
+                "recovered-count": len(recovered),
+                "unexpected-count": len(unexpected),
+                "ok": sorted(ok), "lost": sorted(lost),
+                "unexpected": sorted(unexpected),
+                "recovered": sorted(recovered)}
+
+
+def set_checker():
+    return _SetChecker()

@@ -11,10 +11,9 @@ Every phase is host code; the device work is the checker's, in
 ``analyze``, on the caller's thread after every worker has stopped (a
 Linearizable gate reaches ``torch_wgl`` and the rollout kernel there),
 and, with ``test["monitor"]`` set, the streaming monitor's, on its own
-thread while the interpreter runs (``monitor/core.py``). One branch
-needs a module that is not ported yet and raises
-``NotImplementedError`` naming it: ``test["profile?"]`` (the profiler
-capture, ROADMAP.md A.11(d)).
+thread while the interpreter runs (``monitor/core.py``). With
+``test["profile?"]`` set, ``analyze`` runs inside a ``torch.profiler``
+capture (``obs/profile.py``).
 """
 
 from __future__ import annotations
@@ -351,8 +350,10 @@ def analyze(test):
     mv = test.get("monitor-verdict")
     skip = bool(mv and mv.get("verdict") in (True, False)
                 and (jmonitor.config(test) or {}).get("skip-offline?"))
-    # --profile: the capture around the run's device searches
-    # (obs/profile.py; raises until A.11(d) ports it)
+    # --profile: wrap the analyze phase — the run's device searches —
+    # in a torch.profiler capture (obs/profile.py: bounded, opt-in,
+    # contained: a run whose profiler is unavailable proceeds
+    # unprofiled)
     from .obs import profile as obs_profile
     with obs_profile.scope(test), obs.span("analyze"):
         test["history"] = jhistory.index(test.get("history") or [])

@@ -247,6 +247,28 @@ def subhistory(k, history):
     return out
 
 
+def retuple(history):
+    """A keyed history read back from ``history.jsonl`` carries its
+    ``[k v]`` tuples as plain 2-lists (JSON has no tuple type): the
+    client ops' pairs become Tuples again, so a re-check of a stored run
+    (``cli analyze``) sees its keys. Ops of the nemesis (a process that
+    is not an integer) keep their values; a history that already holds
+    a Tuple is returned as it is. The JAX package re-checks the 2-lists
+    as unkeyed values and finds no key (ROADMAP.md, deliberate
+    divergences)."""
+    if any(is_tuple(op.get("value")) for op in history):
+        return history
+    out = []
+    for op in history:
+        v = op.get("value")
+        if isinstance(v, list) and len(v) == 2 \
+                and isinstance(op.get("process"), int):
+            op = type(op)(op)
+            op["value"] = Tuple(v[0], v[1])
+        out.append(op)
+    return out
+
+
 class _IndependentChecker(Checker):
     """Lifts a checker over plain values to one over [k v] histories
     (independent.clj:293-344). The linearizable device path batches every
@@ -257,6 +279,7 @@ class _IndependentChecker(Checker):
 
     def check(self, test, history, opts=None):
         opts = opts or {}
+        history = retuple(history)
         ks = sorted(history_keys(history), key=repr)
         subs = {k: subhistory(k, history) for k in ks}
 

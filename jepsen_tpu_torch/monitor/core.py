@@ -47,6 +47,7 @@ from .. import obs
 from .. import resolve_device
 from .. import robust
 from ..obs import phases as obs_phases
+from ..checker import checkers
 from ..checker.core import merge_valid
 from . import engine as mengine
 from .stream import StreamEncoder
@@ -457,8 +458,11 @@ class Monitor(_MonitorThread):
             obs_phases.note_wait(self.engine,
                                  _time.monotonic() - t_w)
         try:
+            # the check's torch calls each give the GIL up to the running
+            # interpreter's workers: take it back within the short interval
             with self._span("monitor.check", key=repr(key),
-                            n=len(enc)):
+                            n=len(enc)), \
+                    checkers.short_switch(checkers.MONITOR_SWITCH_INTERVAL):
                 if stream:
                     r = enc.check(cancel=self._cancel)
                 else:

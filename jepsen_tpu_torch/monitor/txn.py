@@ -36,6 +36,7 @@ import time as _time
 from .. import obs
 from .. import resolve_device
 from .. import robust
+from ..checker import checkers
 from ..cycle import DEFAULT_ANOMALIES, IncrementalClosure
 from . import engine as mengine
 from .core import ABORT_REASON, DEFAULT_CHUNK, _MonitorThread
@@ -187,7 +188,10 @@ class TxnMonitor(_MonitorThread):
         self.chunks += 1
         self._inc("monitor.chunks")
         t0 = _time.monotonic()
-        res = self.core.check(cancel=self._cancel)
+        # the check's torch calls each give the GIL up to the running
+        # interpreter's workers: take it back within the short interval
+        with checkers.short_switch(checkers.MONITOR_SWITCH_INTERVAL):
+            res = self.core.check(cancel=self._cancel)
         dt = _time.monotonic() - t0
         self.checks += 1
         valid = res.get("valid")

@@ -1,9 +1,9 @@
 """Operating system setup and teardown (reference
 jepsen/src/jepsen/os.clj).
 
-The port has the protocol and ``noop``. The JAX package's
-implementations (`os.debian`, `.centos`, `.ubuntu`, `.smartos`) wait for
-ROADMAP.md A.11(b).
+Implementations: `jepsen_tpu_torch.os.debian`, `.centos`, `.ubuntu`,
+`.smartos` — each exposes a module-level ``os`` instance plus its package
+helpers (install, installed, maybe_update, ...).
 """
 
 from __future__ import annotations

@@ -486,7 +486,8 @@ def test_lost_write_history_is_invalid_under_both():
 # branches that need modules not ported yet raise, naming the queue item
 
 @pytest.mark.parametrize("knob,item", [
-    ({"profile?": True}, r"A\.11\(d\)"),
+    # a readable baseline: the perf trend gate needs obs.trend
+    ({"trend-baseline": __file__}, r"A\.11\(d\)"),
 ])
 def test_unported_branches_raise(knob, item):
     state = Atom(None)

@@ -17,7 +17,8 @@ iterations and rollout launches included; a 2-D mesh refused); and
 ``core.run`` end to end, its flat search launching the kernel; and a
 monitored run on the card, whose recorded history, replayed through the
 streaming monitor chunk by chunk, gives the same summary on the card as
-on the CPU, valid and with one read falsified. Every
+on the CPU, valid and with one read falsified; and the command line's
+monitored register run, exit 0 with the kernel launched. Every
 test is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
@@ -612,3 +613,24 @@ def test_monitored_run_on_card_equals_cpu(dev, tmp_path, monkeypatch):
         card = replay(ops, "cuda")
         assert card == replay(ops, "cpu")
         assert card["verdict"] is verdict
+
+
+def test_cli_register_run_on_card(dev, tmp_path, monkeypatch):
+    """The command line on the card, as ``chip_smoke.py``'s ``cli``
+    phase (a) runs it but for 3 s: ``python -m jepsen_tpu_torch test
+    --workload register --no-ssh --monitor --concurrency 10n
+    --per-key-limit 200`` in process, on the default device: exit 0,
+    valid, and the rollout kernel launched (the monitor's per-key
+    checks)."""
+    from jepsen_tpu_torch import __main__ as demo_main
+    from jepsen_tpu_torch import store
+    monkeypatch.setattr(store, "base_dir", str(tmp_path / "store"))
+    rollout.launches = 0
+    with pytest.raises(SystemExit) as exc:
+        demo_main.main(["test", "--workload", "register", "--no-ssh",
+                        "--monitor", "--concurrency", "10n",
+                        "--per-key-limit", "200", "--time-limit", "3"])
+    checkers.join_racers()
+    assert exc.value.code == 0
+    assert store.latest()["results"]["valid"] is True
+    assert rollout.launches > 0

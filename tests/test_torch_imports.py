@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax_or_jepsen_tpu():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 49    # every module of the slices
+    assert int(out.stdout.strip()) >= 100   # every module of the slices
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -321,6 +321,67 @@ for f in (monitor.Monitor, monitor.TxnMonitor, mtxn.install_txn,
           causal_reverse.workload, adya.workload):
     assert callable(f)
 assert mcore.ABORT_REASON == "monitor-violation"
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_fault_plane_and_cli_modules_import_without_jax():
+    """The fault plane on nodes (the OS installers, faketime, charybdefs,
+    the clock, membership and combined nemeses with their C resources),
+    the run's profiler capture, the command line (``cli``, ``__main__``,
+    ``demo``, the etcd and txn suites) and its monitor A/B stand alone
+    too."""
+    probe = r"""
+import os, sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+from jepsen_tpu_torch import __main__ as main, charybdefs, cli, demo, faketime
+from jepsen_tpu_torch import monitor_ab, nemesis
+from jepsen_tpu_torch.checker import checkers
+from jepsen_tpu_torch.nemesis import combined, membership, time as nt
+from jepsen_tpu_torch.obs import profile
+from jepsen_tpu_torch.os import centos, debian, smartos, ubuntu
+from jepsen_tpu_torch.suites import etcd, txn
+for f in (debian.install, debian.installed, debian.maybe_update,
+          debian.add_repo, ubuntu.os.setup, centos.install,
+          centos.install_start_stop_daemon, smartos.install,
+          faketime.install, faketime.script, faketime.wrap, faketime.unwrap,
+          faketime.rand_factor, charybdefs.install_thrift,
+          charybdefs.install, charybdefs.break_all,
+          charybdefs.break_one_percent, charybdefs.clear, nt.compile_c,
+          nt.compile_tools, nt.install, nt.parse_time, nt.clock_offset,
+          nt.current_offset, nt.reset_time, nt.bump_time, nt.strobe_time,
+          nt.clock_nemesis, nt.reset_gen_select, nt.bump_gen_select,
+          nt.strobe_gen_select, nt.clock_gen, membership.initial_fields,
+          membership.resolve_ops, membership.resolve, membership.package,
+          combined.db_nodes, combined.node_specs, combined.db_generators,
+          combined.db_package, combined.perf_spec, combined.grudge,
+          combined.partition_specs, combined.partition_package,
+          combined.clock_package, combined.f_map_perf, combined.f_map,
+          combined.compose_packages, combined.nemesis_packages,
+          combined.nemesis_package, nemesis.compose, profile.available,
+          profile.scope, profile.profile_dir_for, checkers.stats,
+          checkers.unhandled_exceptions, checkers.set_checker,
+          cli.add_test_opts, cli.parse_concurrency, cli.parse_nodes,
+          cli.test_opt_fn, cli.single_test_cmd, cli.test_all_run_tests,
+          cli.test_all_print_summary, cli.test_all_exit_code,
+          cli.test_all_cmd, cli.campaign_cmd, cli.serve_cmd, cli.run,
+          cli.hard_main, main.main, demo.demo_test, demo.nemesis_axis,
+          etcd.etcd_test, etcd.all_tests, etcd.main, txn.txn_test,
+          txn.skew_bound_from_history, txn.main, monitor_ab.main,
+          monitor_ab.run_once, checkers.short_switch):
+    assert callable(f)
+for cls in (nt.ClockNemesis, membership.State, membership.Nemesis,
+            membership.Generator, combined.DbNemesis,
+            combined.PartitionNemesis, etcd.EtcdDB, demo.DemoDB):
+    assert isinstance(cls, type)
+assert os.path.isfile(os.path.join(nt._RESOURCE_DIR, "bump-time.c"))
+assert combined.DEFAULT_INTERVAL == 10 and cli.CliError
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,

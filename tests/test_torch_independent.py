@@ -260,3 +260,29 @@ def test_batched_path_defaults_to_cuda(monkeypatch):
     c = independent.checker(ck.linearizable({"model": "cas-register"}))
     with pytest.raises(RuntimeError, match="CUDA"):
         cc.check(c, {}, _keyed_history(["a", "b"]))
+
+
+def test_reloaded_history_keeps_its_keys():
+    """A keyed history read back from history.jsonl carries its [k, v]
+    tuples as 2-lists: the checker re-tuples the client ops' pairs and
+    decides it as the live history (the JAX package finds no key in it
+    and answers valid); a nemesis op's 2-list value stays unkeyed."""
+    live = _keyed_history(["a", "b", "c"], bad_keys={"b"})
+    live.append(h.op("info", "nemesis", "start", ["isolated", {}]))
+    reloaded = [h.Op({**o, "value": list(o["value"])})
+                if isinstance(o.get("value"), (tuple, list)) else o
+                for o in live]
+    assert not any(independent.is_tuple(o["value"]) for o in reloaded)
+    c = independent.checker(_lin("wgl"))
+    want = cc.check(c, {}, live)
+    got = cc.check(c, {}, reloaded)
+    assert got["valid"] is want["valid"] is False
+    assert got["failures"] == want["failures"] == ["b"]
+    retupled = independent.retuple(reloaded)
+    assert independent.history_keys(retupled) == {"a", "b", "c"}
+    assert retupled[-1]["value"] == ["isolated", {}]
+    assert independent.retuple(live) is live
+    theirs = jind.checker(jck.linearizable(
+        {"model": "cas-register", "algorithm": "wgl"})).check(
+            {}, reloaded, {})
+    assert theirs["valid"] is True and theirs["failures"] == []

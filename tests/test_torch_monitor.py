@@ -798,3 +798,43 @@ def test_streamcheck_failure_raises_instead_of_falling_back(monkeypatch):
     _feed(mon, _history()[:2])
     with pytest.raises(RuntimeError, match="stream build"):
         mon.stop()
+
+
+def test_checks_run_under_the_short_switch_interval(monkeypatch):
+    """A monitor's check runs with the interpreter's switch interval at
+    ``checkers.MONITOR_SWITCH_INTERVAL``, restored after it: beside 50 busy
+    interpreter workers the check's torch calls otherwise each wait up to
+    the default 5 ms for the GIL (the command line's monitored dirty-read
+    demo run took 27 s to its first verdict on the CPU, against 1.6 s)."""
+    import sys as _sys
+    seen = []
+    real = mengine.check_prefix
+
+    def recording(*args, **kw):
+        seen.append(_sys.getswitchinterval())
+        return real(*args, **kw)
+
+    monkeypatch.setattr(mengine, "check_prefix", recording)
+    before = _sys.getswitchinterval()
+    mon = mcore.Monitor(SPEC, ChainedLatch(), chunk=8, engine="jax-wgl",
+                        engine_opts=CPU)
+    assert _drive(mon, _history(falsify_at=4), 8)["verdict"] is False
+    # the interpreter keeps the interval in microseconds: it reads back
+    # rounded
+    assert seen and seen == pytest.approx([cks.MONITOR_SWITCH_INTERVAL]
+                                          * len(seen), abs=1e-9)
+    assert _sys.getswitchinterval() == before
+
+
+def test_short_switch_nests_and_restores():
+    """Open scopes run at the shortest interval among them; the last to
+    leave restores the interval saved by the first."""
+    import sys as _sys
+    before = _sys.getswitchinterval()
+    with cks.short_switch(1e-3):
+        assert _sys.getswitchinterval() == pytest.approx(1e-3, abs=1e-9)
+        with cks.short_switch():
+            assert _sys.getswitchinterval() == pytest.approx(
+                cks.RACE_SWITCH_INTERVAL, abs=1e-9)
+        assert _sys.getswitchinterval() == pytest.approx(1e-3, abs=1e-9)
+    assert _sys.getswitchinterval() == before
