@@ -172,7 +172,24 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    "done" naming a non-empty Chrome trace whose CUDA kernel events
    ``profile_main.kernel_stats`` counts, with the device's idle share
    over the capture.
-11. ``batch``: the JAX package's headline key batch at full width
+11. ``campaign``: the campaign runner on one host
+   (``jepsen_tpu_torch/campaign``), its store in a temporary directory.
+   (a) ``campaign --no-ssh --axis workload=register,append --seeds 2
+   --parallel 2 --device-slots 1 --monitor --concurrency 10n
+   --per-key-limit 200 --time-limit 3`` through ``__main__.main``: exit
+   0, the four cells True, the report's fleetlint audit without error
+   and its certification of all four runs without error, no two checks
+   overlapping in time (a probe around each cell's checker and each
+   monitor's chunk check, the txn monitor's included), the rollout
+   kernel launched (the register cells' monitors); each cell's wall and
+   the slot waits. (b) The same matrix through
+   ``campaign.run_cells`` with a latch set when its first cell finishes,
+   then ``--resume``: exactly the unjournaled cells rerun, the outcomes
+   equal to (a)'s. (c) ``campaign --lint --campaign-id`` (a)'s: exit 0.
+   (d) ``obs.trend.mini_bench`` on the card twice, each the best of
+   10 repeats, recorded, the ``gate`` passing A/A; ops/s and the
+   fingerprint.
+12. ``batch``: the JAX package's headline key batch at full width
    (``simulate.bench_histories``, as ``bench.py`` rungs 2 and 2b draw
    it): 256 cas-register keys, 8 processes, 200 ops per key, crash_p
    0.02, every 8th key corrupted, through
@@ -183,14 +200,14 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    Both calls must decide alike. No key may be
    unknown, at least one must be invalid, and the first 32 verdicts must
    equal the CPU oracle's (the gate phase's).
-12. ``independent``: the first 64 of those keys wrapped in
+13. ``independent``: the first 64 of those keys wrapped in
    ``independent.tuple_`` and merged into one history, through
    ``independent.checker(compose({"linearizable": ..., "ok":
    unbridled_optimism()}))`` with the default gate and planning on:
    exactly one call of ``parallel.check_batch_encoded``, with every
    key's segments (92 pairs), and ``failures`` equal to the corrupted
    keys.
-13. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
+14. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
    batch (150 ops and 6 processes per key, crash_p 0.02, every 8th key
    corrupted) with the fast check off, so the device search with padded
    queue states decides, within ``QUEUE_MAX_CONFIGS`` (128 iterations of
@@ -206,7 +223,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``bench.py``'s rung-4 FIFO history through
    ``checkers.linearizable``, fast check on.
 
-14. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
+15. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
    torch ops) on keys of the batch above: (a) the offline face at the
    hard frontier cap on ``OFFLINE_KEYS`` (one of them corrupted), each
    verdict equal to the CPU sweep's (``linear``) and each violating op
@@ -220,7 +237,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    by the port's WGL engine: seconds, host syncs, passes and frontier
    peak per event. (b) and (c) are not profiled: gathering the
    profiler's events costs more than the run itself (PERF.md).
-15. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
+16. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
    serial list-append history of 16,384 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
    decides it valid on the card (one profiled call: squarings, closure
@@ -233,9 +250,10 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    same on the CPU; one squaring at n=16384 timed in float32, TF32 and
    bf16, all three boolean-identical.
 
-The competition, checkpoint, certify, obs, mesh, run, monitor and cli
-paths run the rollout kernel (each counted; ``run_keyed`` may not, as the key
-batch rolls on the scan; the monitor's txn paths do not). The planned, batch, independent, queue, streamlin and
+The competition, checkpoint, certify, obs, mesh, run, monitor, cli and
+campaign paths run the rollout kernel (each counted; ``run_keyed`` may
+not, as the key batch rolls on the scan; the monitor's txn paths do
+not). The planned, batch, independent, queue, streamlin, trend and
 txn paths do not run it: each of them is run with the rollout kernel's
 launch
 count set to 0 and must leave it at 0. The batch pins the scan rollout,
@@ -2540,6 +2558,278 @@ def cli_phase(dev, time_limit=CLI_TIME_LIMIT,
     return out
 
 
+#: the campaign phase: the sweep ``--axis workload=register,append
+#: --seeds 2`` (four cells) at ``--parallel 2 --device-slots 1``, each cell
+#: a monitored demo run of CAMPAIGN_TIME_LIMIT s at 10n workers and
+#: CAMPAIGN_PER_KEY ops per key (the register cells' monitors run the
+#: single-key search, as ``cli`` (a)'s does); the trend rung's key batch
+#: TREND_REPEATS times per record. One repeat is ~0.2 s of host-bound
+#: launches whose samples spread 25-50% (NVIDIA H100 80GB HBM3,
+#: 700.00 W, and its host): a best of 3 failed the A/A gate in 1 of 12
+#: back-to-back pairs, a best of 10 in none, its largest drop 15.6%
+#: (``tools/trend_aa.py``; PERF.md §6)
+CAMPAIGN_TIME_LIMIT, CAMPAIGN_PER_KEY, TREND_REPEATS = 3, 200, 10
+
+
+def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
+                   per_key=CAMPAIGN_PER_KEY, trend_repeats=TREND_REPEATS):
+    """The campaign runner on one host (``jepsen_tpu_torch/campaign``),
+    its store in a temporary directory. (a) ``python -m jepsen_tpu_torch
+    campaign --no-ssh --axis workload=register,append --seeds 2
+    --parallel 2 --device-slots 1 --monitor`` in process through
+    ``__main__.main``: exit 0, the four cells decided True, the report's
+    ``fleet_analysis`` with no error and its ``certification`` of all
+    four runs with no error, no two checks overlapping in time, the
+    rollout kernel launched (the register cells' monitors); each cell's
+    outcome and wall and ``campaign.device_wait_s``. The overlap check
+    is a probe of its own, independent of the slot: it times each
+    cell's checker inside the slot's wrapper and each monitor's chunk
+    check (``monitor.engine.check_prefix``, ``StreamCheck.check``,
+    ``TxnCheck.check``), outermost call per thread, and fails if any
+    two of those intervals intersect. (b) The same matrix through
+    ``campaign.run_cells`` with a
+    latch set when the first cell finishes, then ``campaign --resume``:
+    the resume runs exactly the cells the first run left unjournaled or
+    aborted, and the final outcomes equal (a)'s cell for cell. (c)
+    ``campaign --lint --campaign-id`` (a)'s id: exit 0 (the fleetlint
+    audit). (d) ``obs.trend.mini_bench`` on ``dev`` twice, each recorded,
+    and ``trend gate`` passing A/A: ops/s and the fingerprint; the key
+    batch launches no rollout kernel. On the CPU (a rehearsal) every
+    command gets ``--device cpu`` and the launch checks are skipped."""
+    import argparse
+    import contextlib
+    import logging
+    import random as _random
+    import shutil
+    import tempfile
+    import threading
+    from jepsen_tpu_torch import __main__ as demo_main
+    from jepsen_tpu_torch import campaign, cli, core, demo, store
+    from jepsen_tpu_torch.campaign import scheduler
+    from jepsen_tpu_torch.checker import checkers, rollout
+    from jepsen_tpu_torch.monitor import engine as mengine
+    from jepsen_tpu_torch.monitor import txn as mtxn
+    from jepsen_tpu_torch.monitor import wgl_stream
+    from jepsen_tpu_torch.obs import trend
+    from jepsen_tpu_torch.robust import AbortLatch
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    device = [] if cuda else ["--device", "cpu"]
+    root = logging.getLogger()
+    saved_log = (root.level, list(root.handlers))
+    base = store.base_dir
+    tmp = tempfile.mkdtemp(prefix="jepsen-campaign-")
+    store.base_dir = os.path.join(tmp, "store")
+    out = {"phase": "campaign"}
+    launches = {}
+    argv = ["campaign", "--no-ssh", "--axis", "workload=register,append",
+            "--seeds", "2", "--parallel", "2", "--device-slots", "1",
+            "--monitor", "--concurrency", "10n", "--per-key-limit",
+            str(per_key), "--time-limit", str(time_limit)] + device
+
+    def main(args):
+        with contextlib.redirect_stdout(sys.stderr):
+            try:
+                demo_main.main(args)
+                return 0
+            except SystemExit as exc:
+                return exc.code
+
+    def report(cid):
+        with open(store.campaign_path(cid, "report.json")) as f:
+            return json.load(f)
+
+    def outcomes(rep):
+        return {r["cell"]: r["outcome"] for r in rep["cells"]}
+
+    # the overlap probe: (start, end, label) of every outermost check
+    intervals, probe_lock, depth = [], threading.Lock(), threading.local()
+
+    def probed(fn, label):
+        def run(*args, **kwargs):
+            outer = not getattr(depth, "n", 0)
+            depth.n = getattr(depth, "n", 0) + 1
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth.n -= 1
+                if outer:
+                    with probe_lock:
+                        intervals.append((t, time.perf_counter(), label))
+        return run
+
+    slot_init = scheduler._DeviceSlotChecker.__init__
+
+    def probed_init(self, inner, sem, reg):
+        slot_init(self, inner, sem, reg)
+        # on the instance, so the monitor still finds its checker tree
+        self.inner.check = probed(self.inner.check, "checker")
+
+    patches = [(scheduler._DeviceSlotChecker, "__init__", probed_init),
+               (mengine, "check_prefix",
+                probed(mengine.check_prefix, "monitor")),
+               (wgl_stream.StreamCheck, "check",
+                probed(wgl_stream.StreamCheck.check, "monitor")),
+               (mtxn.TxnCheck, "check",
+                probed(mtxn.TxnCheck.check, "txn-monitor"))]
+
+    try:
+        # (a) the sweep through the command line, every check probed
+        rollout.launches = 0
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        try:
+            t0 = time.monotonic()
+            code = main(argv + ["--campaign-id", "smoke"])
+            sync(dev)
+            wall = time.monotonic() - t0
+            checkers.join_racers()
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+        launches["campaign"] = rollout.launches
+        rep = report("smoke")
+        with open(store.campaign_path("smoke", "metrics.json")) as f:
+            metrics = json.load(f)
+        fa, cert = rep.get("fleet_analysis"), rep.get("certification")
+        if code != 0 or rep["status"] != "complete" \
+                or set(outcomes(rep).values()) != {True} \
+                or len(rep["cells"]) != 4:
+            raise AssertionError(f"campaign a: exit {code}, "
+                                 f"{rep['summary']}, {rep['triage']}")
+        if fa is None or fa["counts"]["error"] or cert is None \
+                or cert["counts"]["error"] \
+                or not cert["sampled"] == cert["of"] == 4:
+            raise AssertionError(f"campaign a: audit {fa}, "
+                                 f"certification {cert}")
+        intervals.sort()
+        overlaps = [(a, b) for a, b in zip(intervals, intervals[1:])
+                    if b[0] < a[1]]
+        probed_n = {k: sum(1 for i in intervals if i[2] == k)
+                    for k in ("checker", "monitor", "txn-monitor")}
+        if overlaps or probed_n["checker"] != 4 \
+                or not probed_n["monitor"] or not probed_n["txn-monitor"]:
+            raise AssertionError(f"campaign a: checks probed {probed_n}, "
+                                 f"overlapping {overlaps[:4]}")
+        if cuda and not launches["campaign"]:
+            raise AssertionError("campaign a: no cell launched the "
+                                 "rollout kernel")
+        wait = metrics["histograms"]["campaign.device_wait_s"]
+        out["a"] = {
+            "exit": code, "wall_s": wall,
+            "cells": {r["cell"]: {"outcome": r["outcome"],
+                                  "wall_s": r["wall_s"]}
+                      for r in rep["cells"]},
+            "checks_probed": probed_n, "checks_overlapping": 0,
+            "device_wait_s": {"count": wait["count"], "sum": wait["sum"],
+                              "max": wait["max"]},
+            "fleet_analysis": fa["counts"],
+            "fleet_checks": fa["checks"],
+            "certification": {"sampled": cert["sampled"],
+                              "of": cert["of"],
+                              "counts": cert["counts"]},
+            "rollout_launches": launches["campaign"]}
+
+        # (b) interrupted after the first cell, then resumed
+        parser = argparse.ArgumentParser()
+        cli.add_test_opts(parser)
+        cmd = cli.campaign_cmd({"test-fn": demo.demo_test,
+                                "opt-spec": demo_main._add_demo_opts})
+        cmd["campaign"]["opt-spec"](parser)
+        options = cli.test_opt_fn(cli._ns_to_opts(parser.parse_args(
+            argv[1:])))
+        latch = AbortLatch()
+        build_lock = threading.Lock()
+
+        def build(params):
+            # seed and build as one step, as the command line's build does
+            with build_lock:
+                _random.seed(params["seed"])
+                return demo.demo_test({**options, **params})
+
+        def run_first(test):
+            done = core.run(test)
+            latch.set("first-cell-done")
+            return done
+
+        cells = [dict(c, build=build) for c in campaign.plan.expand(
+            {"axes": cli.parse_axes(options["axis"], options["seeds"])})]
+        t0 = time.monotonic()
+        # a run prints its results map: keep this script's output to its
+        # phase lines
+        with contextlib.redirect_stdout(sys.stderr):
+            first = campaign.run_cells(cells, campaign_id="resume",
+                                       parallel=2, device_slots=1,
+                                       latch=latch, run_fn=run_first)
+        checkers.join_racers()
+        journaled = set(campaign.journal.CampaignJournal(
+            "resume").completed())
+        n_before = len(store.load_campaign_records("resume"))
+        code = main(argv + ["--campaign-id", "resume", "--resume"])
+        checkers.join_racers()
+        wall_b = time.monotonic() - t0
+        records = store.load_campaign_records("resume")
+        reran = sorted(r["cell"] for r in records[n_before:])
+        rep_b = report("resume")
+        want = sorted(set(outcomes(rep)) - journaled)
+        if first["status"] != "aborted" or not journaled \
+                or code != 0 or reran != want \
+                or outcomes(rep_b) != outcomes(rep) \
+                or rep_b["summary"]["skipped-resumed"] != len(journaled):
+            raise AssertionError(
+                f"campaign b: first run {first['summary']}, journaled "
+                f"{sorted(journaled)}, resume exit {code} reran {reran} "
+                f"(want {want}), outcomes {outcomes(rep_b)}")
+        out["b"] = {"wall_s": wall_b, "journaled_first": sorted(journaled),
+                    "first_outcomes": outcomes(first), "resume_exit": code,
+                    "reran": reran, "outcomes": outcomes(rep_b)}
+
+        # (c) the control-plane audit of (a)'s campaign
+        code = main(["campaign", "--no-ssh", "--lint", "--campaign-id",
+                     "smoke"])
+        if code != 0:
+            raise AssertionError(f"campaign c: audit exit {code}")
+        out["c"] = {"exit": code}
+
+        # (d) the trend rung on the card, A/A
+        rollout.launches = 0
+        path = os.path.join(tmp, "trend.jsonl")
+        t0 = time.monotonic()
+        recs = [trend.record(trend.mini_bench(repeats=trend_repeats,
+                                              device=str(dev)),
+                             path=path, label=f"aa-{i}")
+                for i in range(2)]
+        launches["trend"] = rollout.launches
+        if launches["trend"]:
+            raise AssertionError(f"campaign d: the key batch launched the "
+                                 f"rollout kernel {launches['trend']} "
+                                 f"times")
+        with contextlib.redirect_stdout(sys.stderr):
+            gate = trend.main(["gate", "--path", path])
+        verdict = trend.compare(recs[:1], recs[1])
+        if gate != 0 or verdict["regressions"] \
+                or not verdict["compared"]:
+            raise AssertionError(f"campaign d: A/A gate {gate}, {verdict}")
+        out["d"] = {"wall_s": time.monotonic() - t0,
+                    "ops_per_s": [r["rungs"]["mini-cas-batch"]["samples"][
+                        "ops_per_s"] for r in recs],
+                    "duty_cycle": [r["rungs"]["mini-cas-batch"]["metrics"][
+                        "duty_cycle"] for r in recs],
+                    "gate": verdict, "fingerprint": recs[0]["fingerprint"]}
+    finally:
+        store.base_dir = base
+        shutil.rmtree(tmp, ignore_errors=True)
+        root.setLevel(saved_log[0])
+        for h in list(root.handlers):
+            if h not in saved_log[1]:
+                root.removeHandler(h)
+    out["launches"] = launches
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
 def batch_phase(keys, oracle):
     """The 256-key headline batch: a profiled call (the warm-up), then a
     timed call; the first 32 verdicts against the CPU oracle's
@@ -3135,7 +3425,11 @@ def main(argv):
     cli_row = cli_phase(dev)
     emit(cli_row)
 
-    # -- 11-13. the key batch, independent, the queue models ---------------
+    # -- 11. campaign: a sweep of runs behind one device slot --------------
+    camp_row = campaign_phase(dev)
+    emit(camp_row)
+
+    # -- 12-14. the key batch, independent, the queue models ---------------
     row = batch_phase(keys, oracle)
     emit(row)
     ind = independent_phase(keys[:INDEPENDENT_KEYS])
@@ -3143,7 +3437,7 @@ def main(argv):
     queues = queue_phase(fifo)
     emit(queues)
 
-    # -- 14-15. the streaming fold and the txn closure ---------------------
+    # -- 15-16. the streaming fold and the txn closure ---------------------
     rollout.launches = 0
     emit(streamlin_phase(keys, dev))
     stream_launches = scan_only("streamlin")
@@ -3154,7 +3448,7 @@ def main(argv):
                **obs_row["launches"], "mesh": mesh_row["launches"],
                **run_row["launches"], **mon_row["launches"],
                "cli": sum(cli_row["launches"].values()),
-               **cli_row["launches"],
+               **cli_row["launches"], **camp_row["launches"],
                "batch": row["rollout_launches"],
                "independent": ind["rollout_launches"],
                **{c["model"]: c["rollout_launches"]

@@ -6,8 +6,10 @@ port's copy of ``jepsen_tpu/__main__.py``).
     python -m jepsen_tpu_torch test --workload register --no-ssh --device cpu
     python -m jepsen_tpu_torch test-all --no-ssh
 
-``campaign`` and ``serve`` are registered and raise until ROADMAP.md
-A.11(d) ports them.
+    python -m jepsen_tpu_torch campaign --no-ssh --axis workload=register \
+        --seeds 2 --parallel 2
+
+``serve`` is registered and raises until ROADMAP.md A.11(d4) ports it.
 """
 
 from __future__ import annotations

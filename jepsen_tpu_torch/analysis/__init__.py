@@ -23,21 +23,28 @@
   differential replays a segment through the port's device engine and
   the two CPU engines. ``checker.core.check`` runs it (opt out with
   ``test["certify?"] = False``); ``certify_run`` re-certifies a run
-  directory written by ``store`` from its artifacts (VC012).
-
+  directory written by ``store`` from its artifacts (VC012), and
+  ``certify_campaign`` a deterministic sample of a campaign's runs.
 * **planlint** -- pre-flight validation of a test map before any node
   contact (``core.run``'s preflight phase; fatal codes raise
-  ``PlanLintError``). The port has the test-map pass; the campaign,
-  fleet, service, coalesce, capacity, fleetlint and HA lints wait for
-  ROADMAP.md A.11(d).
+  ``PlanLintError``), and the knob passes the campaign command runs on
+  every invocation: PL012 (the sweep matrix), PL018 (fleetlint), PL020
+  (coalescing) and PL024 (coordinator HA). The fleet and service lints
+  (PL014, PL016) come with their modules (ROADMAP.md A.11(d3), (d4)),
+  the capacity pass with the planner (A.11(d5)).
+* **fleetmodel** / **fleetlint** -- the campaign control plane's
+  recorded history (``campaign.json``, ``cells.jsonl``, per-run traces)
+  replayed against its protocol's invariants (FL001-FL016) into
+  ``fleet_analysis.json``; ``preflight`` is the subset ``--resume``
+  runs before trusting a journal.
 
 All report through one ``Diagnostic`` model and its renderers. The other
-lint analyzers (jaxlint's tracing checks, codelint, fleetlint, capplan)
-wait for the host harness (ROADMAP.md queue A.11(d)).
+lint analyzers (jaxlint's tracing checks, which do not apply to torch;
+codelint and capplan) wait for ROADMAP.md A.11(d5).
 """
 
-from . import (certify, histlint, planlint, searchplan,  # noqa: F401
-               shapelint)
+from . import (certify, fleetlint, fleetmodel,  # noqa: F401
+               histlint, planlint, searchplan, shapelint)
 from .diagnostics import (Diagnostic, ERROR, INFO,  # noqa: F401
                           SEVERITIES, WARNING, diag, errors, render_text,
                           run_analyzer, severity_counts, to_json)
@@ -49,6 +56,7 @@ __all__ = [
     "Diagnostic", "ERROR", "WARNING", "INFO", "SEVERITIES", "diag",
     "errors", "severity_counts", "render_text", "to_json", "run_analyzer",
     "histlint", "planlint", "searchplan", "shapelint", "certify",
+    "fleetlint", "fleetmodel",
     "lint_history", "lint_encoded", "lint_test_history", "model_op_set",
     "lint_plan", "preflight", "PlanLintError",
 ]

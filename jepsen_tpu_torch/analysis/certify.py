@@ -47,15 +47,18 @@ Code catalogue:
   VC011 info   differential sample undecided / partial coverage
   VC012 error  persisted certificate unreadable or disagreeing with the
                run's results.json (``certify_run``, over a run directory
-               written by the port's ``store``)
+               written by the port's ``store``; a txn-family certificate
+               is re-certified from the run's history, where the JAX
+               package reports VC012 on it: ROADMAP.md C.9)
   VC013 error  cycle witness does not replay through host-side
                dependency inference (txn family: missing edge, wrong
                edge type, or class/edge-composition mismatch;
                ``certify_cycle_witness``, ``certify_txn_verdict``)
 
 ``certify_monitor`` certifies a streaming monitor's violation from the
-evidence it parked (both families). The campaign entry point waits for
-ROADMAP.md A.11(d).
+evidence it parked (both families); ``certify_campaign`` certifies a
+deterministic sample of a campaign's cell run directories with
+``certify_run`` (the campaign scheduler's finalize block).
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ import numpy as np
 from .. import history as h
 from ..history import INF_TIME
 from ..xp import NP
-from .diagnostics import ERROR, INFO, diag, to_json
+from .diagnostics import ERROR, INFO, diag, severity_counts, to_json
 
 logger = logging.getLogger(__name__)
 
@@ -894,6 +897,63 @@ def _keyed_result(results, key):
     return None
 
 
+def find_txn_result(results):
+    """The cycle checker's sub-result inside a (possibly composed)
+    results map: the first decided dict carrying ``anomaly_types``,
+    outside the monitor's summary."""
+    def walk(x):
+        if isinstance(x, dict):
+            if "anomaly_types" in x and x.get("valid") in (True, False) \
+                    and "family" not in x:
+                return x
+            for k, v in x.items():
+                if k != "monitor":
+                    r = walk(v)
+                    if r is not None:
+                        return r
+        return None
+
+    return walk(results)
+
+
+def _certify_txn_run(run_dir, results, cert, summary):
+    """``certify_run`` for a txn-family certificate (``certify_txn_verdict``
+    wrote it): the certificate's verdict and anomaly classes must equal
+    the run's results.json (VC012), and every cycle witness of the
+    persisted result replays through host-side inference over the
+    persisted history (VC013). The JAX package looks the certificate's
+    ``txn-<workload>`` model up among the linearizability models and
+    reports VC012 on every txn run (ROADMAP.md C.9)."""
+    diags = []
+    where = os.path.join(run_dir, "certificate.json")
+    ctx = cert.get("context") or {}
+    txn = find_txn_result(results)
+    rv = txn.get("valid") if txn is not None else results.get("valid")
+    if cert.get("verdict") != rv:
+        diags.append(diag(
+            "VC012", ERROR,
+            f"certificate.json records verdict {cert.get('verdict')!r} "
+            f"but results.json says {rv!r}: the persisted certificate "
+            "disagrees with the run's results", where,
+            "one of the two artifacts was modified after the run"))
+    elif txn is not None and sorted(cert.get("anomaly_types") or []) \
+            != sorted(txn.get("anomaly_types") or []):
+        diags.append(diag(
+            "VC012", ERROR,
+            f"certificate.json records anomaly classes "
+            f"{sorted(cert.get('anomaly_types') or [])} but results.json "
+            f"says {sorted(txn.get('anomaly_types') or [])}", where,
+            "one of the two artifacts was modified after the run"))
+    checks = []
+    hist = h.ensure_indexed(_load_run_history(run_dir))
+    diags += certify_cycle_witness(txn or {}, hist,
+                                   ctx.get("workload") or "append",
+                                   ctx.get("opts"), checks=checks)
+    summary.update(certified=True, verdict=rv, model=cert.get("model"),
+                   engine=cert.get("engine"), checks=checks)
+    return diags
+
+
 def certify_run(run_dir, budget=None, samples=0, device=None):
     """Certify an existing run directory purely from its persisted
     artifacts: replay certificate.json's witness against the re-encoded
@@ -926,6 +986,8 @@ def certify_run(run_dir, budget=None, samples=0, device=None):
     elif cert is None:
         summary["checks"] = [{"name": "certificate",
                               "status": "absent"}]
+    elif cert.get("family") == "txn":
+        diags += _certify_txn_run(run_dir, results, cert, summary)
     else:
         ctx = cert.get("context") or {}
         lin_result = _keyed_result(results, ctx["key"]) \
@@ -986,3 +1048,47 @@ def certify_run(run_dir, budget=None, samples=0, device=None):
     summary["diagnostics"] = rep["diagnostics"]
     summary["counts"] = rep["counts"]
     return summary, diags
+
+
+# ---------------------------------------------------------------------------
+# campaign fold: sampled certification over cells
+
+def certify_campaign(records, sample=4, budget=None, device=None):
+    """Certify a deterministic sample of a campaign's cell run dirs
+    (largest-coverage-first would need loading every run, so the
+    sample is evenly spaced over the sorted path list). Returns the
+    ``report.json["certification"]`` block (reference
+    ``jepsen_tpu/analysis/certify.py:978-1015``). ``device`` goes to
+    ``certify_run``, which touches no device at its default of 0
+    differential samples."""
+    paths = sorted({r.get("path") for r in (records or [])
+                    if isinstance(r, dict) and r.get("path")
+                    and os.path.isdir(str(r.get("path")))})
+    k = max(0, min(int(sample), len(paths)))
+    if k and len(paths) > 1 and k > 1:
+        chosen = sorted({paths[int(round(j * (len(paths) - 1)
+                                         / (k - 1)))]
+                         for j in range(k)})
+    else:
+        chosen = paths[:k]
+    runs = []
+    totals = severity_counts([])
+    codes = {}
+    for p in chosen:
+        try:
+            summary, diags = certify_run(p, budget=budget, device=device)
+        except Exception:  # noqa: BLE001 - one bad run dir != no report
+            logger.warning("certifying %s crashed", p, exc_info=True)
+            continue
+        c = severity_counts(diags)
+        for s in c:
+            totals[s] += c[s]
+        for d in diags:
+            codes[d.code] = codes.get(d.code, 0) + 1
+        runs.append({"path": p,
+                     "certified": bool(summary
+                                       and summary.get("certified")),
+                     "counts": c,
+                     "codes": sorted({d.code for d in diags})})
+    return {"sampled": len(runs), "of": len(paths), "counts": totals,
+            "codes": dict(sorted(codes.items())), "runs": runs}

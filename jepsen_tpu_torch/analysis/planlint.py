@@ -34,12 +34,21 @@ full list):
   PL025 mixed    transactional monitor
   PL026 mixed    stream engine
 
+The knob passes the campaign command runs on every invocation (the
+JAX package's ``cli.py:842-873``):
+
+  PL012 mixed    campaign sweep matrix (``lint_campaign``)
+  PL018 mixed    fleetlint knob and the --resume journal gate
+                 (``lint_fleetlint``)
+  PL020 mixed    cross-tenant coalescing knobs (``lint_coalesce``)
+  PL024 mixed    coordinator-HA knobs (``lint_ha``)
+
 ``preflight(test)`` is the core.run hook: FATAL codes raise
 ``PlanLintError`` (opt out per test with ``test["preflight?"] =
-False``); everything else is logged and recorded. A readable
-``trend-baseline`` raises ``NotImplementedError``: its fingerprint check
-needs ``obs.trend`` (ROADMAP.md A.11(d)). The campaign, fleet, service,
-coalesce, capacity, fleetlint and HA lints wait for A.11(d) too.
+False``); everything else is logged and recorded. The fleet and
+service lints (PL014, PL016) run only with fleet or serve knobs, whose
+modules are ROADMAP.md A.11(d3) and (d4); the capacity pass (PL021)
+comes with the planner (A.11(d5)).
 """
 
 from __future__ import annotations
@@ -52,9 +61,10 @@ from .histlint import model_op_set
 logger = logging.getLogger(__name__)
 
 __all__ = ["lint_plan", "lint_telemetry", "lint_introspection",
-           "lint_trend", "lint_certify", "preflight", "PlanLintError",
-           "FATAL_CODES", "monitor_diags", "searchplan_diags",
-           "robustness_knob_diags"]
+           "lint_trend", "lint_certify", "lint_campaign", "lint_coalesce",
+           "lint_fleetlint", "lint_ha", "FLEETLINT_MODES", "preflight",
+           "PlanLintError", "FATAL_CODES", "monitor_diags",
+           "searchplan_diags", "robustness_knob_diags"]
 
 
 #: error codes certain enough to abort the run before node contact
@@ -359,13 +369,24 @@ def lint_trend(cfg):
                 "perf gate has nothing to compare against",
                 "plan.trend-baseline",
                 "point trend-baseline at a trend.jsonl written by "
-                "the perf trend recorder (obs.trend, ROADMAP.md A.11(d))"))
+                "'python -m jepsen_tpu_torch.obs.trend record'"))
         else:
-            # the fingerprint comparison reads obs.trend's records
-            raise NotImplementedError(
-                "the perf trend gate (obs.trend: load, fingerprint) is "
-                "not ported yet: ROADMAP.md A.11(d); drop "
-                "test['trend-baseline']")
+            from ..obs import trend as obs_trend
+            records = obs_trend.load(bp)
+            here = obs_trend.fingerprint()
+            mismatched = [r for r in records
+                          if r.get("fingerprint")
+                          and r["fingerprint"] != here]
+            if records and len(mismatched) == len(records):
+                diags.append(diag(
+                    "PL022", WARNING,
+                    "every trend-baseline record carries a "
+                    "different environment fingerprint than this "
+                    "host: the gate will refuse to compare "
+                    "(regressions measured on different hardware "
+                    "or torch builds are not regressions)",
+                    "plan.trend-baseline",
+                    "re-record the baseline on this host"))
     thresh = cfg.get("trend-gate-threshold")
     if thresh is not None and (not isinstance(thresh, (int, float))
                                or isinstance(thresh, bool)
@@ -806,6 +827,246 @@ def robustness_knob_diags(params, code, where):
             "wedged-worker watchdog can never fire before the whole-run "
             "deadline aborts the test",
             f"{where}.op-timeout-ms"))
+    return diags
+
+
+def lint_campaign(matrix, cells):
+    """PL012: validate an expanded campaign sweep (campaign/plan.py
+    hands in the normalized matrix plus its expansion). Errors:
+    empty matrix / empty axis, duplicate cell ids. Warnings: seed
+    collisions in the seed axis, and per-cell robustness knobs that
+    trip the PL011 rules (reported per offending cell, capped)."""
+    diags = []
+    axes = (matrix or {}).get("axes") or {}
+    if not axes:
+        return [diag("PL012", ERROR,
+                     "campaign matrix has no axes: nothing to run",
+                     "campaign.axes",
+                     "give at least one axis (or a seeds count)")]
+    for name, values in axes.items():
+        if not values:
+            diags.append(diag(
+                "PL012", ERROR,
+                f"campaign axis {name!r} has no values",
+                f"campaign.axes.{name}"))
+    seeds = axes.get("seed")
+    if seeds is not None and len(set(map(repr, seeds))) < len(seeds):
+        diags.append(diag(
+            "PL012", WARNING,
+            f"seed axis has colliding values {seeds!r}: duplicate "
+            "seeds rerun identical cells and break flake attribution",
+            "campaign.axes.seed"))
+    seen, dups = set(), []
+    for cell in cells:
+        cid = cell.get("id")
+        if cid in seen:
+            dups.append(cid)
+        seen.add(cid)
+    if dups:
+        diags.append(diag(
+            "PL012", ERROR,
+            f"duplicate cell id(s) {sorted(set(dups))}: axis values "
+            "collapse to the same id, so the journal cannot tell the "
+            "cells apart",
+            "campaign.axes",
+            "make axis values distinct after id sanitization"))
+    knob_hits = 0
+    for cell in cells:
+        cell_diags = robustness_knob_diags(
+            cell.get("params") or {}, "PL012",
+            f"campaign.cell[{cell.get('id')}]")
+        if cell_diags and knob_hits < 8:
+            diags += cell_diags
+        knob_hits += bool(cell_diags)
+    if knob_hits > 8:
+        diags.append(diag(
+            "PL012", WARNING,
+            f"{knob_hits - 8} further cell(s) with inconsistent "
+            "robustness knobs suppressed",
+            "campaign.cells"))
+    return diags
+
+
+def lint_coalesce(cfg):
+    """PL020: cross-tenant coalescing preflight, before any batcher
+    thread starts. Recognized keys: ``coalesce?`` (whether queued
+    /api/check submissions merge into padded device batches),
+    ``coalesce-window-ms``, ``coalesce-max-segments``,
+    ``device-slots``, and ``engine`` (a configured default check
+    engine, when the option map carries one)."""
+    diags = []
+    cfg = cfg or {}
+    w = cfg.get("coalesce-window-ms")
+    if w is not None and (not isinstance(w, (int, float))
+                          or isinstance(w, bool) or w <= 0):
+        diags.append(diag(
+            "PL020", ERROR,
+            f"coalesce-window-ms must be a positive number, got "
+            f"{w!r}",
+            "service.coalesce-window-ms",
+            "the window is how long a submission waits for strangers "
+            "to batch with; omit the knob for the 25 ms default"))
+    m = cfg.get("coalesce-max-segments")
+    if m is not None and (not isinstance(m, int)
+                          or isinstance(m, bool) or m <= 0):
+        diags.append(diag(
+            "PL020", ERROR,
+            f"coalesce-max-segments must be a positive integer, got "
+            f"{m!r}",
+            "service.coalesce-max-segments",
+            "the cap bounds the batch's key axis (and the blast "
+            "radius of one batch failure); omit it for the default"))
+    if cfg.get("coalesce?"):
+        slots = cfg.get("device-slots")
+        if isinstance(slots, int) and not isinstance(slots, bool) \
+                and slots == 0:
+            diags.append(diag(
+                "PL020", WARNING,
+                "coalescing enabled with zero device slots: submitted "
+                "checks never reach a device, so there is nothing to "
+                "batch",
+                "service.coalesce",
+                "give the serving fleet at least one device slot, or "
+                "drop --coalesce"))
+        eng = cfg.get("engine")
+        if eng is not None and str(eng) != "jax-wgl":
+            diags.append(diag(
+                "PL020", WARNING,
+                f"coalescing enabled but the configured engine is "
+                f"{eng!r}: only jax-wgl submissions batch (the CPU "
+                "engines have no key axis), so every check takes the "
+                "solo path and the knob is a no-op",
+                "service.coalesce"))
+    return diags
+
+
+#: the --fleetlint knob's legal values: "on" audits the campaign at
+#: finalize AND preflights --resume; "off" skips both
+FLEETLINT_MODES = ("on", "off")
+
+
+def lint_fleetlint(cfg):
+    """PL018: the fleetlint gate. Recognized keys: ``fleetlint`` (the
+    knob value), ``resume?``, and ``journal-diags`` (the Diagnostic
+    list fleetlint.preflight produced over the journal about to be
+    resumed). An error-severity journal finding under --resume is a
+    refusal: the resume fold (skip-terminal, re-run-aborted) is only
+    sound over a journal with one writer and one terminal record per
+    cell, so resuming a journal that fails that subset would build new
+    state on corrupt truth. Each refusal names the offending cell in
+    its location so the operator knows what to quarantine."""
+    diags = []
+    cfg = cfg or {}
+    mode = cfg.get("fleetlint")
+    if mode is not None and str(mode) not in FLEETLINT_MODES:
+        diags.append(diag(
+            "PL018", ERROR,
+            f"unknown --fleetlint value {mode!r}: known modes are "
+            f"{list(FLEETLINT_MODES)}",
+            "fleet.fleetlint",
+            "'on' (default) audits the campaign at finalize and "
+            "preflights --resume; 'off' skips both"))
+    if cfg.get("resume?"):
+        for d in cfg.get("journal-diags") or []:
+            if d.severity != ERROR:
+                continue
+            diags.append(diag(
+                "PL018", ERROR,
+                f"--resume over a journal that fails the fleetlint "
+                f"preflight ({d.code}): {d.message}",
+                d.location,
+                d.fix_hint or "repair or quarantine the offending "
+                              "cell's records before resuming"))
+    return diags
+
+
+def lint_ha(cfg):
+    """PL024: coordinator-HA preflight (fleet/ha.py), before any lease
+    is claimed or standby started. Recognized keys: ``ha?`` (whether a
+    coordinator lease will be claimed), ``coordinator-lease-s``,
+    ``takeover-grace-s``, ``renew-interval-s`` (the renewal heartbeat
+    period, when explicitly configured), ``standby?`` +
+    ``store-reachable?`` (a standby needs a journal it can tail), and
+    ``chaos-coordinator-kill?`` (whether coordinator-kill chaos is
+    scheduled). The failover math is checked statically: a renewal
+    interval at or beyond the lease TTL guarantees self-fencing, and a
+    coordinator-kill with HA off guarantees a hung campaign -- both
+    are cheaper to refuse here than to soak-test into."""
+    diags = []
+    cfg = cfg or {}
+    lease = cfg.get("coordinator-lease-s")
+    if lease is not None and (not isinstance(lease, (int, float))
+                              or isinstance(lease, bool) or lease <= 0):
+        diags.append(diag(
+            "PL024", ERROR,
+            f"--coordinator-lease-s must be a positive number, got "
+            f"{lease!r}",
+            "ha.coordinator-lease-s",
+            "the coordinator lease TTL is the coordinator-death "
+            "detection bound; non-positive means every standby fences "
+            "a live coordinator instantly"))
+        lease = None
+    grace = cfg.get("takeover-grace-s")
+    if grace is not None and (not isinstance(grace, (int, float))
+                              or isinstance(grace, bool) or grace <= 0):
+        diags.append(diag(
+            "PL024", ERROR,
+            f"--takeover-grace-s must be a positive number, got "
+            f"{grace!r}",
+            "ha.takeover-grace-s",
+            "the grace pad absorbs renewal jitter and clock skew "
+            "before a standby fences; omit the flag for the default"))
+    renew = cfg.get("renew-interval-s")
+    if renew is not None and (not isinstance(renew, (int, float))
+                              or isinstance(renew, bool) or renew <= 0):
+        diags.append(diag(
+            "PL024", ERROR,
+            f"coordinator renew interval must be a positive number, "
+            f"got {renew!r}",
+            "ha.renew-interval-s"))
+        renew = None
+    if renew is not None and lease is not None and renew >= lease:
+        diags.append(diag(
+            "PL024", ERROR,
+            f"coordinator renew interval {renew:g}s >= lease TTL "
+            f"{lease:g}s: the coordinator cannot renew its own lease "
+            "before it expires, so a healthy coordinator is fenced by "
+            "the first standby to look",
+            "ha.renew-interval-s",
+            "keep the renewal period well under the lease TTL "
+            "(fleet.ha renews every TTL/3 by default)"))
+    if cfg.get("standby?") and cfg.get("store-reachable?") is False:
+        diags.append(diag(
+            "PL024", ERROR,
+            "--standby with no reachable campaign store: a standby is "
+            "a journal tail, and there is no journal to tail",
+            "ha.standby",
+            "point --store-dir at the shared store the active "
+            "coordinator writes (NFS mount, shared volume), or start "
+            "the standby on the coordinator's host"))
+    if cfg.get("chaos-coordinator-kill?") and not cfg.get("ha?"):
+        diags.append(diag(
+            "PL024", ERROR,
+            "coordinator-kill chaos with HA off: the kill would "
+            "SIGKILL the only coordinator and nothing could ever "
+            "fence the corpse or finish the campaign",
+            "ha.chaos",
+            "pass --coordinator-lease-s (and run a --standby) so a "
+            "takeover can survive the kill, or drop the "
+            "coordinator-kill fault"))
+    cell_lease = cfg.get("lease-s")
+    if lease is not None and isinstance(cell_lease, (int, float)) \
+            and not isinstance(cell_lease, bool) \
+            and 0 < cell_lease <= lease:
+        diags.append(diag(
+            "PL024", WARNING,
+            f"coordinator-lease-s {lease:g} >= cell lease-s "
+            f"{cell_lease:g}: detecting a dead coordinator takes "
+            "longer than detecting a dead worker, so every in-flight "
+            "cell lease expires before the standby takes over",
+            "ha.coordinator-lease-s",
+            "keep the coordinator lease TTL under the cell lease so "
+            "takeover wins the race against mass cell expiry"))
     return diags
 
 

@@ -10,7 +10,9 @@ here.
 The buckets are the port's search padding: ``util.bucket`` over the
 op-count floor ``util.DEFAULT_N_FLOOR`` (the JAX package reads a
 settable floor from its campaign compile cache; the port's floor is
-that cache's default, fixed until the campaign layer is ported).
+that cache's default and stays fixed, because the port compiles
+nothing per shape: ROADMAP.md, deliberate divergences). The warning's
+text is the reference's, whose hint names the JAX package's knob.
 """
 
 from __future__ import annotations

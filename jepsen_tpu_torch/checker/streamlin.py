@@ -62,8 +62,10 @@ history, with the verdict names of ``linear.check_encoded``.
 ``FoldJob``/``solo_fold``/``batch_fold`` run one stream or many streams
 of one shape in one fold; under a bound obs registry ``batch_fold``
 records the JAX batch fold's plan and heartbeat (``obs/search.py``)
-from numbers it has already read. The reference's coalescer lane
-(``fold_lane_spec``) waits for ROADMAP.md A.11(d).
+from numbers it has already read. Each fold notes its plan shape to
+the campaign's plan-shape counter (``campaign.compile_cache``, labels
+``"torch-streamlin"`` / ``"torch-streamlin-batch"``). The reference's
+coalescer lane (``fold_lane_spec``) waits for ROADMAP.md A.11(d4).
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..campaign import compile_cache
 from ..history import INF_TIME
 from ..obs import search as obs_search
 from ..util import bucket as _bucket
@@ -419,6 +422,9 @@ def solo_fold(job):
     """Run one FoldJob. Returns the fold result dict; the frontier
     tensors stay on the job's device for the caller to re-commit."""
     dev = job.device
+    compile_cache.note("torch-streamlin",
+                       (job.spec.name, 1, job.F, job.B, job.S, job.C,
+                        job.E, job.A))
     t0 = time.monotonic()
     arrays = {k: _tensor(job.arrays[k], dev)[None]
               for k in _ARRAY_ORDER if not k.startswith("ev_")}
@@ -447,14 +453,17 @@ def batch_fold(jobs):
     for i, job in enumerate(jobs):
         groups.setdefault(job.shape_key(), []).append(i)
     t0 = time.monotonic()
-    for _key, idxs in groups.items():
+    for key, idxs in groups.items():
         members = [jobs[i] for i in idxs]
         if len(members) == 1:
             results[idxs[0]] = dict(solo_fold(members[0]), batch=1)
             continue
         dev = members[0].device
+        model, F, B, S, C, A = key
         E = _bucket(max(m.E for m in members), EVENT_FLOOR)
         K = _bucket(len(members), 1)
+        compile_cache.note("torch-streamlin-batch",
+                           (model, K, F, B, S, C, E, A))
         # pad lanes are member 0 with no events: a fold over zero
         # events is the identity, so the lane is inert
         pad = K - len(members)

@@ -147,7 +147,22 @@ def _bucket(x, lo):
 
 
 def _n_floor():
+    """Minimum op-count bucket: a constant in the port. The JAX package
+    lets a campaign raise it so that cells share one compiled shape; the
+    port compiles nothing per shape, so a coarser bucket would only add
+    padding rows (ROADMAP.md, deliberate divergences)."""
     return DEFAULT_N_FLOOR
+
+
+def _note_compile(engine, key):
+    """Report this search's plan to the campaign's plan-shape counter
+    (``campaign.compile_cache``; never verdict-bearing). ``key`` holds the same
+    values as the JAX engine's, under the port's own engine label. The
+    phase plane's ``compile`` lap does not follow it: the port compiles
+    nothing per shape, and the lap marks the rollout kernel library's
+    first load instead (ROADMAP.md, deliberate divergences)."""
+    from ..campaign import compile_cache
+    return compile_cache.note(engine, key)
 
 
 def _adapt_quantum(cap, per_it, target_s, left_s=None):
@@ -1013,6 +1028,9 @@ def check_encoded(spec, e, init_state, max_configs=50_000_000,
     ph.lap("encode")
     B, W, O, T = _plan_sizes(n_pad, S, C, frontier_width, stack_size,
                              table_size)
+    _note_compile("torch-wgl", (spec.name, n_pad, B, S, C, A, W, O, T,
+                                rollout_kernel, rollout_seeds,
+                                rollout_depth))
     max_iters = max(1, max_configs // W)
     init_carry, _, run_chunk = _build_search(
         spec.step, 1, n_pad, B, S, C, A, W, O, T, R=rollout_depth,

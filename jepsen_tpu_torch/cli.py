@@ -4,9 +4,16 @@ port's copy of ``jepsen_tpu/cli.py``).
 
 The port adds one test option, ``--device {cuda,cpu}`` (default: CUDA):
 where the run's checkers and monitor search. Without a card the default
-raises, and the run exits 255; the CPU is used only when asked for. The
-``campaign`` and ``serve`` subcommands and ``test-all``'s campaign route
-are registered but raise ``NotImplementedError`` (ROADMAP.md A.11(d)).
+raises, and the run exits 255; the CPU is used only when asked for.
+``campaign`` runs a sweep on one host through the campaign scheduler,
+and so does ``test-all`` with any campaign flag. The options that need
+later sub-slices of ROADMAP.md A.11(d) are registered and raise
+``NotImplementedError`` (exit 255) before anything runs: the fleet's
+(``--workers``, ``--standby``, ``--coordinator-lease-s``,
+``--backends``, ``--chaos-profile``: A.11(d3)), the service's
+(``--serve`` and the ``serve`` subcommand: A.11(d4)) and the capacity
+planner's (``--capacity``, ``--device-mem-budget``, ``--device-slots
+auto``: A.11(d5)).
 
 Exit codes (cli.clj:129-139):
 
@@ -386,6 +393,18 @@ def test_all_exit_code(results):
     return 0
 
 
+def campaign_exit_code(report):
+    """Exit code for a whole campaign. An aborted campaign ranks as
+    indeterminate (2) even when every *recorded* cell passed -- a
+    SIGINT landing between cells leaves the unrun cells with no
+    journal record at all, so the results map alone under-reports.
+    Crashed cells still dominate (255)."""
+    code = test_all_exit_code(report.get("results") or {})
+    if report.get("status") == "aborted" and code in (0, 1):
+        code = 2
+    return code
+
+
 def _parse_device_slots(value):
     """--device-slots: a positive integer, or the literal "auto" (the
     campaign subcommand derives the count from the capacity plan's
@@ -438,10 +457,10 @@ def _add_campaign_opts(parser, axes=False):
                              "--campaign-id, the most recent campaign "
                              "is resumed.")
     parser.add_argument("--no-ledger", action="store_true",
-                        help="Don't persist the compile-reuse ledger "
-                             "to store/compile_ledger/ (it is "
-                             "persisted, and shared across campaign "
-                             "processes, by default).")
+                        help="Accepted for the JAX package's command "
+                             "lines; no effect: the port compiles "
+                             "nothing per shape and keeps no compile "
+                             "ledger.")
     parser.add_argument("--backends", default=None,
                         metavar="TIER1,TIER2",
                         help="Backend failover ladder consulted per "
@@ -614,11 +633,13 @@ def test_all_cmd(opts):
     """Subcommand ``test-all``: run a suite of tests
     (cli.clj:487-515). opts: {"tests-fn": options -> [test maps], ...}.
 
-    In the JAX package ``--parallel N`` / ``--resume`` /
-    ``--campaign-id`` / ``--device-slots N`` route the suite through the
-    campaign scheduler. The scheduler is not ported yet (ROADMAP.md
-    A.11(d)): any of them raises ``NotImplementedError``, and the
-    sequential path never runs in its place."""
+    ``--parallel N`` / ``--resume`` route the suite through the
+    campaign scheduler (jepsen_tpu_torch.campaign): each test becomes a
+    cell, outcomes journal to store/campaigns/<id>/, and a rerun with
+    --resume skips completed cells (reference
+    ``jepsen_tpu/cli.py:615-669``). ``--backends`` raises
+    ``NotImplementedError`` (ROADMAP.md A.11(d3)) before any test is
+    built."""
     tests_fn = opts["tests-fn"]
 
     def add_opts(parser):
@@ -631,16 +652,32 @@ def test_all_cmd(opts):
             raise CliError("--device-slots auto derives from a "
                            "capacity plan over a sweep matrix; use "
                            "the campaign subcommand")
+        refuse_later_slices(options)
         # ANY campaign flag routes through the scheduler -- a
         # --campaign-id or --device-slots on the legacy sequential path
         # would be silently ignored (no journal, nothing to resume)
         if options.get("parallel", 1) > 1 or options.get("resume") \
                 or options.get("campaign-id") \
                 or (options.get("device-slots") or 1) > 1:
-            raise NotImplementedError(
-                "test-all's campaign route (--parallel > 1, --resume, "
-                "--campaign-id, --device-slots > 1) is not ported yet: "
-                "ROADMAP.md A.11(d)")
+            from . import campaign
+            cells, seen = [], {}
+            for i, t in enumerate(tests_fn(options)):
+                cid = str(t.get("name") or f"test-{i}")
+                seen[cid] = seen.get(cid, 0) + 1
+                if seen[cid] > 1:
+                    cid = f"{cid}#{seen[cid]}"
+                cells.append({"id": cid, "test": t})
+            try:
+                report = campaign.run_cells(
+                    cells, parallel=options.get("parallel", 1),
+                    device_slots=options.get("device-slots", 1),
+                    campaign_id=options.get("campaign-id"),
+                    resume=bool(options.get("resume")))
+            except campaign.CampaignError as e:
+                raise CliError(str(e)) from e
+            print(campaign.report.render_text(report))
+            test_all_print_summary(report["results"])
+            sys.exit(campaign_exit_code(report))
         results = test_all_run_tests(tests_fn(options))
         test_all_print_summary(results)
         sys.exit(test_all_exit_code(results))
@@ -651,16 +688,85 @@ def test_all_cmd(opts):
                          "help": "Run a whole suite of tests."}}
 
 
+def _coerce_axis_value(v):
+    try:
+        return int(v)
+    except ValueError:
+        try:
+            return float(v)
+        except ValueError:
+            return v
+
+
+def parse_axes(specs, seeds=None):
+    """--axis NAME=V1,V2 specs -> {name: [values]}; ``seeds`` adds the
+    seed axis."""
+    axes = {}
+    for spec in specs or []:
+        name, eq, values = str(spec).partition("=")
+        if not eq or not name:
+            raise CliError(f"--axis {spec!r} should be NAME=V1,V2,...")
+        axes[name] = [_coerce_axis_value(v)
+                      for v in values.split(",") if v != ""]
+    if seeds:
+        axes.setdefault("seed", list(range(int(seeds))))
+    return axes
+
+
+#: campaign options whose modules are later sub-slices of ROADMAP.md
+#: A.11(d): (option key, what needs it, the sub-slice)
+LATER_SLICE_OPTS = (
+    ("workers", "fleet mode (fleet.dispatch)", "A.11(d3)"),
+    ("standby", "the standby coordinator (fleet.ha.Standby)", "A.11(d3)"),
+    ("coordinator-lease-s", "the coordinator lease "
+     "(fleet.ha.CoordinatorLease)", "A.11(d3)"),
+    ("backends", "per-cell backend failover (fleet.backends)",
+     "A.11(d3)"),
+    ("chaos-profile", "fleet chaos (fleet.chaos)", "A.11(d3)"),
+    ("serve", "the service (fleet.service, web)", "A.11(d4)"),
+    ("capacity", "the capacity planner (analysis.capplan)", "A.11(d5)"),
+    ("device-mem-budget", "the capacity planner (analysis.capplan)",
+     "A.11(d5)"),
+)
+
+
+def refuse_later_slices(options):
+    """Raise ``NotImplementedError`` naming the sub-slice for the first
+    option set whose module the port has not got yet (``--device-slots
+    auto`` counts as the capacity planner's): nothing of the campaign
+    has run or been written when it raises."""
+    for key, what, item in LATER_SLICE_OPTS:
+        if options.get(key) not in (None, False, ""):
+            raise NotImplementedError(
+                f"--{key} needs {what}, which is not ported yet: "
+                f"ROADMAP.md {item}")
+    if options.get("device-slots") == "auto":
+        raise NotImplementedError(
+            "--device-slots auto needs the capacity planner "
+            "(analysis.capplan), which is not ported yet: ROADMAP.md "
+            "A.11(d5)")
+
+
 def campaign_cmd(opts):
     """Subcommand ``campaign``: expand a sweep matrix over the suite's
-    test-fn and run it as a parallel, resumable campaign. opts:
+    test-fn and run it as a parallel, resumable campaign on this host
+    (reference ``jepsen_tpu/cli.py:728-1070``, its local route). opts:
     {"test-fn": options -> test map, "opt-spec": fn(parser),
     "opt-fn": fn(options)}.
 
-    The subcommand and its options are registered as the JAX package's
-    are; running it raises ``NotImplementedError``: the campaign
-    scheduler, the fleet and the service are not ported yet (ROADMAP.md
-    A.11(d)), and no other path runs in their place."""
+        python -m jepsen_tpu_torch campaign --no-ssh \\
+            --axis workload=register,bank --seeds 3 --parallel 4
+
+    Axis names are option keys: each cell rebuilds the test map from
+    the base options with that cell's axis values overlaid (a ``seed``
+    axis also seeds the global RNG before the build). ``--lint`` dry
+    runs the PL012 matrix validation (with the PL015, PL017-PL020,
+    PL023 and PL024 knob passes) and prints the cell ids; with an
+    existing ``--campaign-id`` it audits that campaign from disk
+    instead (fleetlint). The fleet, service and capacity options raise
+    ``NotImplementedError`` naming their sub-slice before anything runs
+    (``refuse_later_slices``)."""
+    test_fn = opts["test-fn"]
 
     def add_opts(parser):
         _add_campaign_opts(parser, axes=True)
@@ -668,9 +774,108 @@ def campaign_cmd(opts):
             opts["opt-spec"](parser)
 
     def run_campaign(options):
-        raise NotImplementedError(
-            "the campaign subcommand (campaign scheduler, fleet, "
-            "service) is not ported yet: ROADMAP.md A.11(d)")
+        import os
+        import random
+        import threading
+
+        from . import analysis, campaign
+
+        refuse_later_slices(options)
+        # --lint with an EXISTING --campaign-id audits that campaign
+        # from disk (fleetlint over its journal/traces) instead of dry
+        # running a matrix: `campaign --lint --campaign-id soak` is
+        # the post-hoc "did the control plane behave?" question
+        cid = options.get("campaign-id")
+        if options.get("lint?") and cid \
+                and os.path.exists(store.campaign_path(cid,
+                                                       "campaign.json")):
+            from .analysis import fleetlint
+            _report, diags = fleetlint.audit(cid)
+            print(analysis.render_text(
+                diags, title=f"fleetlint audit: {cid}"))
+            sys.exit(1 if analysis.errors(diags) else 0)
+
+        axes = parse_axes(options.get("axis"), options.get("seeds"))
+        matrix = {"axes": axes}
+        cells_plan = campaign.plan.expand(matrix)
+        diags = campaign.plan.lint(matrix)
+        # the knob passes the reference runs on every invocation; the
+        # fleet-only inputs (workers, serve, standby) are off here, as
+        # refuse_later_slices has made sure
+        diags += analysis.planlint.lint_telemetry({
+            "telemetry-flush-ms": options.get("telemetry-flush-ms"),
+            "metrics?": False,
+            "serve-ip": options.get("serve-ip"),
+            "auth-token?": bool(options.get("auth-token")),
+            "trace-merge?": False,
+        })
+        diags += analysis.planlint.searchplan_diags(options)
+        diags += analysis.planlint.lint_introspection(options)
+        diags += analysis.planlint.lint_certify(options)
+        diags += analysis.planlint.lint_fleetlint(
+            {"fleetlint": options.get("fleetlint")})
+        diags += analysis.planlint.lint_coalesce({
+            "coalesce?": False,
+            "coalesce-window-ms": options.get("coalesce-window-ms"),
+            "coalesce-max-segments":
+                options.get("coalesce-max-segments"),
+            "device-slots": options.get("device-slots"),
+            "engine": options.get("engine"),
+        })
+        diags += analysis.planlint.lint_ha({
+            "ha?": False,
+            "coordinator-lease-s": options.get("coordinator-lease-s"),
+            "takeover-grace-s": options.get("takeover-grace-s"),
+            "standby?": False,
+            "store-reachable?": None,
+            "chaos-coordinator-kill?": False,
+            "lease-s": options.get("lease"),
+        })
+        if options.get("lint?"):
+            print(analysis.render_text(diags, title="campaign lint:"))
+            for c in cells_plan:
+                print(c["id"])
+            sys.exit(1 if analysis.errors(diags) else 0)
+        if analysis.errors(diags):
+            raise CliError(analysis.render_text(
+                analysis.errors(diags),
+                title="campaign matrix invalid:"))
+
+        # seed + build are one atomic step: scheduler pool threads
+        # build cells concurrently, and the global RNG must not be
+        # re-seeded by a sibling cell mid-build. (Draws during the RUN
+        # still interleave between parallel cells; seeds reproduce
+        # fully only at --parallel 1.)
+        build_lock = threading.Lock()
+
+        def build(params):
+            o = dict(options)
+            o.update(params)
+            # axis values land AFTER test_opt_fn already ran, so
+            # option syntaxes that need parsing get it here: a
+            # concurrency axis may use the documented "3n" form
+            if isinstance(o.get("concurrency"), str):
+                o["concurrency"] = parse_concurrency(
+                    o["concurrency"], o.get("nodes") or [])
+            with build_lock:
+                if "seed" in params:
+                    random.seed(params["seed"])
+                return test_fn(o)
+
+        cells = [{"id": c["id"], "group": c["group"],
+                  "params": c["params"], "build": build}
+                 for c in cells_plan]
+        try:
+            report = campaign.run_cells(
+                cells, parallel=options.get("parallel", 1),
+                device_slots=options.get("device-slots", 1),
+                campaign_id=options.get("campaign-id"),
+                resume=bool(options.get("resume")),
+                fleetlint=options.get("fleetlint") != "off")
+        except campaign.CampaignError as e:
+            raise CliError(str(e)) from e
+        print(campaign.report.render_text(report))
+        sys.exit(campaign_exit_code(report))
 
     return {"campaign": {"opt-spec": add_opts,
                          "opt-fn": opts.get("opt-fn"),
@@ -682,7 +887,7 @@ def campaign_cmd(opts):
 def serve_cmd():
     """Subcommand ``serve``: the web interface (cli.clj:333-350). It is
     registered with the JAX package's options; running it raises
-    ``NotImplementedError`` (``web.py`` is ROADMAP.md A.11(d))."""
+    ``NotImplementedError`` (``web.py`` is ROADMAP.md A.11(d4))."""
 
     def add_opts(parser):
         parser.add_argument("-b", "--host", default="0.0.0.0",
@@ -727,7 +932,7 @@ def serve_cmd():
     def run_serve(options):
         raise NotImplementedError(
             "the serve subcommand (web UI and submission API) is not "
-            "ported yet: ROADMAP.md A.11(d)")
+            "ported yet: ROADMAP.md A.11(d4)")
 
     return {"serve": {"opt-spec": add_opts, "opt-fn": lambda o: o,
                       "standalone": True, "run": run_serve,

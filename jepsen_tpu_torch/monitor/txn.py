@@ -26,6 +26,13 @@ core in the WGL ``Monitor``'s threading contract, and ``install_txn``
 wires it from ``test["monitor"]`` with ``family: "txn"``. As there, a
 monitor that cannot be built raises, and an exception on its thread is
 re-raised by ``stop``/``finalize``.
+
+Each chunk check holds the campaign's device slot
+(``test["monitor-device-sem"]``) when the run has one, as the WGL
+monitor's device checks do. The JAX package's txn monitor takes no
+slot, so its closures run beside other cells' searches; in the port
+every device check of a campaign is behind the slot (ROADMAP.md,
+deliberate divergences).
 """
 
 from __future__ import annotations
@@ -120,8 +127,9 @@ class TxnMonitor(_MonitorThread):
 
     def __init__(self, latch, chunk=DEFAULT_CHUNK, workload="append",
                  anomalies=None, realtime=True, process=False,
-                 skew_bound=0, device=None):
+                 skew_bound=0, device=None, device_sem=None):
         self.latch = latch
+        self.device_sem = device_sem
         self.chunk = max(1, int(chunk))
         self.core = TxnCheck(workload=workload, anomalies=anomalies,
                              realtime=realtime, process=process,
@@ -188,10 +196,21 @@ class TxnMonitor(_MonitorThread):
         self.chunks += 1
         self._inc("monitor.chunks")
         t0 = _time.monotonic()
-        # the check's torch calls each give the GIL up to the running
-        # interpreter's workers: take it back within the short interval
-        with checkers.short_switch(checkers.MONITOR_SWITCH_INTERVAL):
-            res = self.core.check(cancel=self._cancel)
+        sem = self.device_sem
+        if sem is not None:
+            sem.acquire()
+            self._inc("monitor.device_waits")
+            if self._reg is not None:
+                self._reg.observe("monitor.device_wait_s",
+                                  _time.monotonic() - t0)
+        try:
+            # the check's torch calls each give the GIL up to the running
+            # interpreter's workers: take it back within the short interval
+            with checkers.short_switch(checkers.MONITOR_SWITCH_INTERVAL):
+                res = self.core.check(cancel=self._cancel)
+        finally:
+            if sem is not None:
+                sem.release()
         dt = _time.monotonic() - t0
         self.checks += 1
         valid = res.get("valid")
@@ -246,8 +265,9 @@ def install_txn(test, cfg):
     ``family: "txn"`` (core.install dispatches here). Chains the run's
     abort latch and subscribes to the op-sink list exactly like the WGL
     path; the closure runs on ``cfg["engine-opts"]["device"]`` (None:
-    CUDA). Returns the started monitor; a monitor that cannot be built
-    raises."""
+    CUDA), each chunk check inside ``test["monitor-device-sem"]`` when
+    the run has one. Returns the started monitor; a monitor that cannot
+    be built raises."""
     latch = robust.ChainedLatch(test.get("abort"))
     mon = TxnMonitor(
         latch=latch,
@@ -257,7 +277,8 @@ def install_txn(test, cfg):
         realtime=cfg.get("realtime", True),
         process=cfg.get("process", False),
         skew_bound=cfg.get("skew-bound", cfg.get("skew_bound", 0)),
-        device=(cfg.get("engine-opts") or {}).get("device"))
+        device=(cfg.get("engine-opts") or {}).get("device"),
+        device_sem=test.get("monitor-device-sem"))
     test["abort"] = latch
     test.setdefault("op-sinks", []).append(mon.offer)
     obs.inc("monitor.installed", engine=mon.engine)

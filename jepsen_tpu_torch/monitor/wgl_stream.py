@@ -43,7 +43,7 @@ the offline engine's. The designed degrades, each counted:
 Anything else -- a device or build error in a fold -- raises: the JAX
 package's catch-alls that degrade a crashed stream are not carried
 over. Every fold runs solo (``streamlin.solo_fold``); the reference's
-fleet coalescer lane comes with the host harness (ROADMAP.md A.11).
+fleet coalescer lane comes with the service (ROADMAP.md A.11(d4)).
 
 Telemetry: the obs sinks in force when a ``StreamCheck`` is built are
 the ones it reports to for its whole life (``so.plan`` once, a

@@ -22,9 +22,11 @@ Every facade function below is a safe no-op while nothing is bound:
 off-by-default, one global read + falsy check per call site, so the
 uninstrumented hot paths pay nothing measurable. A caller binds a
 fresh pair per test with ``run_scope(test)`` (opt out with
-``test["obs?"] = False``; the JAX package's ``core.run`` does this, the
-port's run loop waits for ROADMAP.md A.11) and ``store.write_obs``
-persists both artifacts next to ``results.json``.
+``test["obs?"] = False``; ``core.run`` does this) and
+``store.write_obs`` persists both artifacts next to ``results.json``.
+The campaign layer's folds (``obs/merge.py``, ``obs/bubbles.py``) and
+the perf trend gate (``obs/trend.py``) are submodules, imported
+where used.
 """
 
 from __future__ import annotations

@@ -64,7 +64,8 @@ from ..checker.torch_wgl import (IDX_BEST_DEPTH, IDX_BEST_LIN,
                                  _collective,
                                  _build_search, _checkpoint_owned,
                                  _encode_arrays, _fast_result, _interpret,
-                                 _n_floor, _plan_sizes, _priority_order,
+                                 _n_floor, _note_compile, _plan_sizes,
+                                 _priority_order,
                                  _state_abstraction_check, carry_from_numpy,
                                  carry_to_numpy, compact, make_batch_consts,
                                  max_point_concurrency, read_snapshot,
@@ -342,8 +343,14 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
     while len(cols) < K:
         cols.append(_dummy_key(n_pad, S_pad, A))
         salts.append(0)
-    # the batch pins the scan rollout: no kernel library to build, so no
+    # the campaign's plan-shape counter (campaign.compile_cache): the key
+    # mirrors the JAX engine's initial-build key, under the port's label;
+    # compaction rebuilds mid-search are not separately accounted. The
+    # batch pins the scan rollout: no kernel library to build, so no
     # compile phase
+    _note_compile("torch-wgl-batch",
+                  (spec.name, K, W, n_pad, B, S_pad, C, A, O, T, G or 1,
+                   R_batch, rollout_seeds, mesh is not None))
     ph.lap("plan")
     perms = [c[7] for c in cols]          # host-only: witness decoding
     # under a mesh ``consts`` holds every row (each rank slices its

@@ -51,7 +51,7 @@ from ..checker.torch_wgl import (IDX_BEST_DEPTH, IDX_BEST_LIN,
                                  IDX_IT, IDX_ITS, IDX_STATUS, IDX_TOP,
                                  RUNNING, TOPK, VALID, _adapt_quantum,
                                  _attach_valid_witness, _attach_witness,
-                                 _build_search, _plan_sizes,
+                                 _build_search, _note_compile, _plan_sizes,
                                  _prepare_search, make_consts)
 from ..obs import phases as obs_phases
 from ..obs import search as obs_search
@@ -86,6 +86,12 @@ def check_encoded_sharded(spec, e, init_state, mesh,
     ph.lap("encode")
     B, W, O, T = _plan_sizes(n_pad, S, C, frontier_width, stack_size,
                              table_size)
+    if lead:
+        # one note per search, as the reference's single controller
+        # makes (the port's label: ROADMAP.md, deliberate divergences)
+        _note_compile("torch-wgl-sharded",
+                      (spec.name, D, n_pad, B, S, C, A, W, O, T, steal,
+                       rollout_seeds))
     max_iters = max(1, max_configs // (W * D))
     init_carry, _, run_chunk = _build_search(
         spec.step, 1, n_pad, B, S, C, A, W, O, T, NS=rollout_seeds,

@@ -16,7 +16,7 @@ not. This package holds the pieces that enforce that asymmetry:
 * :mod:`.leases` -- bounded work ownership: a `LeaseTable` of
   per-unit grants plus a `LeaseWatchdog` monitor thread that hands
   expired leases to a steal callback. The JAX package's fleet
-  dispatcher (fleet.dispatch; ROADMAP.md A.11(d) here) uses it as the
+  dispatcher (fleet.dispatch; ROADMAP.md A.11(d3) here) uses it as the
   backstop behind its
   per-exec transport timeouts, so a wedged ssh cannot strand a
   campaign cell.

@@ -5,9 +5,11 @@ directories).
 
 ``base_dir`` is settable: tests and ``chip_smoke.py`` point it at a
 temporary directory. The campaign, compile-ledger and artifact-sync
-directories below are the JAX package's layout, reserved here so a
-store shared by both packages browses the same; the port's modules that
-write them wait for ROADMAP.md A.11.
+directories below are the JAX package's layout, so a store shared by
+both packages browses the same: the port's campaign scheduler
+(``campaign/journal.py``) writes the campaign directories; the
+compile ledger and the artifact-sync staging area wait for the fleet
+(ROADMAP.md A.11(d3)).
 
 Layout mirrors the reference: ``store/<name>/<start-time>/`` per test run,
 with ``store/current``, ``store/latest`` and ``store/<name>/latest``
@@ -69,13 +71,13 @@ DEFAULT_TELEMETRY_FLUSH_MS = 500.0
 
 #: directory under base_dir holding campaign state
 #: (``store/campaigns/<campaign-id>/campaign.json`` + ``cells.jsonl``
-#: + ``report.json``, written by jepsen_tpu.campaign.journal); the
+#: + ``report.json``, written by jepsen_tpu_torch.campaign.journal); the
 #: name is reserved -- test_names() skips it
 CAMPAIGNS_DIR = "campaigns"
 
 #: directory under base_dir holding the disk-persistent compile ledger
 #: (``store/compile_ledger/ledger.jsonl``, written by
-#: jepsen_tpu.fleet.ledger); reserved -- test_names() skips it
+#: the JAX package's fleet.ledger); reserved -- test_names() skips it
 COMPILE_LEDGER_DIR = "compile_ledger"
 
 #: directory under base_dir where fleet artifact sync stages
@@ -532,7 +534,7 @@ def memoized_load_results(test_name, test_time):
 
 
 # ---------------------------------------------------------------------------
-# campaigns (jepsen_tpu.campaign)
+# campaigns (jepsen_tpu_torch.campaign)
 
 def campaign_path(campaign_id, *args):
     """A campaign's directory (or a file inside it):
@@ -544,7 +546,7 @@ def campaign_path(campaign_id, *args):
 
 def compile_ledger_path(*args):
     """The disk-persistent compile ledger's directory (or a file inside
-    it): ``base_dir/compile_ledger/...`` (jepsen_tpu.fleet.ledger)."""
+    it): ``base_dir/compile_ledger/...`` (the JAX package's fleet.ledger)."""
     return os.path.join(base_dir, COMPILE_LEDGER_DIR, *map(str, args))
 
 

@@ -150,3 +150,35 @@ def test_certify_run_keyed():
     summary, diags = _same(run_dir)
     assert summary["certified"] and summary["verdict"] is False
     assert diags == []
+
+
+@pytest.mark.parametrize("bug", [None, "future-read"])
+def test_certify_run_txn_certificate(bug, capsys):
+    """A txn-family certificate (``certify_txn_verdict``) on disk: the
+    port re-certifies it from the run's artifacts -- verdict and anomaly
+    classes against results.json, every cycle witness replayed through
+    host inference over history.jsonl -- where the JAX package's
+    ``certify_run`` reports VC012 "unknown model 'txn-append'" on every
+    such run (ROADMAP.md C.9). A tampered class list is VC012."""
+    from jepsen_tpu_torch import __main__ as tmain
+    argv = ["test", "--no-ssh", "--workload", "append", "--time-limit",
+            "1", "--device", "cpu"] + (["--bug", bug] if bug else [])
+    with pytest.raises(SystemExit) as exc:
+        tmain.main(argv)
+    capsys.readouterr()
+    assert exc.value.code == (1 if bug else 0)
+    d = store.path(store.latest())
+    summary, diags = certify.certify_run(d)
+    assert diags == [] and summary["certified"] is True
+    assert summary["verdict"] is (bug is None)
+    statuses = {c["status"] for c in summary["checks"]}
+    assert statuses == ({"confirmed"} if bug else {"skipped"})
+    _s, jdiags = jcertify.certify_run(d)
+    assert [x.code for x in jdiags] == ["VC012"]
+    assert "unknown model 'txn-append'" in jdiags[0].message
+    with open(os.path.join(d, "certificate.json")) as f:
+        cert = json.load(f)
+    cert["anomaly_types"] = ["G0"]
+    with open(os.path.join(d, "certificate.json"), "w") as f:
+        json.dump(cert, f)
+    assert [x.code for x in certify.certify_run(d)[1]] == ["VC012"]

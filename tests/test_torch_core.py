@@ -486,14 +486,45 @@ def test_lost_write_history_is_invalid_under_both():
 # branches that need modules not ported yet raise, naming the queue item
 
 @pytest.mark.parametrize("knob,item", [
-    # a readable baseline: the perf trend gate needs obs.trend
-    ({"trend-baseline": __file__}, r"A\.11\(d\)"),
+    # per-cell backend failover needs fleet.backends
+    ({"backends": ["gpu", "cpu"]}, r"A\.11\(d3\)"),
+    # the capacity plan's oracle needs analysis.capplan
+    ({"capacity_plan": {"cells": []}}, r"A\.11\(d5\)"),
 ])
 def test_unported_branches_raise(knob, item):
+    """A run driven by the campaign scheduler: the branches that need a
+    later sub-slice raise before the run starts (nothing recorded)."""
+    from jepsen_tpu_torch.campaign import scheduler
     state = Atom(None)
     t = dummy_test(name="unported", db=tst.atom_db(state),
                    client=tst.atom_client(state), concurrency=2,
                    generator=gen.clients(gen.limit(
-                       4, gen.repeat({"f": "read"}))), **knob)
+                       4, gen.repeat({"f": "read"}))))
     with pytest.raises(NotImplementedError, match=item):
-        core.run(t)
+        scheduler.run_cells([{"id": "c", "test": t}],
+                            campaign_id="unported", **knob)
+    assert "history" not in t and store.campaigns() == []
+
+
+def test_a_readable_trend_baseline_runs():
+    """With ``obs.trend`` ported, a readable ``trend-baseline`` no longer
+    raises: the run goes through, and PL022 compares fingerprints (a
+    baseline from another environment warns)."""
+    import json
+    import os
+    base = os.path.join(store.base_dir, "trend.jsonl")
+    os.makedirs(store.base_dir, exist_ok=True)
+    with open(base, "w") as f:
+        f.write(json.dumps({"t": 0, "fingerprint": {"hostname": "elsewhere"},
+                            "rungs": {}}) + "\n")
+    state = Atom(None)
+    t = dummy_test(name="trend", db=tst.atom_db(state),
+                   client=tst.atom_client(state), concurrency=2,
+                   generator=gen.clients(gen.limit(
+                       4, gen.repeat({"f": "read"}))),
+                   **{"trend-baseline": base})
+    t = core.run(t)
+    assert t["results"]["valid"] is True
+    codes = [(d["code"], d["severity"])
+             for d in t["analysis"]["plan"]["diagnostics"]]
+    assert ("PL022", "warning") in codes

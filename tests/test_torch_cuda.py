@@ -18,7 +18,9 @@ iterations and rollout launches included; a 2-D mesh refused); and
 monitored run on the card, whose recorded history, replayed through the
 streaming monitor chunk by chunk, gives the same summary on the card as
 on the CPU, valid and with one read falsified; and the command line's
-monitored register run, exit 0 with the kernel launched. Every
+monitored register run, exit 0 with the kernel launched; and a
+two-cell campaign of monitored register runs behind one device slot,
+with the trend rung's key batch. Every
 test is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
@@ -634,3 +636,61 @@ def test_cli_register_run_on_card(dev, tmp_path, monkeypatch):
     assert exc.value.code == 0
     assert store.latest()["results"]["valid"] is True
     assert rollout.launches > 0
+
+
+def test_campaign_and_trend_on_card(dev, tmp_path, monkeypatch):
+    """The campaign runner on the card: a two-cell ``run_cells`` sweep of
+    monitored register runs on the default device at ``device_slots=1``
+    and ``parallel=2`` -- both valid, the rollout kernel launched, no two
+    checks running at once (timed around each cell's checker and each
+    monitor check) -- then ``trend.mini_bench`` on the card (the key
+    batch: no rollout launch)."""
+    import threading
+    import time
+    from jepsen_tpu_torch import cli, demo, store
+    from jepsen_tpu_torch.campaign import plan, scheduler
+    from jepsen_tpu_torch.monitor import engine as mengine
+    from jepsen_tpu_torch.obs import trend
+    monkeypatch.setattr(store, "base_dir", str(tmp_path / "store"))
+    spans, lock = [], threading.Lock()
+
+    def timed(fn, label):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with lock:
+                    spans.append((t, time.perf_counter(), label))
+        return run
+
+    slot_init = scheduler._DeviceSlotChecker.__init__
+
+    def timed_init(self, inner, sem, reg):
+        slot_init(self, inner, sem, reg)
+        self.inner.check = timed(self.inner.check, "checker")
+
+    monkeypatch.setattr(scheduler._DeviceSlotChecker, "__init__",
+                        timed_init)
+    monkeypatch.setattr(mengine, "check_prefix",
+                        timed(mengine.check_prefix, "monitor"))
+    opts = cli.test_opt_fn({"no-ssh": True, "time-limit": 3,
+                            "per-key-limit": 100, "monitor": True,
+                            "concurrency": "10n"})
+    cells = [dict(c, build=lambda p: demo.demo_test({**opts, **p}))
+             for c in plan.expand({"axes": {"workload": ["register"],
+                                            "seed": [0, 1]}})]
+    rollout.launches = 0
+    rep = scheduler.run_cells(cells, campaign_id="card", parallel=2,
+                              device_slots=1)
+    checkers.join_racers()
+    assert rep["summary"]["outcomes"] == {"True": 2}, rep["triage"]
+    assert rep["fleet_analysis"]["counts"]["error"] == 0
+    assert rollout.launches > 0
+    spans.sort()
+    assert [s[2] for s in spans].count("checker") == 2
+    assert "monitor" in {s[2] for s in spans}
+    assert all(b[0] >= a[1] for a, b in zip(spans, spans[1:])), spans
+    rollout.launches = 0
+    r = trend.mini_bench(n_keys=2, n_ops=40, repeats=2)["mini-cas-batch"]
+    assert r["metrics"]["ops_per_s"] > 0 and rollout.launches == 0

@@ -389,3 +389,59 @@ print("ok")
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_campaign_and_fleet_modules_import_without_jax():
+    """The campaign runner on one host (``campaign/*``), HA's journal
+    half (``fleet/ha``), the control-plane audit
+    (``analysis/fleetmodel``, ``analysis/fleetlint``) and the campaign
+    folds and trend gate (``obs/merge``, ``obs/bubbles``, ``obs/trend``)
+    stand alone too; the fleet's unported submodules raise naming their
+    sub-slice."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+from jepsen_tpu_torch import campaign, cli, fleet
+from jepsen_tpu_torch.analysis import certify, fleetlint, fleetmodel, planlint
+from jepsen_tpu_torch.campaign import (compile_cache, journal, plan, report,
+                                       scheduler)
+from jepsen_tpu_torch.fleet import ha
+from jepsen_tpu_torch.obs import bubbles, merge, trend
+for f in (campaign.run_cells, compile_cache.note, compile_cache.stats,
+          compile_cache.delta, compile_cache.reset, plan.normalize,
+          plan.cell_id, plan.group_id, plan.expand, plan.lint,
+          plan.validate, journal.writer_id, report.summarize, report.flakes,
+          report.triage, report.results_map, report.render_text,
+          scheduler.run_cells, scheduler.new_campaign_id, ha.last_lease, ha.coordinator_state, ha.current_epoch, ha.fence,
+          ha.takeover_marker, fleetmodel.parse_t, fleetlint.lint_campaign,
+          fleetlint.audit, fleetlint.preflight, fleetlint.load_report,
+          planlint.lint_campaign, planlint.lint_fleetlint,
+          planlint.lint_coalesce, planlint.lint_ha, planlint.lint_trend,
+          certify.certify_campaign, merge.worker_offsets, merge.clock_offset,
+          merge.merge_campaign, merge.fold_campaign_metrics,
+          merge.introspection_summary, bubbles.fold_events,
+          bubbles.fold_run, bubbles.fold_campaign, bubbles.dumps,
+          trend.fingerprint, trend.record, trend.load, trend.compare,
+          trend.mini_bench, trend.main, cli.campaign_exit_code,
+          cli.parse_axes, cli.refuse_later_slices):
+    assert callable(f)
+for cls in (campaign.CampaignError, journal.CampaignJournal,
+            fleetmodel.CampaignModel,
+            fleetmodel.RunTrace, plan.CampaignPlanError):
+    assert isinstance(cls, type)
+for name in ("ledger", "dispatch", "worker", "sync", "chaos", "backends",
+             "service"):
+    try:
+        getattr(fleet, name)
+    except NotImplementedError as e:
+        assert "A.11(d" in str(e)
+    else:
+        raise AssertionError(name)
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -164,11 +164,17 @@ def test_core_preflight_records_the_report():
 
 
 def test_readable_trend_baseline_raises_not_implemented(tmp_path):
-    """The trend gate's fingerprint check needs obs.trend, which is not
-    ported: a readable baseline raises, naming the queue item."""
+    """The trend gate's fingerprint check needed obs.trend, and this case
+    held the raise until it was ported (ROADMAP.md A.11(d2)); now a
+    readable baseline lints as the JAX package's does: its records'
+    fingerprints are compared with this host's, and a record without
+    one lints clean."""
     baseline = tmp_path / "trend.jsonl"
     baseline.write_text("{}\n")
     t = CASES["clean"](PORT)
     t["trend-baseline"] = str(baseline)
-    with pytest.raises(NotImplementedError, match=r"A\.11\(d\)"):
-        planlint.lint_plan(t)
+    assert [d for d in planlint.lint_plan(t) if d.code == "PL022"] == []
+    baseline.write_text('{"t": 0, "fingerprint": {"hostname": "x"}, '
+                        '"rungs": {}}\n')
+    assert [(d.code, d.severity) for d in planlint.lint_plan(t)
+            if d.code == "PL022"] == [("PL022", "warning")]
