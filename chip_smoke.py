@@ -138,7 +138,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    chunk 8 on a clean and a lost-write run of 300 ops: each verdict equal
    to the CPU oracle's, no fall-back; seconds per event. (d) The
    list-append workload (``tests/cycle/append``) against a serializable
-   in-memory client, 16,384 txns at 8 processes, monitored by the txn
+   in-memory client, 8,192 txns at 8 processes, monitored by the txn
    family at chunks of 1,024: the monitor's verdict True and equal to the
    offline check's; (e) a stale-read copy of 2,048 txns: aborted, False
    offline with the monitor's anomaly types, its cycle witness
@@ -189,7 +189,22 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    (d) ``obs.trend.mini_bench`` on the card twice, each the best of
    10 repeats, recorded, the ``gate`` passing A/A; ops/s and the
    fingerprint.
-12. ``batch``: the JAX package's headline key batch at full width
+12. ``fleet``: the fleet (``jepsen_tpu_torch/fleet``), its store in a
+   temporary directory. (a) Campaign (a)'s matrix with ``--workers
+   local,local --backends gpu,cpu --worker-store <tmp>`` (every cell a
+   ``python -m jepsen_tpu_torch.fleet.worker`` process of its own)
+   through ``__main__.main``: exit 0, every cell True and on the ``gpu``
+   tier, every run mirrored home, the audit and ``certify_campaign`` of
+   all four runs without error, two worker lanes in the merged trace,
+   and the phase plane's ``compile`` lap in a register cell's mirrored
+   ``metrics.json`` (the worker process loaded the rollout library and
+   searched with it on the card). (b) The same cells through
+   ``fleet.run_fleet`` with one seeded worker kill: the cell is leased,
+   its lease fails, it is leased again and decided as in (a). Each
+   cell's wall, each worker's start-up and each part's seconds; the
+   workers' launches are not in this process's counter, which must
+   stay at 0.
+13. ``batch``: the JAX package's headline key batch at full width
    (``simulate.bench_histories``, as ``bench.py`` rungs 2 and 2b draw
    it): 256 cas-register keys, 8 processes, 200 ops per key, crash_p
    0.02, every 8th key corrupted, through
@@ -200,21 +215,21 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    Both calls must decide alike. No key may be
    unknown, at least one must be invalid, and the first 32 verdicts must
    equal the CPU oracle's (the gate phase's).
-13. ``independent``: the first 64 of those keys wrapped in
+14. ``independent``: the first 64 of those keys wrapped in
    ``independent.tuple_`` and merged into one history, through
    ``independent.checker(compose({"linearizable": ..., "ok":
    unbridled_optimism()}))`` with the default gate and planning on:
    exactly one call of ``parallel.check_batch_encoded``, with every
    key's segments (92 pairs), and ``failures`` equal to the corrupted
    keys.
-14. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
+15. ``queues``: a 32-key fifo-queue batch and a 32-key unordered-queue
    batch (150 ops and 6 processes per key, crash_p 0.02, every 8th key
    corrupted) with the fast check off, so the device search with padded
-   queue states decides, within ``QUEUE_MAX_CONFIGS`` (128 iterations of
+   queue states decides, within ``QUEUE_MAX_CONFIGS`` (96 iterations of
    128 lanes). The CPU oracle for queues is the
    model's exact polynomial decision (the aspect fast check, which the
    batch was denied), and, for every key the sequential WGL oracle
-   decides within 5,000 configurations, that oracle too. Every decided
+   decides within 1,000 configurations, that oracle too. Every decided
    verdict must equal the oracles', every valid key must be decided, and
    a key may come back unknown only if the oracle finds it invalid: the
    proof that a corrupted 150-op FIFO key has no linearization is an
@@ -223,7 +238,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``bench.py``'s rung-4 FIFO history through
    ``checkers.linearizable``, fast check on.
 
-15. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
+16. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
    torch ops) on keys of the batch above: (a) the offline face at the
    hard frontier cap on ``OFFLINE_KEYS`` (one of them corrupted), each
    verdict equal to the CPU sweep's (``linear``) and each violating op
@@ -231,14 +246,14 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``FOLD_BATCH_KEYS`` keys' whole histories at ``FOLD_BATCH_F`` rows,
    every lane equal to its solo fold, only corrupted keys invalid, the
    lanes that overflowed listed: seconds and host syncs per event step;
-   (c) ``StreamCheck`` on ``STREAM_KEYS`` fed op by op, checked every ``STREAM_CHUNK`` completions, each
+   (c) ``StreamCheck`` on ``STREAM_KEYS`` (key 7) fed op by op, checked every ``STREAM_CHUNK`` completions, each
    verdict equal to the CPU WGL oracle's on the same prefix, no
    fall-back, the corrupted keys caught by the frontier and confirmed
    by the port's WGL engine: seconds, host syncs, passes and frontier
    peak per event. (b) and (c) are not profiled: gathering the
    profiler's events costs more than the run itself (PERF.md).
-16. ``txn``: the cycle checkers at ``bench.py`` rung 15's shape, a
-   serial list-append history of 16,384 txns (1 read + 7 appends, 8
+17. ``txn``: the cycle checkers at ``bench.py`` rung 15's txn shape, a
+   serial list-append history of 8,192 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
    decides it valid on the card (one profiled call: squarings, closure
    device seconds, launches, idle share, peak device memory); a 2,048-txn
@@ -251,7 +266,8 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    bf16, all three boolean-identical.
 
 The competition, checkpoint, certify, obs, mesh, run, monitor, cli and
-campaign paths run the rollout kernel (each counted; ``run_keyed`` may
+campaign paths run the rollout kernel (each counted; the fleet's in its
+worker processes, shown by their compile laps, not counted here; ``run_keyed`` may
 not, as the key batch rolls on the scan; the monitor's txn paths do
 not). The planned, batch, independent, queue, streamlin, trend and
 txn paths do not run it: each of them is run with the rollout kernel's
@@ -301,8 +317,15 @@ CORRUPT_EVERY = 8
 #: of about 11,000 launches, so the budget sets the phase's length: 64
 #: keys at 256 iterations of 64 lanes took 120 s of the run (PERF.md);
 #: cut to 32 keys at 128 iterations of 128 lanes, the same 16,384
-#: configs per key (16 keys at 64 iterations decided no key invalid)
-QUEUE_MAX_CONFIGS = 128 * 128 * QUEUE_KEYS
+#: configs per key (16 keys at 64 iterations decided no key invalid),
+#: then to 96 iterations (12,288 configs per key) for the fleet phase's
+#: room: the fifo batch's two keys that run to the budget took 59.5 s
+QUEUE_MAX_CONFIGS = 96 * 128 * QUEUE_KEYS
+#: the sequential WGL oracle's budget per queue key: at 5,000 configs it
+#: decided 5 of the 32 fifo keys in 29.1 s of the phase, the exact
+#: polynomial oracle checking every key besides; cut for the fleet
+#: phase's room
+QUEUE_WGL_ORACLE_CONFIGS = 1_000
 #: the gate phase: the first GATE_KEYS batch keys through the planner,
 #: which splits GATE_SEGMENTS[k] searches out of key k (the JAX planner's
 #: counts, which tests/test_torch_searchplan.py pins), the CPU oracle in
@@ -330,7 +353,8 @@ GATE_SEGMENTS = (1, 1, 1, 1, 1, 1, 2, 2, 1, 2, 1, 1, 1, 1, 2, 1,
 ROLLOUT_REPLACES = "jepsen_tpu/checker/pallas_rollout.py:179"
 #: the streamlin phase. The offline face runs key 0 and the corrupted
 #: key 7 of the batch (key 15 was cut for the gate phase's room: its CPU
-#: sweeps), the stream the corrupted keys 7 and 15 (each is
+#: sweeps), the stream the corrupted key 7 (key 15 was cut for the
+#: fleet phase's room; each is
 #: checked about 20 times before its violation), both at the hard
 #: frontier cap (with crashed ops left open, a 200-op key's closure can
 #: outgrow the default cap of 4,096 configs); the lane batch runs the
@@ -344,15 +368,16 @@ ROLLOUT_REPLACES = "jepsen_tpu/checker/pallas_rollout.py:179"
 #: largest config set per return is 8,168 configs for key 0 and 49,280
 #: for key 4, so lane 4 overflows (status 2) and the batch says which.
 #: The device time of a pass grows with lanes x rows (PERF.md)
-OFFLINE_KEYS, STREAM_KEYS = (0, 7), (7, 15)
+OFFLINE_KEYS, STREAM_KEYS = (0, 7), (7,)
 FOLD_BATCH_KEYS, FOLD_BATCH_F = 8, 8192
 STREAM_CHUNK = 8
-#: the txn phase at bench.py rung 15's shape: 16,384 txns of 1 read and
+#: the txn phase at bench.py rung 15's txn shape, cut from its 16,384
+#: txns to 8,192 for the fleet phase's room: txns of 1 read and
 #: 7 appends over 8 processes, TxnCheck chunks of 1,024 txns; the G1c
 #: copy, cut to TXN_G1C_TXNS txns for the gate phase's room (at 16,384
 #: it took 21.8 s), ties the first txns of keys 128 and 129; the closure
 #: and the wr history compared with the CPU
-TXN_TXNS, TXN_APPENDS, TXN_PROCS, TXN_CHUNK = 16384, 7, 8, 1024
+TXN_TXNS, TXN_APPENDS, TXN_PROCS, TXN_CHUNK = 8192, 7, 8, 1024
 TXN_G1C_TXNS, TXN_G1C = 2048, (1024, 1032)
 #: TxnCheck's chunk verdicts are held against the offline check of the
 #: same prefix at these txn counts (powers of two) and at the last chunk
@@ -361,6 +386,8 @@ TXN_G1C_TXNS, TXN_G1C = 2048, (1024, 1032)
 #: afford at every chunk
 TXN_OFFLINE_AT = (1024, 2048, 4096, 8192)
 CLOSURE_N, WR_TXNS = 2048, 2048
+#: the one timed squaring stays at rung 15's 16,384 txns
+SQUARING_N = 16384
 
 
 def emit(obj):
@@ -1869,7 +1896,7 @@ def run_phase(dev, n_ops=RUN_OPS, keyed_ops=RUN_KEYED_OPS,
 #: engine, whose StreamCheck costs ~0.02 s per event on the card
 #: (PERF.md), on MONITOR_STREAM_OPS client ops at MONITOR_STREAM_WORKERS
 #: workers (few ops in flight keep the frontier small), no op left open;
-#: (d) bench.py rung 15's txn count through the list-append workload at
+#: (d) half bench.py rung 15's txn count through the list-append workload at
 #: 8 processes, checked every MONITOR_TXN_CHUNK completions; (e) its
 #: stale-read copy, cut to MONITOR_BAD_TXNS txns and checked every
 #: MONITOR_BAD_CHUNK completions, its txns taking MONITOR_BAD_TXN_S each,
@@ -1879,7 +1906,9 @@ def run_phase(dev, n_ops=RUN_OPS, keyed_ops=RUN_KEYED_OPS,
 MONITOR_BAD_TXN_S = 0.01
 MONITOR_CHUNK, MONITOR_STREAM_CHUNK = 64, 8
 MONITOR_STREAM_OPS, MONITOR_STREAM_WORKERS = 300, 8
-MONITOR_TXNS, MONITOR_TXN_PROCS, MONITOR_TXN_CHUNK = 16_384, 8, 1024
+#: the monitored list-append run, cut from 16,384 txns to 8,192 for the
+#: fleet phase's room (its checks took 45.3 s of the phase)
+MONITOR_TXNS, MONITOR_TXN_PROCS, MONITOR_TXN_CHUNK = 8_192, 8, 1024
 MONITOR_BAD_TXNS, MONITOR_BAD_CHUNK, MONITOR_STALE_EVERY = 2048, 256, 50
 
 
@@ -2819,6 +2848,10 @@ def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
                         "duty_cycle"] for r in recs],
                     "gate": verdict, "fingerprint": recs[0]["fingerprint"]}
     finally:
+        # the scheduler attached the disk ledger under the temporary
+        # store: detach it before the store goes
+        from jepsen_tpu_torch.fleet import ledger
+        ledger.detach()
         store.base_dir = base
         shutil.rmtree(tmp, ignore_errors=True)
         root.setLevel(saved_log[0])
@@ -2826,6 +2859,207 @@ def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
             if h not in saved_log[1]:
                 root.removeHandler(h)
     out["launches"] = launches
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+
+FLEET_KILL_SEED = 3
+
+
+def fleet_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT, per_key=CAMPAIGN_PER_KEY,
+                kill_seed=FLEET_KILL_SEED):
+    """The fleet (``jepsen_tpu_torch/fleet``): campaign (a)'s matrix with
+    every cell in a worker process of its own, its store in a temporary
+    directory. (a) ``campaign --no-ssh --axis workload=register,append
+    --seeds 2 --monitor --concurrency 10n --per-key-limit 200
+    --time-limit 3 --workers local,local --backends gpu,cpu
+    --worker-store <tmp>`` through ``__main__.main``: exit 0, every
+    cell's record on the ``gpu`` tier (``cpu`` in a CPU rehearsal) and
+    True, every run mirrored home by the artifact sync, the finalize
+    audit without error, ``certify_campaign`` of all four mirrored runs
+    without error, two worker lanes in ``campaign_trace.jsonl``, and at
+    least one register cell's mirrored ``metrics.json`` holding the phase
+    plane's ``compile`` lap: the mark, armed only on the card, that the
+    worker process loaded the rollout kernel's library and searched with
+    it. (b) The same cells through ``fleet.run_fleet`` under a chaos
+    profile with one seeded worker kill (``kills=1``), unmonitored and
+    with no backend ladder (no probe; the workers' device is the
+    options', CUDA on the card), so no record names a tier: the killed
+    cell's journal shows
+    its lease, the lease's failure and a second lease, and it is
+    decided with (a)'s outcome; every cell terminal once. Each
+    cell's wall, each worker's start-up (the coordinator's send to the
+    worker's receipt, the handshake's first leg) and the seconds of
+    each part. The workers' rollout launches are in their processes,
+    which this script's counter does not see: it must stay at 0."""
+    import argparse
+    import contextlib
+    import logging
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import __main__ as demo_main
+    from jepsen_tpu_torch import campaign, cli, demo, fleet, store
+    from jepsen_tpu_torch.analysis import certify
+    from jepsen_tpu_torch.checker import rollout
+    from jepsen_tpu_torch.fleet import chaos
+    from jepsen_tpu_torch.obs.metrics import parse_flat_key
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    tier = "gpu" if cuda else "cpu"
+    root = logging.getLogger()
+    saved_log = (root.level, list(root.handlers))
+    base = store.base_dir
+    tmp = tempfile.mkdtemp(prefix="jepsen-fleet-")
+    store.base_dir = os.path.join(tmp, "store")
+    wstore = os.path.join(tmp, "workers")
+    out = {"phase": "fleet"}
+    argv = ["campaign", "--no-ssh", "--axis", "workload=register,append",
+            "--seeds", "2", "--monitor", "--concurrency", "10n",
+            "--per-key-limit", str(per_key), "--time-limit",
+            str(time_limit), "--workers", "local,local", "--backends",
+            "gpu,cpu", "--worker-store", wstore] + \
+        ([] if cuda else ["--device", "cpu"])
+
+    def main(args):
+        with contextlib.redirect_stdout(sys.stderr):
+            try:
+                demo_main.main(args)
+                return 0
+            except SystemExit as exc:
+                return exc.code
+
+    def cells_of(records):
+        return {r["cell"]: {
+            "outcome": r.get("outcome"), "backend": r.get("backend"),
+            "worker": r.get("worker"), "attempt": r.get("attempt"),
+            "wall_s": r.get("wall_s"),
+            "startup_s": r["clock"]["worker-received-epoch"]
+            - r["clock"]["coord-sent-epoch"],
+            "lease_s": r["clock"]["coord-received-epoch"]
+            - r["clock"]["coord-sent-epoch"]} for r in records}
+
+    def compile_laps(records):
+        laps = {}
+        for r in records:
+            m = store.load_run_metrics(str(r["path"])) or {}
+            laps[r["cell"]] = sum(
+                v for k, v in (m.get("counters") or {}).items()
+                if parse_flat_key(k)[0] == "wgl.phase_s"
+                and parse_flat_key(k)[1].get("phase") == "compile")
+        return laps
+
+    try:
+        # (a) the sweep through the dispatcher, on the card's tier
+        rollout.launches = 0
+        t0 = time.monotonic()
+        code = main(argv + ["--campaign-id", "fleet"])
+        wall_a = time.monotonic() - t0
+        with open(store.campaign_path("fleet", "report.json")) as f:
+            rep = json.load(f)
+        recs = store.latest_campaign_records("fleet")
+        fa, trace = rep.get("fleet_analysis"), rep.get("trace") or {}
+        cert = certify.certify_campaign(recs, device=str(dev))
+        laps = compile_laps(recs)
+        register_laps = {c: v for c, v in laps.items()
+                         if "register" in c}
+        if code != 0 or rep["status"] != "complete" or len(recs) != 4 \
+                or {r["outcome"] for r in recs} != {True} \
+                or {r.get("backend") for r in recs} != {tier}:
+            raise AssertionError(f"fleet a: exit {code}, "
+                                 f"{rep['summary']}, "
+                                 f"{cells_of(recs)}")
+        if any(r.get("synced") is not True
+               or not os.path.isdir(str(r["path"])) for r in recs):
+            raise AssertionError(
+                "fleet a: runs not mirrored: "
+                f"{[(r['cell'], r.get('synced')) for r in recs]}")
+        if fa is None or fa["counts"]["error"] \
+                or cert["counts"]["error"] \
+                or not cert["sampled"] == cert["of"] == 4:
+            raise AssertionError(f"fleet a: audit {fa}, "
+                                 f"certification {cert}")
+        if sorted(trace.get("workers") or {}) != ["local", "local#2"]:
+            raise AssertionError(f"fleet a: merged trace lanes "
+                                 f"{trace.get('workers')}")
+        if cuda and not any(v > 0 for v in register_laps.values()):
+            raise AssertionError(f"fleet a: no register cell's worker "
+                                 f"laps the rollout library's compile: "
+                                 f"{laps}")
+        if rollout.launches:
+            raise AssertionError(f"fleet a: the coordinator launched the "
+                                 f"rollout kernel {rollout.launches} "
+                                 f"times; every search belongs to a "
+                                 f"worker")
+        out["a"] = {"exit": code, "wall_s": wall_a,
+                    "cells": cells_of(recs),
+                    "compile_lap_s": laps,
+                    "fleet_analysis": fa["counts"],
+                    "fleet_checks": fa["checks"],
+                    "certification": {"sampled": cert["sampled"],
+                                      "of": cert["of"],
+                                      "counts": cert["counts"]},
+                    "trace": trace}
+
+        # (b) one seeded worker kill: the cell is stolen and re-run
+        parser = argparse.ArgumentParser()
+        cli.add_test_opts(parser)
+        cmd = cli.campaign_cmd({"test-fn": demo.demo_test,
+                                "opt-spec": demo_main._add_demo_opts})
+        cmd["campaign"]["opt-spec"](parser)
+        # (b) runs without the monitor: the steal is the point, and the
+        # register cells' final monitor checks would double their walls
+        options = cli.test_opt_fn(cli._ns_to_opts(parser.parse_args(
+            [a for a in argv[1:] if a != "--monitor"])))
+        cells = campaign.plan.expand(
+            {"axes": cli.parse_axes(options["axis"], options["seeds"])})
+        prof = chaos.ChaosProfile(name="worker-kill", seed=kill_seed,
+                                  kills=1)
+        killed = sorted(prof.plan_kills([c["id"] for c in cells]))
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(sys.stderr):
+            rep_b = fleet.run_fleet(
+                cells, fleet.parse_workers("local,local"),
+                campaign_id="steal",
+                builder="jepsen_tpu_torch.demo:demo_test",
+                base_options=cli._jsonable_options(options),
+                worker_store_dir=wstore, chaos=prof)
+        wall_b = time.monotonic() - t0
+        recs_b = store.latest_campaign_records("steal")
+        events = [e for e in store.campaign_events("steal")
+                  if e.get("cell") in killed]
+        story = [(e["event"], e.get("attempt")) for e in events
+                 if e["event"] in ("lease", "lease-failed")]
+        terminal = {}
+        for r in store.load_campaign_records("steal"):
+            if not r.get("event"):
+                terminal[r["cell"]] = terminal.get(r["cell"], 0) + 1
+        by_cell = {r["cell"]: r for r in recs_b}
+        if len(killed) != 1 or rep_b["status"] != "complete" \
+                or story[:3] != [("lease", 1), ("lease-failed", None),
+                                 ("lease", 2)] \
+                or by_cell[killed[0]]["attempt"] != 2 \
+                or by_cell[killed[0]]["outcome"] \
+                != {r["cell"]: r["outcome"] for r in recs}[killed[0]] \
+                or terminal != {c["id"]: 1 for c in cells} \
+                or any("backend" in r for r in recs_b):
+            raise AssertionError(f"fleet b: killed {killed}, story "
+                                 f"{story}, terminal {terminal}, "
+                                 f"{cells_of(recs_b)}")
+        out["b"] = {"wall_s": wall_b, "killed": killed[0], "story": story,
+                    "cells": cells_of(recs_b),
+                    "fleet_analysis": rep_b["fleet_analysis"]["counts"]}
+    finally:
+        # the campaign attached the disk ledger under the temporary
+        # store: detach it before the store goes
+        fleet.ledger.detach()
+        store.base_dir = base
+        shutil.rmtree(tmp, ignore_errors=True)
+        root.setLevel(saved_log[0])
+        for h in list(root.handlers):
+            if h not in saved_log[1]:
+                root.removeHandler(h)
+    out["launches"] = {"fleet_coordinator": 0}
     out["seconds"] = time.monotonic() - t_start
     return out
 
@@ -2939,14 +3173,16 @@ def independent_phase(keys):
 def queue_oracle(spec, e, st):
     """The CPU verdicts for a queue key: the model's exact polynomial
     decision (its fast check; the sequential WGL oracle, 2M configs,
-    where that declines), and the sequential WGL oracle within 5,000
-    configurations (None where it does not decide in them)."""
+    where that declines), and the sequential WGL oracle within
+    ``QUEUE_WGL_ORACLE_CONFIGS`` configurations (None where it does not
+    decide in them)."""
     from jepsen_tpu_torch.checker import torch_wgl, wgl
     inv32, ret32, _ = torch_wgl._encode_arrays(e)
     fast = spec.fast_check(e, inv32, ret32)
     exact = (fast if fast is True else fast[0]) if fast is not None \
         else wgl.check_encoded(spec, e, st, max_configs=2_000_000)["valid"]
-    bounded = wgl.check_encoded(spec, e, st, max_configs=5_000)["valid"]
+    bounded = wgl.check_encoded(spec, e, st,
+                                max_configs=QUEUE_WGL_ORACLE_CONFIGS)["valid"]
     return exact, (bounded if bounded in (True, False) else None)
 
 
@@ -3321,7 +3557,8 @@ def txn_phase(dev, n_txns=TXN_TXNS, chunk=TXN_CHUNK, closure_n=CLOSURE_N,
     if w_card != w_cpu or w_card["valid"] is not True:
         raise AssertionError(f"txn: wr check {w_card['valid']!r} != CPU "
                              f"{w_cpu['valid']!r}")
-    squaring = squaring_ms(n_txns, dev) if dev.type == "cuda" else None
+    squaring = squaring_ms(SQUARING_N, dev) if dev.type == "cuda" \
+        else None
     return {"phase": "txn", "seconds": time.monotonic() - t_start,
             "offline": offline, "invalid": invalid,
             "streaming": streaming, "peak_device_bytes": peak,
@@ -3429,7 +3666,11 @@ def main(argv):
     camp_row = campaign_phase(dev)
     emit(camp_row)
 
-    # -- 12-14. the key batch, independent, the queue models ---------------
+    # -- 12. fleet: the sweep's cells in worker processes ------------------
+    fleet_row = fleet_phase(dev)
+    emit(fleet_row)
+
+    # -- 13-15. the key batch, independent, the queue models ---------------
     row = batch_phase(keys, oracle)
     emit(row)
     ind = independent_phase(keys[:INDEPENDENT_KEYS])
@@ -3437,7 +3678,7 @@ def main(argv):
     queues = queue_phase(fifo)
     emit(queues)
 
-    # -- 15-16. the streaming fold and the txn closure ---------------------
+    # -- 16-17. the streaming fold and the txn closure ---------------------
     rollout.launches = 0
     emit(streamlin_phase(keys, dev))
     stream_launches = scan_only("streamlin")
@@ -3470,6 +3711,8 @@ def main(argv):
         "latency_floor_ms": main_shape["latency_floor_ms"],
         "step_ns": step,
         "shape": main_shape["shape"], "parity": "exact",
+        "fleet_worker_compile_laps": sum(
+            1 for v in fleet_row["a"]["compile_lap_s"].values() if v > 0),
         "adversarial_cases": len(adversarial),
         "adversarial_max_abs_err": max(a["max_abs_err"]
                                        for a in adversarial),

@@ -29,9 +29,10 @@
   contact (``core.run``'s preflight phase; fatal codes raise
   ``PlanLintError``), and the knob passes the campaign command runs on
   every invocation: PL012 (the sweep matrix), PL018 (fleetlint), PL020
-  (coalescing) and PL024 (coordinator HA). The fleet and service lints
-  (PL014, PL016) come with their modules (ROADMAP.md A.11(d3), (d4)),
-  the capacity pass with the planner (A.11(d5)).
+  (coalescing) and PL024 (coordinator HA), with PL014 (the fleet's
+  config) under fleet knobs. The service lint (PL016) comes with the
+  service (ROADMAP.md A.11(d4)), the capacity pass with the planner
+  (A.11(d5)).
 * **fleetmodel** / **fleetlint** -- the campaign control plane's
   recorded history (``campaign.json``, ``cells.jsonl``, per-run traces)
   replayed against its protocol's invariants (FL001-FL016) into

@@ -1,10 +1,9 @@
 """fleetlint: a static consistency auditor for the fleet's OWN control
 plane, replayed post hoc from a campaign's recorded artifacts (the
 port's copy of ``jepsen_tpu/analysis/fleetlint.py``, host-only; every
-check is the reference's, over the same artifacts. A local campaign --
-the only kind the port writes until ROADMAP.md A.11(d3) -- has no
-leases, syncs or chaos, so those checks pass over it; the journal
-checks and the HA chain audit apply to every campaign).
+check is the reference's, over the same artifacts. A local campaign
+has no leases, syncs or chaos, so those checks pass over it; the
+journal checks and the HA chain audit apply to every campaign).
 
 Jepsen's premise is that a distributed system's claims are checked
 from its recorded history -- and the coordinator/worker/lease plane IS
@@ -85,13 +84,12 @@ well-formedness subset -- FL001 duplicate terminal + FL004 second
 writer -- that ``--resume`` runs before trusting the journal; planlint
 PL018 turns its failures into refusals).
 
-Containment: the auditor is wired into ``campaign.run_cells`` (and,
-in the JAX package, ``fleet.run_fleet``) at finalize, where any
-finding -- and any auditor crash -- is REPORTED, never allowed to flip
-a cell outcome or a campaign exit code (the same rule searchplan
-follows for verdicts). The port's scheduler lets a
-``NotImplementedError`` through (a journal naming an unported fleet
-module).
+Containment: the auditor is wired into ``campaign.run_cells`` and
+``fleet.run_fleet`` at finalize, where any finding -- and any auditor
+crash -- is REPORTED, never allowed to flip a cell outcome or a
+campaign exit code (the same rule searchplan follows for verdicts).
+The port's scheduler lets a ``NotImplementedError`` through (a branch
+that names a later sub-slice).
 """
 
 from __future__ import annotations

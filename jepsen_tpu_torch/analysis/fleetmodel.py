@@ -10,11 +10,10 @@ journal (cell outcomes, and in fleet campaigns ``lease`` /
 coordinator and its workers exchanging leases, results, and file
 transfers under injected faults. This module parses those artifacts
 into one queryable model; ``fleetlint`` replays the model against the
-protocol's invariants. The port writes local campaigns (its fleet is
-ROADMAP.md A.11(d3)) and reads the JAX package's fleet journals too:
-only ``chaos_profile`` needs a fleet module (``fleet.chaos``), and it
-raises ``NotImplementedError`` naming A.11(d3) on a journal that
-carries a chaos profile.
+protocol's invariants. It reads the port's local and fleet campaigns
+and the JAX package's journals alike; ``chaos_profile`` rebuilds a
+journaled profile with the port's ``fleet.chaos``, which draws the
+reference's schedules.
 
 Everything here is read-only and pure (no store writes, no network):
 the model is built once per audit from ONE pass over the journal
@@ -27,9 +26,12 @@ from __future__ import annotations
 
 import datetime
 import json
+import logging
 import os
 
 from .. import store
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["CampaignModel", "RunTrace", "parse_t", "FORFEIT_EVENTS",
            "HA_EVENTS"]
@@ -186,9 +188,13 @@ class CampaignModel:
         spec = (self.meta or {}).get("chaos")
         if not isinstance(spec, dict):
             return None
-        raise NotImplementedError(
-            f"campaign {self.id}: its journaled chaos profile needs "
-            "fleet.chaos, which is not ported yet: ROADMAP.md A.11(d3)")
+        from ..fleet.chaos import ChaosProfile
+        try:
+            return ChaosProfile(**spec)
+        except TypeError:
+            logger.warning("campaign %s: unreconstructable chaos "
+                           "profile %r", self.id, spec)
+            return None
 
     # -- journal folds --------------------------------------------------
 

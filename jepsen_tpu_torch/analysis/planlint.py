@@ -38,6 +38,8 @@ The knob passes the campaign command runs on every invocation (the
 JAX package's ``cli.py:842-873``):
 
   PL012 mixed    campaign sweep matrix (``lint_campaign``)
+  PL014 mixed    fleet config (``lint_fleet``): workers, lease, backend
+                 tiers (the port's: gpu, cpu), lease vs time-limit
   PL018 mixed    fleetlint knob and the --resume journal gate
                  (``lint_fleetlint``)
   PL020 mixed    cross-tenant coalescing knobs (``lint_coalesce``)
@@ -45,10 +47,12 @@ JAX package's ``cli.py:842-873``):
 
 ``preflight(test)`` is the core.run hook: FATAL codes raise
 ``PlanLintError`` (opt out per test with ``test["preflight?"] =
-False``); everything else is logged and recorded. The fleet and
-service lints (PL014, PL016) run only with fleet or serve knobs, whose
-modules are ROADMAP.md A.11(d3) and (d4); the capacity pass (PL021)
-comes with the planner (A.11(d5)).
+False``); everything else is logged and recorded. The fleet lint
+(PL014, ``lint_fleet``) runs with fleet knobs (``--workers``,
+``--backends``) and inside ``fleet.run_fleet``; PL017's fleet half
+(a trace merge with artifact sync off) rides ``lint_telemetry``. The
+service lint (PL016) comes with the service (ROADMAP.md A.11(d4)) and
+the capacity pass (PL021) with the planner (A.11(d5)).
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ from .histlint import model_op_set
 logger = logging.getLogger(__name__)
 
 __all__ = ["lint_plan", "lint_telemetry", "lint_introspection",
-           "lint_trend", "lint_certify", "lint_campaign", "lint_coalesce",
+           "lint_trend", "lint_certify", "lint_campaign", "lint_fleet",
+           "lint_coalesce",
            "lint_fleetlint", "lint_ha", "FLEETLINT_MODES", "preflight",
            "PlanLintError", "FATAL_CODES", "monitor_diags",
            "searchplan_diags", "robustness_knob_diags"]
@@ -884,6 +889,83 @@ def lint_campaign(matrix, cells):
             f"{knob_hits - 8} further cell(s) with inconsistent "
             "robustness knobs suppressed",
             "campaign.cells"))
+    return diags
+
+
+def lint_fleet(cfg):
+    """PL014: preflight one fleet config mapping before any host is
+    contacted. Recognized keys: ``workers`` (list of worker ids),
+    ``lease-s``, ``serve?``, ``device-slots``, ``backends`` (tier
+    names, optional), ``time-limit`` (the per-cell run budget the
+    lease must outlive)."""
+    diags = []
+    cfg = cfg or {}
+    workers = cfg.get("workers")
+    if workers is not None:
+        workers = list(workers)
+        if not workers:
+            diags.append(diag(
+                "PL014", ERROR,
+                "fleet has no workers: nothing can lease a cell",
+                "fleet.workers",
+                "pass --workers host1,host2 (or 'local' for loopback "
+                "worker processes)"))
+        if any(not str(w).strip() for w in workers):
+            diags.append(diag(
+                "PL014", ERROR,
+                "fleet has empty worker id(s)",
+                "fleet.workers"))
+        dups = sorted({str(w) for w in workers
+                       if workers.count(w) > 1})
+        if dups:
+            diags.append(diag(
+                "PL014", ERROR,
+                f"duplicate worker id(s) {dups}: lease records could "
+                "not name which worker holds a cell",
+                "fleet.workers",
+                "give repeated hosts distinct ids (name=host)"))
+    lease = cfg.get("lease-s")
+    if lease is not None and (not isinstance(lease, (int, float))
+                              or isinstance(lease, bool) or lease <= 0):
+        diags.append(diag(
+            "PL014", ERROR,
+            f"lease-s must be a positive number, got {lease!r}",
+            "fleet.lease-s",
+            "the lease is the worker-death detection bound; "
+            "non-positive means instant theft of every cell"))
+        lease = None
+    if cfg.get("serve?"):
+        slots = cfg.get("device-slots")
+        if slots is not None and (not isinstance(slots, int)
+                                  or isinstance(slots, bool)
+                                  or slots <= 0):
+            diags.append(diag(
+                "PL014", ERROR,
+                f"--serve with {slots!r} device slots: submitted "
+                "checks could never acquire a device",
+                "fleet.device-slots",
+                "a serving fleet needs at least one device slot"))
+    tiers = cfg.get("backends")
+    if tiers is not None:
+        from ..fleet import backends as fbackends
+        unknown = [t for t in tiers if str(t) not in fbackends.TIERS]
+        if unknown:
+            diags.append(diag(
+                "PL014", ERROR,
+                f"unknown backend tier name(s) {unknown}: known tiers "
+                f"are {list(fbackends.TIERS)}",
+                "fleet.backends"))
+    tl = cfg.get("time-limit")
+    if lease is not None and isinstance(tl, (int, float)) \
+            and not isinstance(tl, bool) and 0 < tl and lease < tl:
+        diags.append(diag(
+            "PL014", WARNING,
+            f"lease-s {lease:g} < cell time-limit {tl:g}: every "
+            "healthy cell outlives its own lease, so the dispatcher "
+            "steals and re-runs work that was never stuck",
+            "fleet.lease-s",
+            "set the lease comfortably above the cell budget "
+            "(time-limit plus setup/check headroom)"))
     return diags
 
 

@@ -112,9 +112,9 @@ class CampaignJournal:
         self._append_line(record)
 
     def append_event(self, record):
-        """Append one bookkeeping event (the fleet's lease grants and failures,
-        ROADMAP.md A.11(d3)):
-        same crash-only discipline as outcomes, but the record carries
+        """Append one bookkeeping event (the fleet's lease grants and
+        failures, its artifact syncs and coordinator-HA records): same
+        crash-only discipline as outcomes, but the record carries
         an ``"event"`` key so the latest-per-cell outcome fold
         (store.latest_campaign_records) skips it -- the journal stays
         the single source of truth for BOTH who holds a cell and what

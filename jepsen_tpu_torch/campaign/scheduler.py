@@ -29,22 +29,21 @@ Execution model:
   campaign directory -- deliberately not the process-global `obs`
   binding, which cells rebind per run (overlapping core.runs
   cross-attribute the global pair; instance handles don't). Plan-shape
-  repeats are bracketed via compile_cache.stats() deltas; the port
-  keeps no disk ledger of them (``compile_cache``).
+  repeats are bracketed via compile_cache.stats() deltas, and the
+  disk ledger (``fleet.ledger``) keeps them across processes.
 
 Cells are ``{"id": str, "test": <test map>}`` or ``{"id": str,
 "build": callable(params) -> test map, "params": {...}}``; lazy builds
 keep a malformed cell's crash contained to that cell (journaled
 ``"crashed"``, as in the reference).
 
-Branches that need later sub-slices raise ``NotImplementedError``
-naming them before any cell runs or any state is written: per-cell
-backend failover (``backends=``, ROADMAP.md A.11(d3)), the capacity
-plan's oracle (``capacity_plan=``, A.11(d5)), and resuming a
-coordinator-HA journal, which the reference sends to its fleet path
-(A.11(d3)). The finalize audits (fleetlint, certification) stay
-contained as in the reference, except that a ``NotImplementedError``
-is never contained.
+The capacity plan's oracle (``capacity_plan=``) needs a later
+sub-slice and raises ``NotImplementedError`` naming it (ROADMAP.md
+A.11(d5)) before any cell runs or any state is written. Resuming a
+coordinator-HA journal raises the reference's ``CampaignError``,
+pointing at the fleet path. The finalize audits (fleetlint,
+certification) stay contained as in the reference, except that a
+``NotImplementedError`` is never contained.
 """
 
 from __future__ import annotations
@@ -139,7 +138,7 @@ def _outcome_of(test, latch):
 
 
 def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
-              resume=False, latch=None, run_fn=None,
+              resume=False, latch=None, run_fn=None, ledger=True,
               backends=None, fleetlint=True, capacity_plan=None,
               certify=True):
     """Run a campaign; returns the aggregated report dict (also
@@ -148,8 +147,17 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
     ``resume=True`` requires an existing campaign: pass its id, or
     leave ``campaign_id`` None to pick the most recently touched one.
 
-    ``backends`` (fleet.backends.Failover or a tier list) enables, in
-    the JAX package, per-cell backend failover.
+    ``ledger=True`` (default) attaches the disk-persistent compile
+    ledger (fleet.ledger, ``store/compile_ledger/``) so plan-shape
+    sightings survive restarts and are shared across campaign
+    processes; the campaign's hit/miss delta is appended to the ledger
+    at finalize and the aggregate appears in the report.
+
+    ``backends`` (fleet.backends.Failover or a tier list) enables
+    per-cell backend failover: before each cell runs, the healthiest
+    tier is chosen and applied (a card that is down degrades the cell
+    to the CPU oracle instead of crashing it); the chosen tier is
+    journaled on the cell record.
 
     ``capacity_plan`` (an analysis.capplan plan dict) is, in the JAX
     package, persisted next to the journal and diffed at finalize
@@ -161,16 +169,8 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
     agreement) into ``report["certification"]``. CONTAINED the same
     way: sampled findings are reported, never outcome-bearing.
 
-    The reference's ``ledger`` (the disk-persistent compile ledger) has
-    no counterpart: the port compiles nothing per shape.
-
-    In the port ``backends`` (ROADMAP.md A.11(d3)) and ``capacity_plan``
-    (A.11(d5)) raise ``NotImplementedError`` before anything runs, and
-    so does ``resume`` over a coordinator-HA journal (A.11(d3))."""
-    if backends is not None:
-        raise NotImplementedError(
-            "per-cell backend failover (fleet.backends) is not ported "
-            "yet: ROADMAP.md A.11(d3)")
+    In the port ``capacity_plan`` raises ``NotImplementedError``
+    (ROADMAP.md A.11(d5)) before anything runs."""
     if capacity_plan is not None:
         raise NotImplementedError(
             "the capacity plan and its prediction oracle "
@@ -221,11 +221,11 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
         from ..fleet import ha as fha
         cur_epoch = fha.current_epoch(jr.records())
         if cur_epoch:
-            raise NotImplementedError(
+            raise CampaignError(
                 f"--resume: campaign {campaign_id!r} is coordinator-HA "
-                f"(epoch {cur_epoch}): it resumes in fleet mode "
-                "(--workers ...), which is not ported yet: ROADMAP.md "
-                "A.11(d3)")
+                f"(epoch {cur_epoch}): resume it in fleet mode "
+                "(--workers ...) so the prior epoch is fenced with a "
+                "journaled takeover record first")
     done = jr.completed() if resume else {}
     if resume:
         # compare EVERY journaled cell (terminal or aborted) against
@@ -268,6 +268,18 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
     except Exception:  # noqa: BLE001 - journals are insurance
         logger.warning("couldn't attach campaign telemetry journals",
                        exc_info=True)
+    led = None
+    if ledger:
+        try:
+            from ..fleet import ledger as fledger
+            led = fledger.attach()
+        except Exception:  # noqa: BLE001 - persistence is optional
+            logger.warning("couldn't attach the persistent compile "
+                           "ledger; in-memory counting only",
+                           exc_info=True)
+    if backends is not None:
+        from ..fleet import backends as fbackends
+        backends = fbackends.as_failover(backends)
     cc_before = compile_cache.stats()
     pending = [c for c in cells if c["id"] not in done]
     reg.set_gauge("campaign.cells_total", len(cells))
@@ -284,6 +296,11 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
         rec = {"cell": cid, "group": cell.get("group") or cid,
                "params": cell.get("params") or {}}
         test = None
+        # per-cell plan-shape delta: exact at --parallel 1; under a
+        # wider pool, concurrent cells' counters cross-attribute, but
+        # the SUM stays right -- good enough for the cold/warm wall
+        # fold the ledger stats event carries
+        cc_cell = compile_cache.stats()
         with tr.span("campaign.cell", cat="campaign",
                      args={"cell": cid}):
             try:
@@ -305,6 +322,13 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
                 test.setdefault("obs-context",
                                 {"campaign": campaign_id, "cell": cid})
                 test["abort"] = latch
+                if backends is not None:
+                    # failover tiering: a card that is down degrades
+                    # this cell to a slower tier instead of crashing it
+                    tier = backends.choose()
+                    backends.apply(test, tier)
+                    rec["backend"] = tier
+                    reg.inc("fleet.backend_cells", tier=str(tier))
                 if test.get("checker") is not None:
                     test["checker"] = _DeviceSlotChecker(
                         test["checker"], sem, reg)
@@ -334,6 +358,7 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
             # a crashed build may have left a non-test on `test`; path
             # recovery must never take down the campaign loop
             rec["path"] = None
+        rec["compile-cache"] = compile_cache.delta(cc_cell)
         rec["wall_s"] = round(time.monotonic() - t0, 3)
         jr.append_cell(rec)
         reg.inc("campaign.cells", outcome=str(rec["outcome"]))
@@ -380,6 +405,25 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
         cc = compile_cache.delta(cc_before)
         reg.set_gauge("campaign.compile_cache.hits", cc["hits"])
         reg.set_gauge("campaign.compile_cache.misses", cc["misses"])
+        if led is not None:
+            # persist this campaign's delta, then surface the
+            # cross-process aggregate: sightings shared by SEPARATE
+            # processes are the ledger's whole point
+            from ..fleet.ledger import fold_walls
+            # THIS run's cells only: resumed cells' walls already
+            # landed in the prior process's stats event, and
+            # Ledger.stats sums events -- re-folding them would
+            # inflate cold/warm per resume
+            cold, warm = fold_walls([r for r in jr.latest()
+                                     if str(r.get("cell"))
+                                     not in done])
+            led.note_stats(cc["hits"], cc["misses"], cold_wall_s=cold,
+                           warm_wall_s=warm)
+            try:
+                cc = dict(cc, ledger=led.stats())
+            except Exception:  # noqa: BLE001 - bookkeeping only
+                logger.warning("couldn't aggregate compile-ledger "
+                               "stats", exc_info=True)
         aborted = latch.is_set()
         # the journal is the source of truth, latest record per cell:
         # on a hard abort, pool threads may have journaled cells whose

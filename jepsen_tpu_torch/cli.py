@@ -5,15 +5,15 @@ port's copy of ``jepsen_tpu/cli.py``).
 The port adds one test option, ``--device {cuda,cpu}`` (default: CUDA):
 where the run's checkers and monitor search. Without a card the default
 raises, and the run exits 255; the CPU is used only when asked for.
-``campaign`` runs a sweep on one host through the campaign scheduler,
-and so does ``test-all`` with any campaign flag. The options that need
-later sub-slices of ROADMAP.md A.11(d) are registered and raise
-``NotImplementedError`` (exit 255) before anything runs: the fleet's
-(``--workers``, ``--standby``, ``--coordinator-lease-s``,
-``--backends``, ``--chaos-profile``: A.11(d3)), the service's
-(``--serve`` and the ``serve`` subcommand: A.11(d4)) and the capacity
-planner's (``--capacity``, ``--device-mem-budget``, ``--device-slots
-auto``: A.11(d5)).
+``campaign`` runs a sweep through the campaign scheduler on one host,
+or with ``--workers`` through the fleet (``fleet.run_fleet``: a fresh
+worker process per cell, leases, stealing, chaos, coordinator HA with
+``--standby``); ``test-all`` with any campaign flag runs through the
+scheduler. The options that need later sub-slices of ROADMAP.md
+A.11(d) are registered and raise ``NotImplementedError`` (exit 255)
+before anything runs: the service's (``--serve`` and the ``serve``
+subcommand: A.11(d4)) and the capacity planner's (``--capacity``,
+``--device-mem-budget``, ``--device-slots auto``: A.11(d5)).
 
 Exit codes (cli.clj:129-139):
 
@@ -637,9 +637,8 @@ def test_all_cmd(opts):
     campaign scheduler (jepsen_tpu_torch.campaign): each test becomes a
     cell, outcomes journal to store/campaigns/<id>/, and a rerun with
     --resume skips completed cells (reference
-    ``jepsen_tpu/cli.py:615-669``). ``--backends`` raises
-    ``NotImplementedError`` (ROADMAP.md A.11(d3)) before any test is
-    built."""
+    ``jepsen_tpu/cli.py:615-669``), with the compile ledger
+    (``--no-ledger`` turns it off) and ``--backends`` failover."""
     tests_fn = opts["tests-fn"]
 
     def add_opts(parser):
@@ -672,7 +671,9 @@ def test_all_cmd(opts):
                     cells, parallel=options.get("parallel", 1),
                     device_slots=options.get("device-slots", 1),
                     campaign_id=options.get("campaign-id"),
-                    resume=bool(options.get("resume")))
+                    resume=bool(options.get("resume")),
+                    ledger=not options.get("no-ledger"),
+                    backends=options.get("backends") or None)
             except campaign.CampaignError as e:
                 raise CliError(str(e)) from e
             print(campaign.report.render_text(report))
@@ -713,16 +714,42 @@ def parse_axes(specs, seeds=None):
     return axes
 
 
+#: option keys that are coordinator-local wiring, never shipped to a
+#: fleet worker's cell spec
+_FLEET_LOCAL_OPTS = {
+    "argv", "workers", "lease", "max-leases", "serve", "serve-port",
+    "serve-ip",
+    "auth-token", "worker-store", "sync-timeout", "chaos-profile",
+    "fleetlint", "no-ledger", "backends", "axis", "seeds", "parallel",
+    "device-slots", "campaign-id", "resume", "lint?",
+    "no-coalesce", "coalesce-window-ms", "coalesce-max-segments",
+    "capacity", "device-mem-budget",
+    "standby", "coordinator-lease-s", "takeover-grace-s",
+}
+
+
+def _jsonable_options(options):
+    """The JSON-serializable subset of the parsed options: what a
+    fleet worker's cell spec carries so the remote build sees the same
+    base options the coordinator would have used locally. The port's
+    ``device`` option is one of them: it tells each worker process
+    where to search (None: CUDA)."""
+    import json as _json
+    out = {}
+    for k, v in options.items():
+        if k in _FLEET_LOCAL_OPTS:
+            continue
+        try:
+            _json.dumps(v)
+        except (TypeError, ValueError):
+            continue
+        out[k] = v
+    return out
+
+
 #: campaign options whose modules are later sub-slices of ROADMAP.md
 #: A.11(d): (option key, what needs it, the sub-slice)
 LATER_SLICE_OPTS = (
-    ("workers", "fleet mode (fleet.dispatch)", "A.11(d3)"),
-    ("standby", "the standby coordinator (fleet.ha.Standby)", "A.11(d3)"),
-    ("coordinator-lease-s", "the coordinator lease "
-     "(fleet.ha.CoordinatorLease)", "A.11(d3)"),
-    ("backends", "per-cell backend failover (fleet.backends)",
-     "A.11(d3)"),
-    ("chaos-profile", "fleet chaos (fleet.chaos)", "A.11(d3)"),
     ("serve", "the service (fleet.service, web)", "A.11(d4)"),
     ("capacity", "the capacity planner (analysis.capplan)", "A.11(d5)"),
     ("device-mem-budget", "the capacity planner (analysis.capplan)",
@@ -749,22 +776,27 @@ def refuse_later_slices(options):
 
 def campaign_cmd(opts):
     """Subcommand ``campaign``: expand a sweep matrix over the suite's
-    test-fn and run it as a parallel, resumable campaign on this host
-    (reference ``jepsen_tpu/cli.py:728-1070``, its local route). opts:
-    {"test-fn": options -> test map, "opt-spec": fn(parser),
-    "opt-fn": fn(options)}.
+    test-fn and run it as a parallel, resumable campaign (reference
+    ``jepsen_tpu/cli.py:728-1070``). opts: {"test-fn": options -> test
+    map, "opt-spec": fn(parser), "opt-fn": fn(options), "builder":
+    the importable "pkg.module:fn" fleet workers rebuild cells with}.
 
         python -m jepsen_tpu_torch campaign --no-ssh \\
             --axis workload=register,bank --seeds 3 --parallel 4
+        python -m jepsen_tpu_torch campaign --no-ssh \\
+            --workers local,local --axis workload=register --seeds 2
 
     Axis names are option keys: each cell rebuilds the test map from
     the base options with that cell's axis values overlaid (a ``seed``
     axis also seeds the global RNG before the build). ``--lint`` dry
-    runs the PL012 matrix validation (with the PL015, PL017-PL020,
-    PL023 and PL024 knob passes) and prints the cell ids; with an
-    existing ``--campaign-id`` it audits that campaign from disk
-    instead (fleetlint). The fleet, service and capacity options raise
-    ``NotImplementedError`` naming their sub-slice before anything runs
+    runs the PL012 matrix validation (with the PL014, PL015,
+    PL017-PL020, PL023 and PL024 knob passes) and prints the cell ids;
+    with an existing ``--campaign-id`` it audits that campaign from
+    disk instead (fleetlint). ``--workers`` runs the cells through the
+    fleet (``fleet.run_fleet``), and ``--standby`` tails a fleet
+    campaign and takes it over once its coordinator's lease expires.
+    The service and capacity options raise ``NotImplementedError``
+    naming their sub-slice before anything runs
     (``refuse_later_slices``)."""
     test_fn = opts["test-fn"]
 
@@ -799,16 +831,47 @@ def campaign_cmd(opts):
         matrix = {"axes": axes}
         cells_plan = campaign.plan.expand(matrix)
         diags = campaign.plan.lint(matrix)
-        # the knob passes the reference runs on every invocation; the
-        # fleet-only inputs (workers, serve, standby) are off here, as
-        # refuse_later_slices has made sure
+        # fleet-config preflight (PL014) rides along whenever any
+        # fleet-facing knob is set; run_fleet re-checks, but --lint
+        # must surface the findings without contacting a host
+        workers = None
+        if options.get("workers"):
+            from . import fleet
+            workers = fleet.parse_workers(options["workers"],
+                                          ssh=options.get("ssh"))
+        fleet_cfg = {
+            "lease-s": options.get("lease"),
+            "serve?": bool(options.get("serve")),
+            "device-slots": options.get("device-slots"),
+            "backends": [t.strip() for t in
+                         str(options["backends"]).split(",")
+                         if t.strip()]
+            if options.get("backends") else None,
+            "time-limit": options.get("time-limit"),
+        }
+        if workers is not None:
+            fleet_cfg["workers"] = [w.id for w in workers]
+        if workers is not None or options.get("backends"):
+            diags += analysis.planlint.lint_fleet(fleet_cfg)
+        # the service's preflight (PL016) comes with the service:
+        # ROADMAP.md A.11(d4)
+        # telemetry-plane preflight (PL017): flush-knob sanity always,
+        # the merge-without-sync rule whenever fleet-dispatching
         diags += analysis.planlint.lint_telemetry({
             "telemetry-flush-ms": options.get("telemetry-flush-ms"),
             "metrics?": False,
             "serve-ip": options.get("serve-ip"),
             "auth-token?": bool(options.get("auth-token")),
-            "trace-merge?": False,
+            "trace-merge?": workers is not None
+            and not options.get("no-trace-merge"),
         })
+        chaos_prof = None
+        if options.get("chaos-profile"):
+            from .fleet import chaos as fchaos
+            try:
+                chaos_prof = fchaos.parse(options["chaos-profile"])
+            except ValueError as e:
+                raise CliError(str(e)) from None
         diags += analysis.planlint.searchplan_diags(options)
         diags += analysis.planlint.lint_introspection(options)
         diags += analysis.planlint.lint_certify(options)
@@ -822,13 +885,25 @@ def campaign_cmd(opts):
             "device-slots": options.get("device-slots"),
             "engine": options.get("engine"),
         })
+        # coordinator-HA preflight (PL024): broken failover math (a
+        # coordinator-kill with HA off, a standby with no journal to
+        # tail) surfaces at --lint, before any role lease is claimed
+        # or standby started
+        standby = bool(options.get("standby"))
+        standby_cid = (options.get("campaign-id")
+                       or store.latest_campaign()) if standby else None
         diags += analysis.planlint.lint_ha({
-            "ha?": False,
+            "ha?": options.get("coordinator-lease-s") is not None
+            or standby,
             "coordinator-lease-s": options.get("coordinator-lease-s"),
             "takeover-grace-s": options.get("takeover-grace-s"),
-            "standby?": False,
-            "store-reachable?": None,
-            "chaos-coordinator-kill?": False,
+            "standby?": standby,
+            "store-reachable?": bool(
+                standby_cid and os.path.exists(store.campaign_path(
+                    standby_cid, "campaign.json"))) if standby
+            else None,
+            "chaos-coordinator-kill?": bool(
+                getattr(chaos_prof, "coordinator_kill", 0)),
             "lease-s": options.get("lease"),
         })
         if options.get("lint?"):
@@ -840,6 +915,75 @@ def campaign_cmd(opts):
             raise CliError(analysis.render_text(
                 analysis.errors(diags),
                 title="campaign matrix invalid:"))
+        # coordinator HA (fleet.ha): the standby tails the journal
+        # read-only until the active coordinator's lease expires,
+        # fences it with a journaled takeover record, and falls
+        # through to the normal fleet --resume path as the new
+        # coordinator (epoch = the won fencing token)
+        ha_epoch = None
+        if standby:
+            if workers is None:
+                raise CliError(
+                    "--standby is fleet-mode only: pass --workers so "
+                    "a takeover can dispatch the remaining cells")
+            if not standby_cid:
+                raise CliError(
+                    "--standby: no campaign to stand by for (pass "
+                    "--campaign-id, or start the active coordinator "
+                    "first)")
+            from .fleet import ha as fha
+            sb = fha.Standby(
+                standby_cid,
+                lease_s=options.get("coordinator-lease-s"),
+                grace_s=options.get("takeover-grace-s"))
+            print(f"standby: tailing campaign {standby_cid}",
+                  flush=True)
+            status, epoch = sb.wait()
+            if status == "complete":
+                print(f"standby: campaign {standby_cid} completed "
+                      "under its own coordinator; standing down")
+                sys.exit(0)
+            print(f"standby: coordinator lease expired; took over "
+                  f"campaign {standby_cid} at epoch {epoch}",
+                  flush=True)
+            ha_epoch = epoch
+            options["campaign-id"] = standby_cid
+            options["resume"] = True
+        elif options.get("coordinator-lease-s") is not None \
+                and workers is None:
+            raise CliError(
+                "--coordinator-lease-s is fleet-mode only: the "
+                "coordinator role lease lives in the fleet journal "
+                "(pass --workers, e.g. --workers local,local)")
+        if workers is not None:
+            from . import fleet
+            try:
+                report = fleet.run_fleet(
+                    cells_plan, workers,
+                    campaign_id=options.get("campaign-id"),
+                    resume=bool(options.get("resume")),
+                    lease_s=options.get("lease")
+                    or fleet.dispatch.DEFAULT_LEASE_S,
+                    max_leases=options.get("max-leases")
+                    or fleet.dispatch.MAX_LEASES,
+                    builder=opts.get("builder"),
+                    base_options=_jsonable_options(options),
+                    ledger=not options.get("no-ledger"),
+                    backends=options.get("backends") or None,
+                    device_slots=options.get("device-slots", 1),
+                    worker_store_dir=options.get("worker-store"),
+                    sync_timeout_s=options.get("sync-timeout"),
+                    chaos=options.get("chaos-profile"),
+                    trace_merge=not options.get("no-trace-merge"),
+                    fleetlint=options.get("fleetlint") or "on",
+                    coordinator_lease_s=options.get(
+                        "coordinator-lease-s"),
+                    takeover_grace_s=options.get("takeover-grace-s"),
+                    ha_epoch=ha_epoch)
+            except fleet.FleetError as e:
+                raise CliError(str(e)) from e
+            print(campaign.report.render_text(report))
+            sys.exit(campaign_exit_code(report))
 
         # seed + build are one atomic step: scheduler pool threads
         # build cells concurrently, and the global RNG must not be
@@ -871,6 +1015,8 @@ def campaign_cmd(opts):
                 device_slots=options.get("device-slots", 1),
                 campaign_id=options.get("campaign-id"),
                 resume=bool(options.get("resume")),
+                ledger=not options.get("no-ledger"),
+                backends=options.get("backends") or None,
                 fleetlint=options.get("fleetlint") != "off")
         except campaign.CampaignError as e:
             raise CliError(str(e)) from e

@@ -1,9 +1,9 @@
 """Campaign trace merge: fold N per-run traces into ONE Perfetto
 timeline with a process lane per worker and normalized clocks (the
 port's copy of ``jepsen_tpu/obs/merge.py``, host-only: the same trace
-files give byte-identical artifacts in both packages. The port's
-campaigns are local -- one ``local`` lane -- until its fleet lands,
-ROADMAP.md A.11(d3)).
+files give byte-identical artifacts in both packages. A local campaign
+has one ``local`` lane; a fleet campaign has one lane per worker,
+stamped by the dispatcher's trace context).
 
 A fleet campaign's story is scattered across the coordinator's own
 ``store/campaigns/<id>/trace.jsonl`` (dispatch, leases, syncs) and one
@@ -49,8 +49,7 @@ incremental ``trace.jsonl.journal`` (torn tail dropped) — a kill -9'd
 worker still contributes everything up to the kill. Runs whose
 artifacts were never mirrored home (``synced: false``) are skipped and
 counted in the summary, not fatal: planlint PL017 warns ahead of time
-when a merge is requested with artifact sync off (ROADMAP.md
-A.11(d3) ports that rule with the fleet).
+when a merge is requested with artifact sync off.
 """
 
 from __future__ import annotations

@@ -15,11 +15,9 @@ not. This package holds the pieces that enforce that asymmetry:
   partial history; a second signal hard-aborts.
 * :mod:`.leases` -- bounded work ownership: a `LeaseTable` of
   per-unit grants plus a `LeaseWatchdog` monitor thread that hands
-  expired leases to a steal callback. The JAX package's fleet
-  dispatcher (fleet.dispatch; ROADMAP.md A.11(d3) here) uses it as the
-  backstop behind its
-  per-exec transport timeouts, so a wedged ssh cannot strand a
-  campaign cell.
+  expired leases to a steal callback. The fleet dispatcher
+  (fleet.dispatch) uses it as the backstop behind its per-exec
+  transport timeouts, so a wedged ssh cannot strand a campaign cell.
 * :mod:`.watchdog` -- the wedged-worker watchdog: a monitor thread
   enforcing `test["op-timeout-ms"]` per dispatched op. On expiry the
   op completes as ``:info`` with ``error="harness-timeout"``, the

@@ -6,10 +6,10 @@ directories).
 ``base_dir`` is settable: tests and ``chip_smoke.py`` point it at a
 temporary directory. The campaign, compile-ledger and artifact-sync
 directories below are the JAX package's layout, so a store shared by
-both packages browses the same: the port's campaign scheduler
-(``campaign/journal.py``) writes the campaign directories; the
-compile ledger and the artifact-sync staging area wait for the fleet
-(ROADMAP.md A.11(d3)).
+both packages browses the same: the port's campaign scheduler and
+fleet (``campaign/journal.py``) write the campaign directories,
+``fleet/ledger.py`` the compile ledger, and ``fleet/sync.py`` stages
+mirrored runs in the artifact-sync area.
 
 Layout mirrors the reference: ``store/<name>/<start-time>/`` per test run,
 with ``store/current``, ``store/latest`` and ``store/<name>/latest``

@@ -7,15 +7,14 @@ tolerance zero. Masked fields, and why:
 
 * ``wall_s`` (wall clock), ``writer`` (``host:pid``, equal within one
   process but not a property of the code) and the per-cell
-  ``compile-cache`` delta of a journal record: the port writes none
-  (its one reader is the reference's disk ledger, which the port does
-  not keep);
+  ``compile-cache`` delta of a journal record (its counts depend on
+  which plan shapes each package's engines noted before the cell);
 * ``path``: the run directory's start-time stamp differs run to run, so
   a path is compared as its test name (``<name>/<stamp>`` ->
   ``<name>``), and absolute store roots are never compared;
 * report ``compile_cache`` blocks: compared only where the same
-  searches ran (``test_compile_cache_*``); the reference's carries its
-  disk ledger's stats besides.
+  searches ran (``test_compile_cache_*``); both carry their disk
+  ledger's stats besides (``test_the_port_keeps_the_compile_ledger``).
 
 The ported cases of ``tests/test_campaign.py`` and ``tests/test_phases.py``
 (the parts that need no fleet, service or web) run against both
@@ -25,6 +24,7 @@ import json
 import logging
 import os
 import random
+import re
 import threading
 import time
 import types
@@ -649,7 +649,6 @@ def test_install_txn_hands_the_campaign_slot_to_the_monitor():
 # later sub-slices raise before anything runs
 
 @pytest.mark.parametrize("kw,item", [
-    ({"backends": ["gpu", "cpu"]}, r"A\.11\(d3\)"),
     ({"capacity_plan": {"cells": []}}, r"A\.11\(d5\)"),
 ])
 def test_later_slice_branches_raise_before_any_state(kw, item):
@@ -660,10 +659,39 @@ def test_later_slice_branches_raise_before_any_state(kw, item):
     assert tstore.campaigns() == []
 
 
+@pytest.mark.parametrize("backends", [["gpu", "cpu"], "cpu"])
+def test_backends_degrade_cells_as_the_reference(backends, monkeypatch):
+    """``run_cells(backends=...)`` with the gpu probe stubbed down: both
+    packages journal the cpu tier on every cell and count it."""
+    from jepsen_tpu.fleet import backends as jb
+    from jepsen_tpu_torch.fleet import backends as tb
+    for mod in (jb, tb):
+        monkeypatch.setattr(mod, "as_failover",
+                            lambda x, mod=mod: mod.Failover(
+                                ladder=[x] if isinstance(x, str)
+                                else list(x),
+                                probe_fn=lambda t, timeout_s=None:
+                                None if t == "cpu" else "down"))
+    out = {}
+    for side in SIDES:
+        rep = side.scheduler.run_cells(
+            [{"id": c, "test": quick_cell(side, c)} for c in ("a", "b")],
+            campaign_id="bk", backends=backends)
+        with open(side.store.campaign_path("bk", "metrics.json")) as f:
+            counters = json.load(f)["counters"]
+        out[side.name] = (
+            sorted((r["cell"], r["backend"]) for r in
+                   side.store.latest_campaign_records("bk")),
+            _mask_report(rep)["summary"],
+            {k: v for k, v in counters.items()
+             if k.startswith("fleet.backend_cells")})
+    assert out["torch"] == out["jax"]
+    assert out["torch"][0] == [("a", "cpu"), ("b", "cpu")]
+
+
 def test_resuming_an_ha_journal_raises_naming_the_fleet():
-    """The reference refuses with a CampaignError that sends the user to
-    its fleet path; the port has no fleet path yet, so it raises
-    NotImplementedError naming A.11(d3), before any cell runs."""
+    """Both packages refuse with a CampaignError that sends the user to
+    the fleet path, before any cell runs."""
     for side in SIDES:
         jr = side.journal.CampaignJournal("hares")
         jr.write_meta({"status": "running", "mode": "fleet",
@@ -675,11 +703,12 @@ def test_resuming_an_ha_journal_raises_naming_the_fleet():
         jscheduler.run_cells([{"id": "a", "test": quick_cell(JAX, "a")}],
                              campaign_id="hares", resume=True,
                              run_fn=ran.append)
-    with pytest.raises(NotImplementedError,
-                       match=r"coordinator-HA.*A\.11\(d3\)"):
+    with pytest.raises(tscheduler.CampaignError,
+                       match="coordinator-HA.*fleet mode") as ei:
         tscheduler.run_cells([{"id": "a", "test": quick_cell(TORCH, "a")}],
                              campaign_id="hares", resume=True,
                              run_fn=ran.append)
+    assert not isinstance(ei.value, NotImplementedError)
     assert ran == []
 
 
@@ -687,7 +716,7 @@ def test_a_finalize_not_implemented_error_is_not_contained(monkeypatch):
     from jepsen_tpu_torch.analysis import fleetlint
 
     def unported(*a, **kw):
-        raise NotImplementedError("ROADMAP.md A.11(d3)")
+        raise NotImplementedError("ROADMAP.md A.11(d5)")
 
     monkeypatch.setattr(fleetlint, "audit", unported)
     with pytest.raises(NotImplementedError):
@@ -748,20 +777,40 @@ def test_ha_journal_half_equal():
 
 
 @pytest.mark.parametrize("cls", ["CoordinatorLease", "Standby"])
-def test_ha_lease_and_standby_raise_naming_d3(cls):
-    with pytest.raises(NotImplementedError, match=r"A\.11\(d3\)"):
-        getattr(tha, cls)("c")
+def test_ha_lease_and_standby_take_the_references_arguments(cls):
+    import inspect
+    ours, theirs = getattr(tha, cls), getattr(jha, cls)
+    assert str(inspect.signature(ours)) == str(inspect.signature(theirs))
+    assert sorted(n for n in vars(ours) if not n.startswith("__")) == \
+        sorted(n for n in vars(theirs) if not n.startswith("__"))
 
 
-@pytest.mark.parametrize("name,item", [
-    ("dispatch", "d3"), ("worker", "d3"), ("sync", "d3"), ("chaos", "d3"),
-    ("backends", "d3"), ("service", "d4"), ("run_fleet", "d3"),
-    ("ledger", "d3")])
+@pytest.mark.parametrize("name,item", [("service", "d4")])
 def test_unported_fleet_modules_raise_naming_their_sub_slice(name, item):
     import jepsen_tpu_torch.fleet as tfleet
     with pytest.raises(NotImplementedError,
                        match=rf"A\.11\({item}\)"):
         getattr(tfleet, name)
+
+
+@pytest.mark.parametrize("name", [
+    "dispatch", "worker", "sync", "chaos", "backends", "ledger", "ha",
+    "run_fleet", "FleetError", "parse_workers"])
+def test_ported_fleet_names_resolve_as_the_reference(name):
+    import jepsen_tpu.fleet as jfleet
+    import jepsen_tpu_torch.fleet as tfleet
+    ours, theirs = getattr(tfleet, name), getattr(jfleet, name)
+    if name in ("run_fleet", "parse_workers"):
+        import inspect
+        assert list(inspect.signature(ours).parameters) == \
+            list(inspect.signature(theirs).parameters)
+    elif name == "FleetError":
+        assert issubclass(ours, tscheduler.CampaignError)
+    else:
+        assert ours.__name__ == f"jepsen_tpu_torch.fleet.{name}"
+        # every public name but the JAX-only ones
+        jax_only = {"enable_jax_cache", "JAX_CACHE_DIR", "tier_env"}
+        assert set(theirs.__all__) - jax_only <= set(ours.__all__)
 
 
 # ---------------------------------------------------------------------------
@@ -786,22 +835,30 @@ def test_compile_cache_notes_equal(notes):
     assert out["torch"][0].count(True) == 2
 
 
-def test_the_port_keeps_no_compile_ledger():
-    """The reference's campaign persists its compile ledger by default;
-    the port's compiles nothing per shape and writes none, and its
-    ``fleet.ledger`` raises naming the fleet's sub-slice (ROADMAP.md,
-    deliberate divergences)."""
-    import jepsen_tpu_torch.fleet as tfleet
+def test_the_port_keeps_the_compile_ledger():
+    """Both campaigns persist their compile ledger by default: the same
+    ledger file layout, the same stats event and report block (the port
+    notes plan-shape sightings; it compiles nothing per shape), and no
+    ``jax_cache`` beside the port's (ROADMAP.md, deliberate
+    divergences)."""
+    out = {}
     for side in SIDES:
-        side.scheduler.run_cells(
+        rep = side.scheduler.run_cells(
             [{"id": "a", "test": quick_cell(side, "a")}],
             campaign_id="led")
-    assert os.path.isdir(jstore.compile_ledger_path())
-    assert not os.path.exists(tstore.compile_ledger_path())
-    assert "ledger" not in treport.render_text(
-        tjournal.CampaignJournal("led").load_report())
-    with pytest.raises(NotImplementedError, match=r"A\.11\(d3\)"):
-        tfleet.ledger
+        led = rep["compile_cache"]["ledger"]
+        with open(led["path"]) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+        out[side.name] = ({k: v for k, v in led.items()
+                           if k not in ("path", "warm_wall_s")},
+                          [sorted(ln) for ln in lines],
+                          [ln["stats"]["hits"] for ln in lines],
+                          side.report.render_text(
+                              side.journal.CampaignJournal("led")
+                              .load_report()))
+    assert out["torch"] == out["jax"]
+    assert os.path.isdir(jstore.compile_ledger_path("jax_cache"))
+    assert os.listdir(tstore.compile_ledger_path()) == ["ledger.jsonl"]
 
 
 @pytest.mark.parametrize("counts", [
@@ -1068,6 +1125,11 @@ def test_test_all_campaign_route_equal(capsys):
     ("_coerce_axis_value", ("3",)),
     ("_coerce_axis_value", ("3.5",)),
     ("_coerce_axis_value", ("3n",)),
+    ("_jsonable_options", ({"workers": "local,local", "lease": 5.0,
+                            "time-limit": 3, "device": "cpu",
+                            "ssh": {"dummy?": True}, "nodes": ["n1"],
+                            "argv": ["campaign"], "test-fn": len,
+                            "standby": True, "workload": "register"},)),
 ])
 def test_cli_helpers_equal(fn, args):
     def call(f):
@@ -1080,16 +1142,10 @@ def test_cli_helpers_equal(fn, args):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--workers", "local,local"], "d3"),
-    (["--standby"], "d3"),
-    (["--coordinator-lease-s", "5"], "d3"),
-    (["--backends", "gpu,cpu"], "d3"),
-    (["--chaos-profile", "soak:7"], "d3"),
     (["--serve"], "d4"),
     (["--capacity", "plan"], "d5"),
     (["--device-mem-budget", "16G"], "d5"),
     (["--device-slots", "auto"], "d5"),
-    (["--workers", "local", "--lint"], "d3"),
 ])
 def test_later_slice_options_exit_255_naming_their_sub_slice(
         argv, item, caplog):
@@ -1101,13 +1157,55 @@ def test_later_slice_options_exit_255_naming_their_sub_slice(
     assert tstore.campaigns() == []
 
 
-def test_test_all_backends_exits_255_naming_d3(caplog):
-    with caplog.at_level(logging.CRITICAL):
-        assert _main(TORCH, ["test-all", "--no-ssh", "--parallel", "2",
-                             "--backends", "gpu,cpu", "--device",
-                             "cpu"]) == 255
-    assert "A.11(d3)" in caplog.text
+@pytest.mark.parametrize("argv", [
+    ["--workers", "local,local"],
+    ["--standby"],
+    ["--standby", "--workers", "local"],
+    ["--coordinator-lease-s", "5"],
+    ["--coordinator-lease-s", "5", "--workers", "local"],
+    ["--backends", "gpu,cpu"],
+    ["--chaos-profile", "soak:7", "--workers", "local"],
+    ["--chaos-profile", "coordinator-kill", "--workers", "local"],
+    ["--workers", "local", "--lease", "0"],
+    ["--workers", "a=local,a=local"],
+    ["--workers", "local", "--lint"],
+])
+def test_fleet_options_lint_as_the_reference(argv, capsys):
+    """The fleet options lint as the reference's do: the same exit code
+    and PL codes from ``--lint``."""
+    out = {}
+    for side in SIDES:
+        base = ["campaign", "--no-ssh", "--seeds", "1", "--lint"] + \
+            [a for a in argv if a != "--lint"]
+        code = _main(side, base + (["--device", "cpu"]
+                                   if side is TORCH else []))
+        text = capsys.readouterr().out
+        out[side.name] = (code, sorted(set(re.findall(r"PL\d{3}", text))))
+    # PL016 is the service's (ROADMAP.md A.11(d4)): the reference runs it
+    # beside PL014 under --workers
+    theirs = (out["jax"][0], [c for c in out["jax"][1] if c != "PL016"])
+    assert out["torch"] == theirs
     assert tstore.campaigns() == []
+
+
+def test_test_all_backends_runs_as_the_reference(capsys):
+    """test-all's scheduler route with ``--backends cpu`` journals the
+    cpu tier on every cell, in both packages."""
+    outs = {}
+    for side in SIDES:
+        cmd = side.cli.test_all_cmd({
+            "tests-fn": lambda o, side=side: [quick_cell(side, "tb-1"),
+                                              quick_cell(side, "tb-2")]})
+        with pytest.raises(SystemExit) as ei:
+            cmd["test-all"]["run"]({"parallel": 2, "device-slots": 1,
+                                    "campaign-id": "tb", "resume": False,
+                                    "backends": "cpu"})
+        capsys.readouterr()
+        outs[side.name] = (ei.value.code, sorted(
+            (r["cell"], r["backend"], r["outcome"]) for r in
+            side.store.latest_campaign_records("tb")))
+    assert outs["torch"] == outs["jax"] == (
+        0, [("tb-1", "cpu", True), ("tb-2", "cpu", True)])
 
 
 # ---------------------------------------------------------------------------

@@ -198,23 +198,52 @@ def test_unknown_command_exits_254(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["campaign", "--no-ssh", "--seeds", "1", "--workers", "local",
-      "--device", "cpu"], "A.11(d3)"),
     (["serve"], "A.11(d4)"),
-    (["test-all", "--no-ssh", "--parallel", "2", "--backends", "cpu",
-      "--device", "cpu"], "A.11(d3)"),
     (["campaign", "--no-ssh", "--seeds", "1", "--capacity", "plan",
       "--device", "cpu"], "A.11(d5)"),
 ])
 def test_unported_routes_exit_255(argv, item, caplog):
-    """The routes that need later sub-slices (the fleet, the service, the
-    capacity planner) exit 255 naming theirs; the campaign route itself
-    and test-all's are ported (``tests/test_torch_campaign.py``)."""
+    """The routes that need later sub-slices (the service, the capacity
+    planner) exit 255 naming theirs; the campaign route, its fleet
+    route and test-all's are ported (``tests/test_torch_campaign.py``,
+    ``test_ported_fleet_routes_exit_as_the_reference``)."""
     with caplog.at_level(logging.CRITICAL):
         assert _main(argv) == 255
     assert "NotImplementedError" in caplog.text
     assert item in caplog.text
     assert store.campaigns() == []
+
+
+@pytest.mark.parametrize("argv", [
+    ["campaign", "--no-ssh", "--seeds", "2", "--workers", "local,local",
+     "--workload", "noop", "--time-limit", "1"],
+    ["test-all", "--no-ssh", "--parallel", "2", "--backends", "cpu",
+     "--time-limit", "1", "--campaign-id", "ta"],
+])
+def test_ported_fleet_routes_exit_as_the_reference(argv, tmp_path,
+                                                   monkeypatch, capsys):
+    """The fleet's command-line routes run in both packages and exit
+    alike: a two-worker fleet campaign, and test-all's scheduler route
+    with a backend ladder. The port's cells carry ``device: "cpu"``
+    (``_jsonable_options`` ships it to each worker process)."""
+    monkeypatch.setattr(jstore, "base_dir", str(tmp_path / "jax"))
+    with pytest.raises(SystemExit) as exc:
+        jmain.main(argv)
+    theirs = exc.value.code
+    capsys.readouterr()
+    assert _main(argv + ["--device", "cpu"]) == theirs == 0
+    out = capsys.readouterr().out
+    cid = store.campaigns()[0]
+    recs = store.latest_campaign_records(cid)
+    assert recs and all(r["outcome"] is True for r in recs)
+    jrecs = jstore.latest_campaign_records(jstore.campaigns()[0])
+    assert sorted(r["cell"] for r in recs) == \
+        sorted(r["cell"] for r in jrecs)
+    assert sorted(r.get("backend") is not None for r in recs) == \
+        sorted(r.get("backend") is not None for r in jrecs)
+    if "--workers" in argv:
+        assert {r["worker"] for r in recs} <= {"local", "local#2"}
+        assert "# Campaign" in out
 
 
 def test_register_without_device_exits_255_naming_cuda(monkeypatch, caplog):

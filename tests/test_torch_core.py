@@ -486,8 +486,6 @@ def test_lost_write_history_is_invalid_under_both():
 # branches that need modules not ported yet raise, naming the queue item
 
 @pytest.mark.parametrize("knob,item", [
-    # per-cell backend failover needs fleet.backends
-    ({"backends": ["gpu", "cpu"]}, r"A\.11\(d3\)"),
     # the capacity plan's oracle needs analysis.capplan
     ({"capacity_plan": {"cells": []}}, r"A\.11\(d5\)"),
 ])
@@ -504,6 +502,27 @@ def test_unported_branches_raise(knob, item):
         scheduler.run_cells([{"id": "c", "test": t}],
                             campaign_id="unported", **knob)
     assert "history" not in t and store.campaigns() == []
+
+
+def test_backend_failover_runs_the_cell_on_its_tier():
+    """Per-cell backend failover (``fleet.backends``, ported with the
+    fleet): with the gpu tier's probe down, the scheduler applies the
+    cpu tier, runs the cell and journals the tier."""
+    from jepsen_tpu_torch.campaign import scheduler
+    from jepsen_tpu_torch.fleet import backends
+    state = Atom(None)
+    t = dummy_test(name="tiered", db=tst.atom_db(state),
+                   client=tst.atom_client(state), concurrency=2,
+                   generator=gen.clients(gen.limit(
+                       4, gen.repeat({"f": "read"}))))
+    f = backends.Failover(ladder=["gpu", "cpu"],
+                          probe_fn=lambda tier, timeout_s=None:
+                          None if tier == "cpu" else "down")
+    rep = scheduler.run_cells([{"id": "c", "test": t}],
+                              campaign_id="tiered", backends=f)
+    assert rep["summary"]["outcomes"] == {"True": 1}
+    assert [(r["backend"], r["outcome"]) for r in
+            store.latest_campaign_records("tiered")] == [("cpu", True)]
 
 
 def test_a_readable_trend_baseline_runs():

@@ -10,9 +10,9 @@ Every journal below is written once, into one store directory that both
 journals are the golden fixtures of ``tests/test_fleetlint.py`` and
 ``tests/test_fleet_ha.py`` (FL001-FL016), a local campaign each
 package's scheduler ran, and the containment cases of the local
-scheduler. Journals with a chaos profile need ``fleet.chaos``
-(ROADMAP.md A.11(d3)): the port raises ``NotImplementedError`` naming
-it where the reference reads the profile. Tolerance: equality."""
+scheduler. Journals with a chaos profile are read through each
+package's own ``fleet.chaos``, which draw the same schedules.
+Tolerance: equality."""
 
 import dataclasses
 import datetime
@@ -526,22 +526,23 @@ def test_audit_equal_to_the_reference(name):
 
 @pytest.mark.parametrize("profile", ["flaky-exec:7", "soak:42",
                                      "coordinator-kill:7"])
-def test_a_chaos_journal_raises_naming_d3(profile):
-    """The reference audits a chaos soak's journal with fleet.chaos
-    (FL013, FL016's vanished kill); the port raises naming the fleet's
-    sub-slice instead of skipping the checks."""
+def test_a_chaos_journal_audits_as_the_reference(profile):
+    """A chaos soak's journal (FL013's accounting, FL016's vanished
+    kill) audits to the same diagnostics and report in both packages,
+    each rebuilding the journaled profile with its own fleet.chaos."""
     prof = fchaos.parse(profile)
     jr = mk_fleet("chaos", cells=["a", "b"],
                   chaos=dataclasses.asdict(prof)
                   if profile.startswith("soak") else prof.describe())
     leased_terminal(jr, "a")
     leased_terminal(jr, "b")
-    assert jfleetlint.lint_campaign("chaos") is not None
-    with pytest.raises(NotImplementedError, match=r"A\.11\(d3\)"):
-        tfleetlint.lint_campaign("chaos")
-    with pytest.raises(NotImplementedError, match=r"A\.11\(d3\)"):
-        tfleetlint.audit("chaos")
-    # the well-formedness subset reads no profile
+    assert _d(tfleetlint.lint_campaign("chaos")) == \
+        _d(jfleetlint.lint_campaign("chaos"))
+    from jepsen_tpu.analysis.fleetmodel import CampaignModel as JM
+    from jepsen_tpu_torch.analysis.fleetmodel import CampaignModel as TM
+    tp, jp = TM("chaos").chaos_profile(), JM("chaos").chaos_profile()
+    assert dataclasses.asdict(tp) == dataclasses.asdict(jp)
+    assert tp.plan_kills(["a", "b"]) == jp.plan_kills(["a", "b"])
     assert _d(tfleetlint.preflight("chaos")) == \
         _d(jfleetlint.preflight("chaos"))
 

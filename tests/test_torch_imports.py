@@ -392,12 +392,12 @@ print("ok")
 
 
 def test_campaign_and_fleet_modules_import_without_jax():
-    """The campaign runner on one host (``campaign/*``), HA's journal
-    half (``fleet/ha``), the control-plane audit
-    (``analysis/fleetmodel``, ``analysis/fleetlint``) and the campaign
-    folds and trend gate (``obs/merge``, ``obs/bubbles``, ``obs/trend``)
-    stand alone too; the fleet's unported submodules raise naming their
-    sub-slice."""
+    """The campaign runner (``campaign/*``), the fleet
+    (``fleet/{ledger,backends,chaos,sync,worker,dispatch,ha}``), the
+    control-plane audit (``analysis/fleetmodel``, ``analysis/fleetlint``)
+    and the campaign folds and trend gate (``obs/merge``,
+    ``obs/bubbles``, ``obs/trend``) stand alone too; the fleet's one
+    unported submodule (the service) raises naming its sub-slice."""
     probe = r"""
 import sys
 sys.modules["jax"] = None
@@ -406,7 +406,8 @@ from jepsen_tpu_torch import campaign, cli, fleet
 from jepsen_tpu_torch.analysis import certify, fleetlint, fleetmodel, planlint
 from jepsen_tpu_torch.campaign import (compile_cache, journal, plan, report,
                                        scheduler)
-from jepsen_tpu_torch.fleet import ha
+from jepsen_tpu_torch.fleet import (backends, chaos, dispatch, ha, ledger,
+                                    sync, worker)
 from jepsen_tpu_torch.obs import bubbles, merge, trend
 for f in (campaign.run_cells, compile_cache.note, compile_cache.stats,
           compile_cache.delta, compile_cache.reset, plan.normalize,
@@ -424,20 +425,36 @@ for f in (campaign.run_cells, compile_cache.note, compile_cache.stats,
           bubbles.fold_run, bubbles.fold_campaign, bubbles.dumps,
           trend.fingerprint, trend.record, trend.load, trend.compare,
           trend.mini_bench, trend.main, cli.campaign_exit_code,
-          cli.parse_axes, cli.refuse_later_slices):
+          cli.parse_axes, cli.refuse_later_slices, cli._jsonable_options,
+          ledger.attach, ledger.attached, ledger.detach, ledger.canon_key,
+          ledger.fold_walls, backends.probe, backends.apply,
+          backends.as_failover, backends.tier_options, chaos.parse,
+          chaos.tear_ledger_tail, sync.resolve_remote, sync.manifest,
+          sync.pull_run, sync.register_pending, sync.fetch_on_demand,
+          worker.run_cell_spec, worker.parse_result, worker.main,
+          dispatch.parse_workers, dispatch.run_fleet, fleet.run_fleet,
+          fleet.parse_workers, planlint.lint_fleet,
+          compile_cache.set_ledger, compile_cache.get_ledger):
+    assert callable(f)
+for cls in (ledger.Ledger, backends.Failover, chaos.ChaosProfile,
+            sync.SyncError, dispatch.Worker, dispatch.FleetError,
+            fleet.FleetError, ha.CoordinatorLease, ha.Standby):
     assert callable(f)
 for cls in (campaign.CampaignError, journal.CampaignJournal,
             fleetmodel.CampaignModel,
             fleetmodel.RunTrace, plan.CampaignPlanError):
     assert isinstance(cls, type)
-for name in ("ledger", "dispatch", "worker", "sync", "chaos", "backends",
-             "service"):
-    try:
-        getattr(fleet, name)
-    except NotImplementedError as e:
-        assert "A.11(d" in str(e)
-    else:
-        raise AssertionError(name)
+assert issubclass(fleet.FleetError, campaign.CampaignError)
+assert worker.RESULT_MARKER == "JEPSEN-FLEET-RESULT:"
+assert set(chaos.PROFILES) >= {"soak", "coordinator-kill"}
+assert backends.DEFAULT_LADDER == ("gpu", "cpu")
+assert fleet.UNPORTED == {"service": "A.11(d4)"}
+try:
+    fleet.service
+except NotImplementedError as e:
+    assert "A.11(d4)" in str(e)
+else:
+    raise AssertionError("service")
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
