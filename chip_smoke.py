@@ -191,11 +191,12 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    fingerprint.
 12. ``fleet``: the fleet (``jepsen_tpu_torch/fleet``), its store in a
    temporary directory. (a) Campaign (a)'s matrix with ``--workers
-   local,local --backends gpu,cpu --worker-store <tmp>`` (every cell a
-   ``python -m jepsen_tpu_torch.fleet.worker`` process of its own)
-   through ``__main__.main``: exit 0, every cell True and on the ``gpu``
-   tier, every run mirrored home, the audit and ``certify_campaign`` of
-   all four runs without error, two worker lanes in the merged trace,
+   local,local,local,local --backends gpu,cpu --worker-store <tmp>``
+   (every cell a ``python -m jepsen_tpu_torch.fleet.worker`` process of
+   its own, the four in one round) through ``__main__.main``: exit 0,
+   every cell True and on the ``gpu`` tier, every run mirrored home, the
+   audit and ``certify_campaign`` of all four runs without error, four
+   worker lanes in the merged trace,
    and the phase plane's ``compile`` lap in a register cell's mirrored
    ``metrics.json`` (the worker process loaded the rollout library and
    searched with it on the card). (b) The same cells through
@@ -265,23 +266,42 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    same on the CPU; one squaring at n=16384 timed in float32, TF32 and
    bf16, all three boolean-identical.
 
-The competition, checkpoint, certify, obs, mesh, run, monitor, cli and
-campaign paths run the rollout kernel (each counted; the fleet's in its
-worker processes, shown by their compile laps, not counted here; ``run_keyed`` may
-not, as the key batch rolls on the scan; the monitor's txn paths do
-not). The planned, batch, independent, queue, streamlin, trend and
-txn paths do not run it: each of them is run with the rollout kernel's
-launch
-count set to 0 and must leave it at 0. The batch pins the scan rollout,
-as the JAX package's does; the txn path has no linearizability search;
-the streamlin path's only search is the confirm of a frontier
-violation, and on the corrupted keys here ``torch_wgl``'s host
-pre-check (``_state_abstraction_check``: a read of a value no reachable
-state holds) decides it before any search starts, so its
-``confirmed_by`` is ``aspect``. Then a ``{"kernels": [...]}`` line (with each
-kernel's launches in the main phase, and on every path) and, last,
-``{"ok": true, "device": {...}}``. Any failure raises and the script
-exits non-zero.
+18. ``service``: checking as a service (``fleet/service.py``,
+   ``web.py``) as its users drive it; see ``service_phase``. (a)
+   ``SERVICE_TENANTS`` tenants, each with a token of its own, POST a
+   keyed history of ``SERVICE_KEYS_PER`` batch keys to ``/api/check`` of
+   an in-process ``web.serve`` (coalescing at its defaults), solo and
+   then coalesced: every key equal to the gate's CPU oracle, the modes
+   equal, a batch of at least two owners; checks per second, latency,
+   batches, occupancy and queue wait per mode. (b) Txn tenants' closure
+   probes coalesce on the card: verdicts and anomaly classes equal to
+   ``cycle.append.check``. (c) ``SERVICE_STREAMS`` StreamChecks fed from
+   a thread each ride the coalescer's fold lane, the corrupted key 7
+   and two valid keys whole and the others a prefix: final
+   verdicts equal to the CPU oracle's, each prefix's verdict and summary
+   equal to the same stream folded solo, a fold batch of at least two
+   streams. (d) ``python
+   -m jepsen_tpu_torch serve --token`` in a subprocess answers 401,
+   200, 413 and ``/api/metrics``, and exits 0 on SIGINT. (e) A burst
+   against a one-check budget sheds 429s with Retry-After; every 200 is
+   right.
+
+The competition, checkpoint, certify, obs, mesh, run, monitor, cli,
+campaign and service solo paths run the rollout kernel (each counted;
+the fleet's in its worker processes, shown by their compile laps, not
+counted here; ``run_keyed`` may not, as the key batch rolls on the scan;
+the monitor's txn paths do not). The planned, batch, independent, queue,
+streamlin, trend, txn, service coalesced and service txn paths do not
+run it: each of them is run with the rollout kernel's launch count set
+to 0 and must leave it at 0. The batch pins the scan rollout, as the JAX
+package's does; the txn path has no linearizability search; the
+streamlin path's only search is the confirm of a frontier violation, and
+on the corrupted keys here ``torch_wgl``'s host pre-check
+(``_state_abstraction_check``: a read of a value no reachable state
+holds) decides it before any search starts, so its ``confirmed_by`` is
+``aspect``. Then a ``{"kernels": [...]}`` line (with each kernel's
+launches in the main phase, and on every path) and, last, ``{"ok": true,
+"device": {...}}``. Any failure raises and the script exits non-zero.
 """
 
 from __future__ import annotations
@@ -2865,6 +2885,10 @@ def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
 
 
 FLEET_KILL_SEED = 3
+#: one worker per cell of the matrix: the four cells start in one round
+#: (two workers took two rounds, each mostly a process's start-up, cut
+#: for the service phase's room; PERF.md)
+FLEET_WORKERS = "local,local,local,local"
 
 
 def fleet_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT, per_key=CAMPAIGN_PER_KEY,
@@ -2873,12 +2897,12 @@ def fleet_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT, per_key=CAMPAIGN_PER_KEY,
     every cell in a worker process of its own, its store in a temporary
     directory. (a) ``campaign --no-ssh --axis workload=register,append
     --seeds 2 --monitor --concurrency 10n --per-key-limit 200
-    --time-limit 3 --workers local,local --backends gpu,cpu
+    --time-limit 3 --workers local,local,local,local --backends gpu,cpu
     --worker-store <tmp>`` through ``__main__.main``: exit 0, every
     cell's record on the ``gpu`` tier (``cpu`` in a CPU rehearsal) and
     True, every run mirrored home by the artifact sync, the finalize
     audit without error, ``certify_campaign`` of all four mirrored runs
-    without error, two worker lanes in ``campaign_trace.jsonl``, and at
+    without error, four worker lanes in ``campaign_trace.jsonl``, and at
     least one register cell's mirrored ``metrics.json`` holding the phase
     plane's ``compile`` lap: the mark, armed only on the card, that the
     worker process loaded the rollout kernel's library and searched with
@@ -2917,7 +2941,7 @@ def fleet_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT, per_key=CAMPAIGN_PER_KEY,
     argv = ["campaign", "--no-ssh", "--axis", "workload=register,append",
             "--seeds", "2", "--monitor", "--concurrency", "10n",
             "--per-key-limit", str(per_key), "--time-limit",
-            str(time_limit), "--workers", "local,local", "--backends",
+            str(time_limit), "--workers", FLEET_WORKERS, "--backends",
             "gpu,cpu", "--worker-store", wstore] + \
         ([] if cuda else ["--device", "cpu"])
 
@@ -2979,7 +3003,8 @@ def fleet_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT, per_key=CAMPAIGN_PER_KEY,
                 or not cert["sampled"] == cert["of"] == 4:
             raise AssertionError(f"fleet a: audit {fa}, "
                                  f"certification {cert}")
-        if sorted(trace.get("workers") or {}) != ["local", "local#2"]:
+        if sorted(trace.get("workers") or {}) \
+                != ["local", "local#2", "local#3", "local#4"]:
             raise AssertionError(f"fleet a: merged trace lanes "
                                  f"{trace.get('workers')}")
         if cuda and not any(v > 0 for v in register_laps.values()):
@@ -3019,7 +3044,7 @@ def fleet_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT, per_key=CAMPAIGN_PER_KEY,
         t0 = time.monotonic()
         with contextlib.redirect_stdout(sys.stderr):
             rep_b = fleet.run_fleet(
-                cells, fleet.parse_workers("local,local"),
+                cells, fleet.parse_workers(FLEET_WORKERS),
                 campaign_id="steal",
                 builder="jepsen_tpu_torch.demo:demo_test",
                 base_options=cli._jsonable_options(options),
@@ -3567,6 +3592,543 @@ def txn_phase(dev, n_txns=TXN_TXNS, chunk=TXN_CHUNK, closure_n=CLOSURE_N,
             "squaring_ms": squaring}
 
 
+#: the service phase (``jepsen_tpu_torch/fleet/service.py``, ``web.py``):
+#: SERVICE_TENANTS client threads each POST one keyed history of
+#: SERVICE_KEYS_PER keys of the batch above (32 keys, the gate's oracle
+#: covers them); SERVICE_TXN_TENANTS txn tenants of SERVICE_TXNS
+#: list-append txns, every other one with a G1c cycle between the first
+#: txns of keys SERVICE_TXN_G1C; SERVICE_STREAMS StreamChecks over the
+#: first keys, checked every STREAM_CHUNK completions, at the hard
+#: frontier cap as in the streamlin phase; and the admission burst. The
+#: keys of SERVICE_STREAMS_WHOLE are streamed whole: the corrupted key 7,
+#: whose frontier empties at event 326 of 400, and the valid keys 3 and
+#: 14 (frontiers of at most 192 and 320 rows) beside it, so that the
+#: folds that catch the violation hold valid lanes too. The other keys
+#: stream their first SERVICE_STREAM_EVENTS events: whole, the 16 keys'
+#: frontiers reach 65,536 rows (key 4) and the fold lane took 68.2 s; the
+#: corrupted key 15 whole (its frontier empties at event 387, at 5,376
+#: rows) paced every batch and held the lane to 28.7 s (PERF.md). Each
+#: mode's untimed first request checks the first SERVICE_WARM_EVENTS
+#: events of key 0
+SERVICE_TENANTS, SERVICE_KEYS_PER = 8, 4
+SERVICE_TXN_TENANTS, SERVICE_TXNS, SERVICE_TXN_G1C = 4, 1024, (512, 520)
+SERVICE_STREAMS, SERVICE_STREAM_EVENTS, SERVICE_BURST = 16, 32, 8
+SERVICE_STREAMS_WHOLE = (3, 7, 14)
+#: a stream's summary fields that say which path its folds took
+LANE_FIELDS = ("coalesced_folds", "solo_folds", "batch_peak", "device_s")
+SERVICE_WARM_EVENTS = 50
+SERVICE_TOKEN = "smoke-token"
+
+
+def http_call(base, path, body=None, token=None, headers=None,
+              timeout=300.0):
+    """One request: (status, headers, parsed JSON or text body)."""
+    import http.client
+    import urllib.parse
+    u = urllib.parse.urlparse(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    hdrs = dict(headers or {})
+    if token:
+        hdrs["Authorization"] = f"Bearer {token}"
+    data = None
+    if body is not None:
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        hdrs.setdefault("Content-Type", "application/json")
+        hdrs.setdefault("Content-Length", str(len(data)))
+    try:
+        conn.putrequest("POST" if body is not None else "GET", path)
+        for k, v in hdrs.items():
+            conn.putheader(k, v)
+        conn.endheaders()
+        if data is not None and int(hdrs["Content-Length"]) == len(data):
+            conn.send(data)
+        elif data is not None:
+            conn.send(data[:1])         # an oversized declared body
+        resp = conn.getresponse()
+        raw = resp.read()
+        ctype = resp.getheader("Content-Type") or ""
+        out = json.loads(raw) if "json" in ctype else raw.decode()
+        return resp.status, dict(resp.getheaders()), out
+    finally:
+        conn.close()
+
+
+def service_keyed(keys, ids):
+    """One keyed /api/check history of the batch keys ``ids``: each op's
+    value ``[key, value]``, processes disjoint across keys."""
+    out = []
+    for j, k in enumerate(ids):
+        for o in keys[k]:
+            o = {f: v for f, v in o.items() if f != "index"}
+            o["process"] = o["process"] + 1000 * j
+            o["value"] = [k, o.get("value")]
+            out.append(o)
+    return out
+
+
+def concurrent(fns):
+    """Run the callables on threads of their own, started together;
+    returns (results in order, each call's seconds, the wall)."""
+    import threading
+    res, secs, errs = [None] * len(fns), [0.0] * len(fns), []
+    gate = threading.Barrier(len(fns))
+
+    def run(i):
+        try:
+            gate.wait()
+            t0 = time.monotonic()
+            res[i] = fns[i]()
+            secs[i] = time.monotonic() - t0
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errs.append((i, exc))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent calls failed: {errs}")
+    return res, secs, wall
+
+
+def quantile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def service_phase(dev, keys, oracle, tenants=SERVICE_TENANTS,
+                  per_tenant=SERVICE_KEYS_PER, txn_tenants=SERVICE_TXN_TENANTS,
+                  txns=SERVICE_TXNS, g1c=SERVICE_TXN_G1C,
+                  streams=SERVICE_STREAMS,
+                  stream_events=SERVICE_STREAM_EVENTS,
+                  streams_whole=SERVICE_STREAMS_WHOLE,
+                  stream_chunk=STREAM_CHUNK, burst=SERVICE_BURST):
+    """Checking as a service (``fleet/service.py``, ``web.py``) as its
+    users drive it. (a) ``web.serve`` in this process, coalescing on at
+    its defaults (25 ms, 32 segments), on the card: ``tenants`` client
+    threads each POST a keyed history of ``per_tenant`` batch keys to
+    ``/api/check``, once with ``"coalesce": false`` and once coalesced,
+    each mode after one untimed request (a prefix of key 0): every
+    key's verdict equal to
+    the CPU oracle's and the two modes equal; checks per second, request
+    latency, the coalescer's batches, segments, occupancy, owners and
+    queue wait; rollout launches per mode (the solo path's searches
+    launch the kernel, a coalesced batch pins the scan). (b) Txn tenants
+    POST list-append histories (``family`` txn), two with a G1c cycle:
+    verdicts and anomaly classes equal to ``cycle.append.check`` on the
+    card, at least two closure probes coalesced. (c) ``streams``
+    StreamChecks over the first keys, those of ``streams_whole`` whole
+    (a corrupted key stops where its frontier empties) and the others
+    their first ``stream_events`` events, fed event by event from a
+    thread each beside the live coalescer: folds coalesced, a batch of
+    at least two streams, no fold's violation refuted by its confirm,
+    each whole stream's final verdict equal to the
+    CPU oracle's on its key and each prefix's equal to the CPU sweep's
+    (``linear``), and each prefix fed again to a solo stream
+    (``coalesce?`` off) giving the same verdict and summary apart from
+    the lane's fields; seconds per event. (d)
+    ``python -m jepsen_tpu_torch serve --token`` in a subprocess,
+    started with the phase so its start-up runs beside (a)-(c): 401
+    without the token, (a)'s verdict of one key with it, 413 for an
+    oversized body, the coalescer's series on
+    ``/api/metrics``, exit 0 within 10 s of SIGINT. (e) Admission at one
+    check in flight, one waiting and no wait: a burst of ``burst``
+    checks sheds at least one 429 with Retry-After, and every 200
+    carries the oracle's verdict (each burst check with ``"coalesce":
+    false``: a batch of one would pay the scan rollout's iterations,
+    and the burst is about the gate)."""
+    import signal
+    import tempfile
+    from jepsen_tpu_torch import models, simulate, store, web
+    from jepsen_tpu_torch.checker import linear, rollout, streamlin
+    from jepsen_tpu_torch.cycle import append
+    from jepsen_tpu_torch.fleet import service
+    from jepsen_tpu_torch.monitor.wgl_stream import StreamCheck
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    spec = models.cas_register_spec
+    out = {"phase": "service"}
+    launches = {}
+    base_dir = store.base_dir
+    tmp = tempfile.mkdtemp(prefix="jepsen-service-")
+    store.base_dir = os.path.join(tmp, "store")
+    # (d)'s process starts first: its imports and its first check (a
+    # fresh CUDA context) run beside (a)-(c), and (d) reads the answers
+    serve = ServeProcess(tmp, cuda, {"history": keys[0],
+                                     "model": "cas-register"})
+    try:
+        service.reset()
+        # one token per tenant: the gate names each caller by its token,
+        # and the coalescer counts a batch's owners by those names
+        tokens = {f"tenant-{t}-token": f"tenant-{t}"
+                  for t in range(max(tenants, txn_tenants))}
+        service.configure(tokens=tokens)
+        tok = sorted(tokens)
+        server = web.serve({"ip": "127.0.0.1", "port": 0, "device": dev.type})
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            # -- (a) tenants: solo, then coalesced --------------------------
+            t_a = time.monotonic()
+            ids = [list(range(t * per_tenant, (t + 1) * per_tenant))
+                   for t in range(tenants)]
+            payloads = [{"history": service_keyed(keys, i), "keyed": True,
+                         "model": "cas-register"} for i in ids]
+            a = {}
+            verdicts = {}
+            for mode, flag in (("solo", False), ("coalesced", True)):
+                st, _h, warm = http_call(
+                    url, "/api/check",
+                    {"history": keys[0][:SERVICE_WARM_EVENTS],
+                     "model": "cas-register", "coalesce": flag},
+                    token=tok[0])
+                if st != 200:
+                    raise AssertionError(f"service a: warm-up {st} {warm}")
+                sync(dev)
+                before = service.coalescer().stats()
+                reg = service.slo_registry()
+                w0 = reg.histogram("service.coalesce.wait_s")
+                w0 = (w0.sum, w0.count) if w0 else (0.0, 0)
+                rollout.launches = 0
+                res, secs, wall = concurrent([
+                    (lambda p=p, t=t: http_call(url, "/api/check",
+                                                dict(p, coalesce=flag),
+                                                token=t))
+                    for p, t in zip(payloads, tok)])
+                sync(dev)
+                launches[f"service_{mode}"] = rollout.launches
+                got = {}
+                for i, (st, _h, body) in zip(ids, res):
+                    if st != 200:
+                        raise AssertionError(f"service a {mode}: {st} {body}")
+                    for k in i:
+                        got[k] = body["keys"][str(k)]["valid"]
+                want = {k: oracle[k] for i in ids for k in i}
+                if got != want:
+                    raise AssertionError(f"service a {mode}: verdicts {got} "
+                                         f"!= oracle {want}")
+                verdicts[mode] = got
+                after = service.coalescer().stats()
+                w1 = reg.histogram("service.coalesce.wait_s")
+                w1 = (w1.sum, w1.count) if w1 else (0.0, 0)
+                n_keys = sum(len(i) for i in ids)
+                row = {"wall_s": wall, "requests": len(payloads),
+                       "key_checks": n_keys, "checks_per_s": n_keys / wall,
+                       "requests_per_s": len(payloads) / wall,
+                       "latency_p50_s": quantile(secs, 0.5),
+                       "latency_p99_s": quantile(secs, 0.99),
+                       "rollout_launches": rollout.launches,
+                       "batches": after["batches"] - before["batches"],
+                       "segments": after["segments"] - before["segments"],
+                       "lanes": after["lanes"] - before["lanes"]}
+                row["occupancy"] = row["segments"] / row["lanes"] \
+                    if row["lanes"] else None
+                row["queue_wait_mean_s"] = (w1[0] - w0[0]) / (w1[1] - w0[1]) \
+                    if w1[1] > w0[1] else None
+                if flag:
+                    row["owners_max"] = max(
+                        (r["coalesced"]["owners"]
+                         for _s, _h, b in res for r in b["keys"].values()
+                         if "coalesced" in r), default=0)
+                    owners = reg.histogram("service.coalesce.owners")
+                    row["owners_hist_max"] = owners.max if owners else 0
+                    if row["batches"] < 1 or row["owners_max"] < 2 \
+                            or row["owners_hist_max"] < 2:
+                        raise AssertionError(f"service a: no cross-tenant "
+                                             f"batch: {row}")
+                    scan_only("service a coalesced")
+                elif cuda and rollout.launches <= 0:
+                    raise AssertionError("service a solo: the solo searches "
+                                         "never launched the rollout kernel")
+                a[mode] = row
+            if verdicts["solo"] != verdicts["coalesced"]:
+                raise AssertionError("service a: the modes disagree")
+            a["invalid_keys"] = sorted(k for k, v in verdicts["solo"].items()
+                                       if v is False)
+            a["seconds"] = time.monotonic() - t_a
+            out["a"] = a
+
+            # -- (b) the txn lane --------------------------------------------
+            t_b = time.monotonic()
+            hists = [simulate.txn_append_history(
+                txns, TXN_APPENDS, TXN_PROCS, g1c=g1c if t % 2 else None)
+                for t in range(txn_tenants)]
+            offline = [append.check(h, device=dev) for h in hists]
+            b0 = service.coalescer().stats()
+            rollout.launches = 0
+            res, secs, wall = concurrent([
+                (lambda h=h, t=t: http_call(url, "/api/check",
+                                            {"family": "txn",
+                                             "workload": "append",
+                                             "history": h}, token=t))
+                for h, t in zip(hists, tok)])
+            launches["service_txn"] = scan_only("service b")
+            for t, ((st, _h, body), want) in enumerate(zip(res, offline)):
+                if st != 200 or body["valid"] is not want["valid"] \
+                        or sorted(body["anomaly_types"]) \
+                        != sorted(want["anomaly_types"]) \
+                        or want["valid"] is not (t % 2 == 0):
+                    raise AssertionError(f"service b tenant {t}: {st} "
+                                         f"{body.get('valid')!r} "
+                                         f"{body.get('anomaly_types')} != "
+                                         f"{want['valid']!r} "
+                                         f"{want['anomaly_types']}")
+            coalesced = sum("coalesced" in body for _s, _h, body in res)
+            if coalesced < 2:
+                raise AssertionError(f"service b: {coalesced} coalesced "
+                                     f"probes")
+            b1 = service.coalescer().stats()
+            out["b"] = {"tenants": txn_tenants, "txns": txns, "wall_s": wall,
+                        "latency_p50_s": quantile(secs, 0.5),
+                        "latency_p99_s": quantile(secs, 0.99),
+                        "coalesced": coalesced,
+                        "batches": b1["batches"] - b0["batches"],
+                        "segments": b1["segments"] - b0["segments"],
+                        "invalid": [t for t, w in enumerate(offline)
+                                    if w["valid"] is False],
+                        "seconds": time.monotonic() - t_b}
+
+            # -- (c) the fold lane --------------------------------------------
+            t_c = time.monotonic()
+            streams_whole = [k for k in streams_whole if k < streams]
+            checks = [StreamCheck(spec, opts={
+                "frontier-cap": streamlin.FRONTIER_CAP_MAX,
+                "owner": f"stream-{k}"}, device=dev) for k in range(streams)]
+            streamed = [keys[k] if k in streams_whole
+                        else keys[k][:stream_events] for k in range(streams)]
+            fed = [0] * streams
+
+            def feed(sc, k):
+                n = 0
+                for i, op in enumerate(streamed[k]):
+                    fed[k] = i + 1
+                    if sc.offer(op, i):
+                        n += 1
+                        if n % stream_chunk == 0:
+                            r = sc.check()
+                            if r["valid"] is not True:
+                                return r["valid"]
+                return sc.check()["valid"]
+
+            rollout.launches = 0
+            got, secs, wall = concurrent([(lambda k=k: feed(checks[k], k))
+                                          for k in range(streams)])
+            sync(dev)
+            launches["service_fold"] = rollout.launches
+            summ = [sc.stream_summary() for sc in checks]
+            # the whole streams against the gate's CPU oracle on their
+            # keys, each prefix against the CPU sweep
+            t0 = time.monotonic()
+            want = [oracle[k] if k in streams_whole else
+                    linear.check_encoded(spec, *spec.encode(streamed[k]))[
+                        "valid"] for k in range(streams)]
+            oracle_s = time.monotonic() - t0
+            if got != want:
+                raise AssertionError(f"service c: streams {got} != CPU "
+                                     f"oracle {want}")
+            invalid = [k for k, v in enumerate(got) if v is False]
+            if invalid != [k for k in streams_whole
+                           if k % CORRUPT_EVERY == CORRUPT_EVERY - 1]:
+                raise AssertionError(f"service c: invalid streams "
+                                     f"{invalid}")
+            # each prefix again as a solo stream (coalesce? off): the
+            # same verdict and the same summary but for the lane's own
+            # fields, so no lane hands a stream another one's fold
+            t0 = time.monotonic()
+            for k in (k for k in range(streams) if k not in streams_whole):
+                sc = StreamCheck(spec, opts={
+                    "frontier-cap": streamlin.FRONTIER_CAP_MAX,
+                    "coalesce?": False}, device=dev)
+                v = feed(sc, k)
+                solo, lane = (
+                    {f: x for f, x in d.items() if f not in LANE_FIELDS}
+                    for d in (sc.stream_summary(), summ[k]))
+                if v != got[k] or solo != lane:
+                    raise AssertionError(f"service c: stream {k} {got[k]} "
+                                         f"{lane} != solo {v} {solo}")
+            solo_s = time.monotonic() - t0
+            peak = max(s["batch_peak"] for s in summ)
+            co = sum(s["coalesced_folds"] for s in summ)
+            if co <= 0 or peak < 2 or any(s.get("fallback") for s in summ) \
+                    or any(s["confirm_mismatches"] for s in summ) \
+                    or any(summ[k]["coalesced_folds"] <= 0
+                           for k in streams_whole):
+                raise AssertionError(
+                    f"service c: coalesced folds "
+                    f"{[s['coalesced_folds'] for s in summ]}, batch peak "
+                    f"{peak}, fallbacks {[s.get('fallback') for s in summ]}"
+                    f", confirm mismatches "
+                    f"{[s['confirm_mismatches'] for s in summ]}")
+            events = sum(fed)
+            out["c"] = {"streams": streams, "events_per_stream": stream_events,
+                        "whole": streams_whole,
+                        "events_fed": fed, "events": events, "wall_s": wall,
+                        "s_per_event": wall / events,
+                        "whole_stream_s": {k: secs[k] for k in streams_whole},
+                        "coalesced_folds": co,
+                        "solo_folds": sum(s["solo_folds"] for s in summ),
+                        "batch_peak": peak,
+                        "frontier_cap_rows": [c.F for c in checks],
+                        "frontier_peak": [s["frontier_peak"] for s in summ],
+                        "invalid": invalid,
+                        "cpu_oracle_s": oracle_s,
+                        "solo_streams_s": solo_s,
+                        "seconds": time.monotonic() - t_c}
+        finally:
+            server.shutdown()
+            server.server_close()
+
+        # -- (d) the entry point in a subprocess ------------------------------
+        t_d = time.monotonic()
+        try:
+            serve.thread.join(timeout=180)
+            first = serve.first
+            if "error" in first or serve.thread.is_alive():
+                raise AssertionError(f"service d: {first}")
+            st200, _h, body = first["200"]
+            st413, _h, _b = http_call(
+                serve.url, "/api/check", b"x", token=SERVICE_TOKEN,
+                headers={"Content-Length": str(service.MAX_BODY_BYTES + 1)})
+            stm, _h, text = http_call(serve.url, "/api/metrics",
+                                      token=SERVICE_TOKEN)
+            got = body.get("valid") if st200 == 200 else body
+            if (first["401"], st200, st413, stm) != (401, 200, 413, 200) \
+                    or got != verdicts["coalesced"][0] \
+                    or "jepsen_service_coalesce_batches" not in text:
+                raise AssertionError(f"service d: {first['401']} {st200} "
+                                     f"{st413} {stm}, verdict {got}")
+            t0 = time.monotonic()
+            serve.proc.send_signal(signal.SIGINT)
+            code = serve.proc.wait(timeout=10)
+            stop_s = time.monotonic() - t0
+            if code != 0:
+                raise AssertionError(f"service d: serve exited {code} "
+                                     f"on SIGINT")
+        except BaseException:
+            print(serve.output()[-4000:], file=sys.stderr)
+            raise
+        out["d"] = {"listening_s": first["listening_s"],
+                    "first_check_s": first["first_check_s"],
+                    "statuses": [first["401"], st200, st413, stm],
+                    "sigint_exit": code, "stop_s": stop_s,
+                    "seconds": time.monotonic() - t_d}
+
+        # -- (e) admission: one in flight, one waiting, no wait ---------------
+        t_e = time.monotonic()
+        service.reset()
+        server = web.serve({"ip": "127.0.0.1", "port": 0, "device": dev.type,
+                            "budgets": {"concurrent-checks": 1,
+                                        "queue-depth": 1},
+                            "queue-wait-s": 0})
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            rollout.launches = 0
+            res, _secs, wall = concurrent([
+                (lambda k=k: http_call(url, "/api/check",
+                                       {"history": keys[k],
+                                        "model": "cas-register",
+                                        "coalesce": False}))
+                for k in range(burst)])
+            sync(dev)
+            launches["service_admission"] = rollout.launches
+            shed = [k for k, (st, h, _b) in enumerate(res)
+                    if st == 429 and int(h.get("Retry-After", 0)) >= 1]
+            ok = {k: b["valid"] for k, (st, _h, b) in enumerate(res)
+                  if st == 200}
+            other = [(k, st) for k, (st, _h, _b) in enumerate(res)
+                     if st not in (200, 429)]
+            if not shed or other or not ok \
+                    or any(v != oracle[k] for k, v in ok.items()):
+                raise AssertionError(f"service e: shed {shed}, 200s {ok}, "
+                                     f"other {other}")
+            out["e"] = {"burst": burst, "shed": len(shed), "ok": len(ok),
+                        "shed_total": service.admission().shed_count,
+                        "wall_s": wall, "seconds": time.monotonic() - t_e}
+        finally:
+            server.shutdown()
+            server.server_close()
+        out["launches"] = launches
+        out["seconds"] = time.monotonic() - t_start
+        return out
+    finally:
+        serve.kill()
+        service.reset()
+        store.base_dir = base_dir
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class ServeProcess:
+    """``python -m jepsen_tpu_torch serve --token`` on a free loopback
+    port, started now; a thread waits for it to listen, then sends one
+    check without the token and one with it."""
+
+    def __init__(self, tmp, cuda, check):
+        import socket
+        import threading
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        cmd = [sys.executable, "-m", "jepsen_tpu_torch", "serve",
+               "--host", "127.0.0.1", "--port", str(self.port), "--token",
+               SERVICE_TOKEN] + ([] if cuda else ["--device", "cpu"])
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.check = check
+        self.log = open(os.path.join(tmp, "serve.log"), "w+")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(cmd, cwd=tmp, env=env,
+                                     stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+        self.first = {}
+        self.thread = threading.Thread(target=self._first, daemon=True)
+        self.thread.start()
+
+    def _first(self):
+        import socket
+        try:
+            deadline = time.monotonic() + 180
+            while True:
+                if self.proc.poll() is not None:
+                    raise AssertionError(f"serve exited "
+                                         f"{self.proc.returncode} before "
+                                         f"listening")
+                try:
+                    with socket.create_connection(("127.0.0.1",
+                                                   self.port), 1):
+                        break
+                except OSError:
+                    if time.monotonic() > deadline:
+                        raise AssertionError(
+                            "serve never listened") from None
+                    time.sleep(0.1)
+            self.first["listening_s"] = time.monotonic() - self.t0
+            self.first["401"] = http_call(self.url, "/api/check",
+                                          self.check)[0]
+            t0 = time.monotonic()
+            self.first["200"] = http_call(self.url, "/api/check",
+                                          self.check, token=SERVICE_TOKEN)
+            self.first["first_check_s"] = time.monotonic() - t0
+        except Exception as exc:  # noqa: BLE001 - read by (d)
+            self.first["error"] = exc
+
+    def output(self):
+        self.log.seek(0)
+        return self.log.read()
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+
 def main(argv):
     import torch
     if argv:
@@ -3685,6 +4247,10 @@ def main(argv):
     rollout.launches = 0
     emit(txn_phase(dev))
     txn_launches = scan_only("txn")
+
+    # -- 18. service: /api/check tenants, the coalescer's lanes, serve -----
+    svc_row = service_phase(dev, keys, oracle)
+    emit(svc_row)
     by_path = {"main": main_launches, **gate["launches"],
                **obs_row["launches"], "mesh": mesh_row["launches"],
                **run_row["launches"], **mon_row["launches"],
@@ -3694,7 +4260,8 @@ def main(argv):
                "independent": ind["rollout_launches"],
                **{c["model"]: c["rollout_launches"]
                   for c in queues["checks"] if "rollout_launches" in c},
-               "streamlin": stream_launches, "txn": txn_launches}
+               "streamlin": stream_launches, "txn": txn_launches,
+               **svc_row["launches"]}
 
     main_shape = cases[1]
     emit({"kernels": [{

@@ -9,7 +9,10 @@ port's copy of ``jepsen_tpu/__main__.py``).
     python -m jepsen_tpu_torch campaign --no-ssh --axis workload=register \
         --seeds 2 --parallel 2
 
-``serve`` is registered and raises until ROADMAP.md A.11(d4) ports it.
+    python -m jepsen_tpu_torch serve --host 127.0.0.1 --token T
+
+``serve`` runs the store viewer and the submission API (``/api/check``)
+on the card (``--device cpu`` for the plain PyTorch path).
 """
 
 from __future__ import annotations

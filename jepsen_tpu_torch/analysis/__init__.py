@@ -30,9 +30,9 @@
   ``PlanLintError``), and the knob passes the campaign command runs on
   every invocation: PL012 (the sweep matrix), PL018 (fleetlint), PL020
   (coalescing) and PL024 (coordinator HA), with PL014 (the fleet's
-  config) under fleet knobs. The service lint (PL016) comes with the
-  service (ROADMAP.md A.11(d4)), the capacity pass with the planner
-  (A.11(d5)).
+  config) under fleet knobs and the service lint (PL016) under
+  ``--serve`` or fleet knobs, and before ``serve`` binds its socket.
+  The capacity pass comes with the planner (ROADMAP.md A.11(d5)).
 * **fleetmodel** / **fleetlint** -- the campaign control plane's
   recorded history (``campaign.json``, ``cells.jsonl``, per-run traces)
   replayed against its protocol's invariants (FL001-FL016) into

@@ -40,6 +40,10 @@ JAX package's ``cli.py:842-873``):
   PL012 mixed    campaign sweep matrix (``lint_campaign``)
   PL014 mixed    fleet config (``lint_fleet``): workers, lease, backend
                  tiers (the port's: gpu, cpu), lease vs time-limit
+  PL016 mixed    service robustness (``lint_service``): a non-loopback
+                 --serve bind with no auth token, non-positive
+                 admission budgets, queue-wait or artifact-sync timeout
+                 (errors); a sync timeout at or past the lease (warning)
   PL018 mixed    fleetlint knob and the --resume journal gate
                  (``lint_fleetlint``)
   PL020 mixed    cross-tenant coalescing knobs (``lint_coalesce``)
@@ -51,8 +55,10 @@ False``); everything else is logged and recorded. The fleet lint
 (PL014, ``lint_fleet``) runs with fleet knobs (``--workers``,
 ``--backends``) and inside ``fleet.run_fleet``; PL017's fleet half
 (a trace merge with artifact sync off) rides ``lint_telemetry``. The
-service lint (PL016) comes with the service (ROADMAP.md A.11(d4)) and
-the capacity pass (PL021) with the planner (A.11(d5)).
+service lint (PL016, ``lint_service``) runs in the campaign preflight
+with ``--serve`` or ``--workers``, inside ``fleet.run_fleet`` and before
+``serve`` binds its socket. The capacity pass (PL021) comes with the
+planner (ROADMAP.md A.11(d5)).
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["lint_plan", "lint_telemetry", "lint_introspection",
            "lint_trend", "lint_certify", "lint_campaign", "lint_fleet",
-           "lint_coalesce",
+           "lint_service", "lint_coalesce",
            "lint_fleetlint", "lint_ha", "FLEETLINT_MODES", "preflight",
            "PlanLintError", "FATAL_CODES", "monitor_diags",
            "searchplan_diags", "robustness_knob_diags"]
@@ -80,7 +86,8 @@ _CLIENT_PROTOCOL = ("open", "setup", "invoke", "teardown", "close",
 _NEMESIS_PROTOCOL = ("setup", "invoke", "teardown")
 
 
-#: binds that need no auth token for GET /api/metrics
+#: bind addresses that never leave the machine: PL016 demands a token
+#: for any other --serve bind, PL017 for GET /api/metrics on one
 _LOOPBACK_BINDS = ("127.0.0.1", "::1", "localhost")
 
 
@@ -966,6 +973,73 @@ def lint_fleet(cfg):
             "fleet.lease-s",
             "set the lease comfortably above the cell budget "
             "(time-limit plus setup/check headroom)"))
+    return diags
+
+
+def lint_service(cfg):
+    """PL016: fleet/service robustness preflight, before any socket is
+    bound or artifact synced. Recognized keys: ``serve?``,
+    ``serve-ip`` (the bind address), ``auth-token?`` (whether any
+    token is configured), ``budgets`` (the service.Admission budget
+    mapping), ``queue-wait-s``, ``sync-timeout-s``, and ``lease-s``
+    (for the sync-vs-lease warning)."""
+    diags = []
+    cfg = cfg or {}
+    if cfg.get("serve?"):
+        ip = cfg.get("serve-ip")
+        # an unset bind means the historical default 0.0.0.0: the
+        # most exposed case, not an excuse to skip the check
+        if str(ip or "0.0.0.0") not in _LOOPBACK_BINDS \
+                and not cfg.get("auth-token?"):
+            diags.append(diag(
+                "PL016", ERROR,
+                f"--serve binds {ip or '0.0.0.0'!r} (non-loopback) "
+                "with no auth token: anyone who can reach the port "
+                "can submit NP-hard checks and campaigns",
+                "service.auth-token",
+                "pass --auth-token (or bind 127.0.0.1)"))
+    budgets = cfg.get("budgets")
+    if isinstance(budgets, dict):
+        for k in ("concurrent-checks", "queue-depth", "campaigns",
+                  "ops-per-day"):
+            v = budgets.get(k)
+            if v is None:
+                continue
+            if not isinstance(v, int) or isinstance(v, bool) or v <= 0:
+                diags.append(diag(
+                    "PL016", ERROR,
+                    f"service budget {k!r} must be a positive "
+                    f"integer, got {v!r}",
+                    f"service.budgets.{k}",
+                    "a zero/negative budget rejects every request; "
+                    "omit the key for the default"))
+    qw = cfg.get("queue-wait-s")
+    if qw is not None and (not isinstance(qw, (int, float))
+                           or isinstance(qw, bool) or qw <= 0):
+        diags.append(diag(
+            "PL016", ERROR,
+            f"queue-wait-s must be a positive number, got {qw!r}",
+            "service.queue-wait-s"))
+    st = cfg.get("sync-timeout-s")
+    if st is not None and (not isinstance(st, (int, float))
+                           or isinstance(st, bool) or st <= 0):
+        diags.append(diag(
+            "PL016", ERROR,
+            f"sync-timeout-s must be a positive number, got {st!r}",
+            "fleet.sync-timeout-s",
+            "the artifact-sync wall bound is what keeps a wedged "
+            "download from wedging the coordinator"))
+        st = None
+    lease = cfg.get("lease-s")
+    if st is not None and isinstance(lease, (int, float)) \
+            and not isinstance(lease, bool) and 0 < lease <= st:
+        diags.append(diag(
+            "PL016", WARNING,
+            f"sync-timeout-s {st:g} >= lease-s {lease:g}: syncing a "
+            "finished cell holds its lease open longer than the "
+            "worker-death detection bound itself",
+            "fleet.sync-timeout-s",
+            "keep the artifact-sync budget well under the lease TTL"))
     return diags
 
 

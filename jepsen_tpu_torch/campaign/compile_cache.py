@@ -26,6 +26,10 @@ the fleet's worker processes: ``note`` re-reads sibling processes'
 appends before declaring a miss. The fleet's finalize folds the
 workers' per-cell deltas (and the cold/warm wall split) from there.
 
+``bucket`` and ``bucket_for`` are the shared pow-2 shape rule: the
+service's cross-tenant coalescer groups ``/api/check`` segments on
+``bucket_for(n_ops)``, the op-count bucket every engine pads to.
+
 Not carried over (ROADMAP.md, deliberate divergences): the settable
 op-count floor (``set_n_floor`` / ``bucket_floor``): a coarser bucket
 buys the port no reuse, only padding rows, so the floor stays the
@@ -43,14 +47,26 @@ from __future__ import annotations
 import threading
 
 from .. import obs
+from ..util import bucket
 
-__all__ = ["note", "stats", "delta", "reset", "set_ledger", "get_ledger"]
+__all__ = ["note", "stats", "delta", "reset", "set_ledger", "get_ledger",
+           "bucket", "bucket_for"]
 
 _lock = threading.Lock()
 _seen: set = set()
 _hits: dict = {}          # engine -> int
 _misses: dict = {}        # engine -> int
 _ledger = None            # fleet.ledger.Ledger when persistence is on
+
+
+def bucket_for(n_ops):
+    """The op-count bucket an encoded history of ``n_ops`` rows pads
+    to: ``bucket(n_ops, floor)`` with the engines' floor
+    (``torch_wgl._n_floor``, the constant 64). The service's coalescer
+    batches ``/api/check`` segments on it, so a giant history never
+    inflates a small batchmate's padding."""
+    from ..checker.torch_wgl import _n_floor
+    return bucket(n_ops, _n_floor())
 
 
 def set_ledger(ledger):

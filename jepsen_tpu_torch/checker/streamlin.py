@@ -64,12 +64,15 @@ of one shape in one fold; under a bound obs registry ``batch_fold``
 records the JAX batch fold's plan and heartbeat (``obs/search.py``)
 from numbers it has already read. Each fold notes its plan shape to
 the campaign's plan-shape counter (``campaign.compile_cache``, labels
-``"torch-streamlin"`` / ``"torch-streamlin-batch"``). The reference's
-coalescer lane (``fold_lane_spec``) waits for ROADMAP.md A.11(d4).
+``"torch-streamlin"`` / ``"torch-streamlin-batch"``). The service's
+coalescer (``fleet/service.py``) batches monitored streams' folds on one
+lane per model (``fold_lane_spec``, named ``"streamlin:<model>"``) and
+hands each batch to ``batch_fold`` with its owners and event bucket.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -85,7 +88,8 @@ from . import words
 
 __all__ = ["DEFAULT_FRONTIER_CAP", "FRONTIER_CAP_MAX",
            "DEFAULT_WINDOW_CAP", "WINDOW_FLOOR", "OPEN_FLOOR",
-           "EVENT_FLOOR", "FoldJob", "fresh_frontier", "history_job",
+           "EVENT_FLOOR", "STREAM_LANE_PREFIX", "FoldJob",
+           "fold_lane_spec", "fresh_frontier", "history_job",
            "solo_fold", "batch_fold", "check_encoded"]
 
 #: default / hard maximum frontier capacity (configs)
@@ -103,6 +107,11 @@ WINDOW_FLOOR = 64
 #: pow-2 floors for the open-op candidate axis and the event axis
 OPEN_FLOOR = 8
 EVENT_FLOOR = 64
+
+#: the coalescer lane's model-name prefix: monitor folds queue per
+#: ("streamlin:<model>", pow-2 event bucket) like WGL tenants queue
+#: per (model, op bucket)
+STREAM_LANE_PREFIX = "streamlin:"
 
 #: positional order of FoldJob.arrays
 _ARRAY_ORDER = ("lin", "st", "live", "open_w", "ev_kind", "ev_slot",
@@ -403,6 +412,33 @@ class FoldJob:
         return (self.spec.name, self.F, self.B, self.S, self.C, self.A)
 
 
+class _FoldLaneSpec:
+    """The coalescer's stand-in "model" for stream frontier folds:
+    monitored streams queue per (``streamlin:<model>``, pow-2 event
+    bucket) as WGL tenants queue per (model, op bucket), and one
+    lane-batched fold answers the whole batch (``batch_fold``)."""
+
+    __slots__ = ("name", "spec")
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.name = STREAM_LANE_PREFIX + spec.name
+
+
+_lane_lock = threading.Lock()
+_lane_specs: dict = {}
+
+
+def fold_lane_spec(spec):
+    """The interned coalescer lane spec for a model (one per model, so
+    every stream of that model shares the lane)."""
+    with _lane_lock:
+        lane = _lane_specs.get(spec.name)
+        if lane is None:
+            lane = _lane_specs[spec.name] = _FoldLaneSpec(spec)
+        return lane
+
+
 def _results(out, batch=None):
     """Per-lane result dicts of one fold (one host read)."""
     rows = _read(torch.stack(list(out[4:9]), 1))
@@ -443,24 +479,27 @@ def _pad_events(a, E):
     return np.pad(a, (0, E - a.shape[0]))
 
 
-def batch_fold(jobs):
+def batch_fold(jobs, owners=None, e_bucket=None):
     """Run many FoldJobs as lane-batched folds, grouped by full shape
-    key (a mixed batch can never mis-stack). K pads to a pow-2 with
-    inert (zero-event) lanes. Returns one result dict per job, in
-    order."""
+    key and device (a mixed batch can never mis-stack). Each group's
+    event axis pads to at least ``e_bucket`` (the coalescer's group
+    bucket) and K to a pow-2 with inert (zero-event) lanes. ``owners``
+    (parallel to ``jobs``) name the streams' tenants, pure metadata for
+    the plan record. Returns one result dict per job, in order, each
+    with ``batch``, the member count of its group."""
     results = [None] * len(jobs)
     groups: dict = {}
     for i, job in enumerate(jobs):
-        groups.setdefault(job.shape_key(), []).append(i)
+        groups.setdefault((job.shape_key(), job.device), []).append(i)
     t0 = time.monotonic()
-    for key, idxs in groups.items():
+    for (key, dev), idxs in groups.items():
         members = [jobs[i] for i in idxs]
         if len(members) == 1:
             results[idxs[0]] = dict(solo_fold(members[0]), batch=1)
             continue
-        dev = members[0].device
         model, F, B, S, C, A = key
-        E = _bucket(max(m.E for m in members), EVENT_FLOOR)
+        E = _bucket(max(max(m.E for m in members), int(e_bucket or 1)),
+                    EVENT_FLOOR)
         K = _bucket(len(members), 1)
         compile_cache.note("torch-streamlin-batch",
                            (model, K, F, B, S, C, E, A))
@@ -486,7 +525,7 @@ def batch_fold(jobs):
     so.plan("streamlin-batch",
             _bucket(max((len(j) for j in jobs), default=1), EVENT_FLOOR),
             sum(len(j) for j in jobs), sum(j.E for j in jobs),
-            keys=len(jobs), owners=1)
+            keys=len(jobs), owners=len(set(owners)) if owners else 1)
     so.heartbeat("streamlin-batch", iteration=1, chunk_s=dt, device_s=dt,
                  frontier=max((r["n_live"] for r in results if r),
                               default=0))

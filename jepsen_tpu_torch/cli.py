@@ -9,11 +9,13 @@ raises, and the run exits 255; the CPU is used only when asked for.
 or with ``--workers`` through the fleet (``fleet.run_fleet``: a fresh
 worker process per cell, leases, stealing, chaos, coordinator HA with
 ``--standby``); ``test-all`` with any campaign flag runs through the
-scheduler. The options that need later sub-slices of ROADMAP.md
-A.11(d) are registered and raise ``NotImplementedError`` (exit 255)
-before anything runs: the service's (``--serve`` and the ``serve``
-subcommand: A.11(d4)) and the capacity planner's (``--capacity``,
-``--device-mem-budget``, ``--device-slots auto``: A.11(d5)).
+scheduler. ``serve`` runs the store viewer and the submission API
+(``web.serve``: ``/api/check`` with the cross-tenant coalescer) on
+``--device`` (default: CUDA), and ``campaign --serve`` runs it beside
+the campaign. The options that need the capacity planner (ROADMAP.md
+A.11(d5)) are registered and raise ``NotImplementedError`` (exit 255)
+before anything runs: ``--capacity``, ``--device-mem-budget``,
+``--device-slots auto`` and ``serve --capacity-plan``.
 
 Exit codes (cli.clj:129-139):
 
@@ -750,7 +752,6 @@ def _jsonable_options(options):
 #: campaign options whose modules are later sub-slices of ROADMAP.md
 #: A.11(d): (option key, what needs it, the sub-slice)
 LATER_SLICE_OPTS = (
-    ("serve", "the service (fleet.service, web)", "A.11(d4)"),
     ("capacity", "the capacity planner (analysis.capplan)", "A.11(d5)"),
     ("device-mem-budget", "the capacity planner (analysis.capplan)",
      "A.11(d5)"),
@@ -795,8 +796,9 @@ def campaign_cmd(opts):
     disk instead (fleetlint). ``--workers`` runs the cells through the
     fleet (``fleet.run_fleet``), and ``--standby`` tails a fleet
     campaign and takes it over once its coordinator's lease expires.
-    The service and capacity options raise ``NotImplementedError``
-    naming their sub-slice before anything runs
+    ``--serve`` serves the viewer and ``/api`` beside the campaign
+    (PL016, PL017 and PL020 first). The capacity options raise
+    ``NotImplementedError`` naming A.11(d5) before anything runs
     (``refuse_later_slices``)."""
     test_fn = opts["test-fn"]
 
@@ -851,15 +853,25 @@ def campaign_cmd(opts):
         }
         if workers is not None:
             fleet_cfg["workers"] = [w.id for w in workers]
-        if workers is not None or options.get("backends"):
+        if workers is not None or options.get("serve") \
+                or options.get("backends"):
             diags += analysis.planlint.lint_fleet(fleet_cfg)
-        # the service's preflight (PL016) comes with the service:
-        # ROADMAP.md A.11(d4)
+        # service/sync robustness preflight (PL016) rides along the
+        # same way whenever serving or fleet sync knobs are in play
+        if workers is not None or options.get("serve"):
+            diags += analysis.planlint.lint_service({
+                "serve?": bool(options.get("serve")),
+                "serve-ip": options.get("serve-ip"),
+                "auth-token?": bool(options.get("auth-token")),
+                "sync-timeout-s": options.get("sync-timeout"),
+                "lease-s": options.get("lease"),
+            })
         # telemetry-plane preflight (PL017): flush-knob sanity always,
-        # the merge-without-sync rule whenever fleet-dispatching
+        # the exposed-metrics and merge-without-sync rules whenever
+        # serving / fleet-dispatching
         diags += analysis.planlint.lint_telemetry({
             "telemetry-flush-ms": options.get("telemetry-flush-ms"),
-            "metrics?": False,
+            "metrics?": bool(options.get("serve")),
             "serve-ip": options.get("serve-ip"),
             "auth-token?": bool(options.get("auth-token")),
             "trace-merge?": workers is not None
@@ -877,8 +889,11 @@ def campaign_cmd(opts):
         diags += analysis.planlint.lint_certify(options)
         diags += analysis.planlint.lint_fleetlint(
             {"fleetlint": options.get("fleetlint")})
+        # cross-tenant coalescing preflight (PL020) rides the same
+        # way whenever the service would be co-launched
         diags += analysis.planlint.lint_coalesce({
-            "coalesce?": False,
+            "coalesce?": bool(options.get("serve"))
+            and not options.get("no-coalesce"),
             "coalesce-window-ms": options.get("coalesce-window-ms"),
             "coalesce-max-segments":
                 options.get("coalesce-max-segments"),
@@ -955,6 +970,20 @@ def campaign_cmd(opts):
                 "--coordinator-lease-s is fleet-mode only: the "
                 "coordinator role lease lives in the fleet journal "
                 "(pass --workers, e.g. --workers local,local)")
+        if options.get("serve"):
+            # the viewer and /api beside the campaign, on the
+            # campaign's device (a missing card raises here, before
+            # any cell runs)
+            from . import web
+            web.serve({"ip": options.get("serve-ip", "0.0.0.0"),
+                       "port": options.get("serve-port", 8080),
+                       "token": options.get("auth-token"),
+                       "device": options.get("device"),
+                       "coalesce?": not options.get("no-coalesce"),
+                       "coalesce-window-ms":
+                           options.get("coalesce-window-ms"),
+                       "coalesce-max-segments":
+                           options.get("coalesce-max-segments")})
         if workers is not None:
             from . import fleet
             try:
@@ -970,12 +999,21 @@ def campaign_cmd(opts):
                     base_options=_jsonable_options(options),
                     ledger=not options.get("no-ledger"),
                     backends=options.get("backends") or None,
+                    serve=bool(options.get("serve")),
                     device_slots=options.get("device-slots", 1),
                     worker_store_dir=options.get("worker-store"),
                     sync_timeout_s=options.get("sync-timeout"),
                     chaos=options.get("chaos-profile"),
+                    serve_ip=options.get("serve-ip"),
+                    auth_token=options.get("auth-token"),
                     trace_merge=not options.get("no-trace-merge"),
                     fleetlint=options.get("fleetlint") or "on",
+                    coalesce=bool(options.get("serve"))
+                    and not options.get("no-coalesce"),
+                    coalesce_window_ms=options.get(
+                        "coalesce-window-ms"),
+                    coalesce_max_segments=options.get(
+                        "coalesce-max-segments"),
                     coordinator_lease_s=options.get(
                         "coordinator-lease-s"),
                     takeover_grace_s=options.get("takeover-grace-s"),
@@ -1031,9 +1069,14 @@ def campaign_cmd(opts):
 
 
 def serve_cmd():
-    """Subcommand ``serve``: the web interface (cli.clj:333-350). It is
-    registered with the JAX package's options; running it raises
-    ``NotImplementedError`` (``web.py`` is ROADMAP.md A.11(d4))."""
+    """Subcommand ``serve``: the web interface (cli.clj:333-350) with
+    the submission API. The JAX package's options plus ``--device
+    {cuda,cpu}`` (default: CUDA), where the coalescer's batches and
+    every solo search run; without a card the default exits 255
+    before the socket opens. ``--capacity-plan`` needs the capacity
+    planner and exits 255 naming ROADMAP.md A.11(d5). PL016 and PL020
+    run first; SIGINT drains the service and aborts its submitted
+    campaigns (``service.shutdown``), then exits 0."""
 
     def add_opts(parser):
         parser.add_argument("-b", "--host", default="0.0.0.0",
@@ -1044,6 +1087,11 @@ def serve_cmd():
                             help="Bearer token /api requests must "
                                  "present (401 otherwise); PL016 "
                                  "demands one for non-loopback binds.")
+        parser.add_argument("--device", default=None,
+                            choices=["cuda", "cpu"],
+                            help="Where the service checks (default: "
+                                 "cuda; without a card serve fails; "
+                                 "cpu runs the plain PyTorch path).")
         parser.add_argument("--no-coalesce", action="store_true",
                             help="Disable cross-tenant batch "
                                  "coalescing: every accepted "
@@ -1066,19 +1114,58 @@ def serve_cmd():
                                  "non-positive values).")
         parser.add_argument("--capacity-plan", default=None,
                             metavar="FILE",
-                            help="A capacity_plan.json (from "
-                                 "`campaign --capacity plan` or "
-                                 "`tools/lint.py --matrix`) whose "
-                                 "predicted (model, bucket) shapes "
-                                 "pre-register on the coalescer, so "
-                                 "first-window strangers land in "
-                                 "planned compile shapes (PL021 "
-                                 "rejects unreadable files).")
+                            help="A capacity_plan.json whose predicted "
+                                 "(model, bucket) shapes pre-register "
+                                 "on the coalescer (needs the capacity "
+                                 "planner, not ported yet: exits 255).")
 
     def run_serve(options):
-        raise NotImplementedError(
-            "the serve subcommand (web UI and submission API) is not "
-            "ported yet: ROADMAP.md A.11(d4)")
+        import time
+
+        from . import web
+        from .analysis import errors, planlint, render_text
+        if options.get("capacity-plan") is not None:
+            raise NotImplementedError(
+                "serve --capacity-plan needs the capacity planner "
+                "(analysis.capplan), which is not ported yet: "
+                "ROADMAP.md A.11(d5)")
+        diags = planlint.lint_service({
+            "serve?": True, "serve-ip": options.get("host"),
+            "auth-token?": bool(options.get("token"))})
+        diags += planlint.lint_coalesce({
+            "coalesce?": not options.get("no-coalesce"),
+            "coalesce-window-ms": options.get("coalesce-window-ms"),
+            "coalesce-max-segments":
+                options.get("coalesce-max-segments")})
+        if diags:
+            print(render_text(diags, title="serve preflight:"))
+        if errors(diags):
+            raise CliError("refusing to serve: fix the preflight "
+                           "errors above (bind 127.0.0.1 / pass "
+                           "--token / fix the coalesce knobs)")
+        server = web.serve({
+            "ip": options.get("host", "0.0.0.0"),
+            "port": options.get("port", 8080),
+            "token": options.get("token"),
+            "device": options.get("device"),
+            "coalesce?": not options.get("no-coalesce"),
+            "coalesce-window-ms": options.get("coalesce-window-ms"),
+            "coalesce-max-segments":
+                options.get("coalesce-max-segments")})
+        host, port = server.server_address[:2]
+        print(f"Listening on http://{host}:{port}/", flush=True)
+        try:
+            while True:
+                time.sleep(1)
+        except KeyboardInterrupt:
+            # honor the service's shared AbortLatch: campaigns
+            # submitted over POST /api/campaigns abort gracefully and
+            # stay resumable instead of dying with the server
+            from .fleet import service
+            print("shutting down: aborting submitted campaigns...",
+                  flush=True)
+            service.shutdown()
+            server.shutdown()
 
     return {"serve": {"opt-spec": add_opts, "opt-fn": lambda o: o,
                       "standalone": True, "run": run_serve,

@@ -22,14 +22,14 @@ The pillars:
 * **backends** -- per-cell backend failover tiering (gpu -> cpu)
   chosen by a cached health probe, so a card that is down degrades a
   campaign to slower verdicts instead of none.
-* **service** -- the submission API with its cross-tenant coalescer:
-  ROADMAP.md A.11(d4).
+* **service** -- the submission API behind ``web.py``'s ``/api/``
+  routes: admission control and the cross-tenant coalescer, whose
+  batches run the key batch, the closure probe and the streaming fold
+  on the service's device.
 
 Submodules load lazily, as in the reference; ``ledger`` stays
 dependency-light (store + fcntl only) because
-``campaign.compile_cache`` imports it from inside the note path. An
-unported submodule raises ``NotImplementedError`` naming its
-sub-slice, and no other path runs in its place.
+``campaign.compile_cache`` imports it from inside the note path.
 """
 
 from __future__ import annotations
@@ -38,19 +38,11 @@ _LAZY = ("ledger", "worker", "dispatch", "service", "backends",
          "sync", "chaos", "ha")
 
 #: submodules of the JAX package's fleet that the port has not got yet,
-#: each with the ROADMAP.md sub-slice that ports it
-UNPORTED = {"service": "A.11(d4)"}
-
-
-def _unported(name):
-    return NotImplementedError(
-        f"jepsen_tpu_torch.fleet.{name} is not ported yet: ROADMAP.md "
-        f"{UNPORTED[name]}")
+#: each with its ROADMAP.md sub-slice: none are left
+UNPORTED = {}
 
 
 def __getattr__(name):
-    if name in UNPORTED:
-        raise _unported(name)
     if name in _LAZY:
         import importlib
         mod = importlib.import_module(f".{name}", __name__)

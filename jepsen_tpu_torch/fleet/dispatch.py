@@ -39,11 +39,9 @@ share the card, as two TPU workers share a host in the reference.
 Where the port differs (ROADMAP.md, deliberate divergences): a backend
 tier reaches the worker as the spec's ``backend`` (the worker overlays
 the tier's ``device`` option, ``backends.tier_options``), not as an
-environment variable; the live ``/api/metrics`` source and the
-service's preflight (PL016) come with the service (ROADMAP.md
-A.11(d4)); and the capacity plan (``capacity``, ``device_mem_budget``,
-``capacity_plan``) raises ``NotImplementedError`` naming A.11(d5)
-before anything is written.
+environment variable; and the capacity plan (``capacity``,
+``device_mem_budget``, ``capacity_plan``) raises
+``NotImplementedError`` naming A.11(d5) before anything is written.
 """
 
 from __future__ import annotations
@@ -186,8 +184,8 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
     rebuilds test maps with, fed ``base_options`` overlaid with each
     cell's params. ``serve``/``device_slots``/``serve_ip``/
     ``auth_token`` and the ``coalesce*`` knobs participate only in
-    the PL014/PL017/PL020 preflight (in the JAX package the CLI
-    co-launches the service; the port's is ROADMAP.md A.11(d4)).
+    the PL014/PL016/PL017/PL020 preflight (the CLI co-launches the
+    service).
 
     **Artifact sync** (``sync``): ``"auto"`` mirrors each remote
     cell's run directory into the coordinator store over the scp
@@ -215,7 +213,8 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
     worker clocks normalized onto its own (obs.merge). The dispatch
     tracer/registry are also bound process-globally for the
     campaign's duration, so chaos injections, sync pulls, and probes
-    emit first-class events.
+    emit first-class events, and a registered /api/metrics source
+    serves the live lease/queue gauges.
 
     **Audit** (``fleetlint``): ``"on"`` (default) replays the
     finished campaign's artifacts against the control-plane protocol
@@ -278,8 +277,13 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
         if backends is not None else None,
         "time-limit": base_options.get("time-limit"),
     })
-    # PL016 (the service's preflight, lint_service) comes with the
-    # service: ROADMAP.md A.11(d4)
+    diags += planlint.lint_service({
+        "serve?": serve,
+        "serve-ip": serve_ip,
+        "auth-token?": bool(auth_token),
+        "sync-timeout-s": sync_timeout_s,
+        "lease-s": lease_s,
+    })
     # PL017: telemetry-plane preflight — flush knob sanity, exposed
     # /api/metrics, and a trace merge that artifact sync can't feed
     diags += planlint.lint_telemetry({
@@ -541,7 +545,7 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
     folded_cells = set()
 
     #: per-cell wgl counter families folded into the live fleet
-    #: registry as cells finish, so the fleet's metrics journal carries the
+    #: registry as cells finish, so GET /api/metrics serves the
     #: campaign's search-progress and padding accounting MID-RUN
     #: (bucket/engine labels survive: the flat key's label suffix is
     #: kept verbatim on the cell-labelled re-emission)
@@ -554,7 +558,7 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
         metrics artifact (monitor detection latency + violations, and
         the device-search introspection counters: explored configs,
         real/padded batch rows per n-bucket, device-busy wall) into
-        the live fleet registry, so a live reader of the registry sees them
+        the live fleet registry, so ``GET /api/metrics`` serves them
         while the campaign is still running. Best effort: the file is
         local only for shared-store/synced cells. Folded at most ONCE
         per cell — a forfeited-sync re-run would otherwise re-inc the
@@ -1016,6 +1020,20 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
     if not workers:
         raise FleetError("fleet dispatch needs at least one worker")
 
+    def _live_gauges():
+        """The dispatcher's live state for GET /api/metrics: lease
+        occupancy, queue depth, worker liveness -- plus everything the
+        fleet registry already counts."""
+        with cond:
+            extra = {"fleet.lease_active": len(table.active()),
+                     "fleet.pending_cells": len(pending),
+                     "fleet.terminal_cells": len(terminal),
+                     "fleet.workers_alive": len(alive)}
+        return [reg, {"gauges": extra}]
+
+    from . import service as fservice
+    metrics_source = fservice.register_metrics_source(
+        f"fleet:{campaign_id}", _live_gauges)
     try:
         if resume and done:
             with obs.bind(tr, reg):
@@ -1212,10 +1230,11 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
             raise hard_abort
         return report
     finally:
-        # always: stop the journal flusher threads, whatever path
-        # exits. On the happy path the dumps above already closed the
-        # journals (remove=True) and these are no-ops; on an
-        # exceptional exit the journal FILES are kept -- they are the
-        # crash evidence.
+        # always: stop serving this campaign's live gauges and stop
+        # the journal flusher threads, whatever path exits. On the
+        # happy path the dumps above already closed the journals
+        # (remove=True) and these are no-ops; on an exceptional exit
+        # the journal FILES are kept -- they are the crash evidence.
+        fservice.unregister_metrics_source(metrics_source)
         tr.close_journal()
         reg.close_journal()

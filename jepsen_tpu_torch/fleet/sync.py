@@ -23,9 +23,8 @@ the download half the ROADMAP called for, built crash-consistent:
   costs a sync failure, never a wedged coordinator.
 * **Download on demand.** Runs whose sync failed terminally register
   here; `fetch_on_demand` pulls one when a browsed path isn't on local
-  disk yet (in the JAX package ``web.py`` calls it; the port's viewer
-  is ROADMAP.md A.11(d4)), so a run link resolves the moment the
-  worker host is reachable again.
+  disk yet (``web.py``'s 404 fallback), so a run link resolves the
+  moment the worker host is reachable again.
 
 The dispatcher journals every outcome as an ``artifact-sync`` event
 record, which is what lets ``--resume`` re-sync a terminal cell's
@@ -53,8 +52,7 @@ __all__ = ["SyncError", "DEFAULT_SYNC_TIMEOUT_S", "manifest",
 #: default wall bound for one whole run-directory pull (manifest +
 #: download + verify, retries included). Keep it under the fleet
 #: lease TTL: the lease is extended by exactly this much while the
-#: coordinator syncs (the JAX package's planlint PL016 warns otherwise;
-#: the port's PL016 comes with the service, ROADMAP.md A.11(d4)).
+#: coordinator syncs (planlint PL016 warns otherwise).
 DEFAULT_SYNC_TIMEOUT_S = 120.0
 
 

@@ -42,8 +42,17 @@ the offline engine's. The designed degrades, each counted:
 
 Anything else -- a device or build error in a fold -- raises: the JAX
 package's catch-alls that degrade a crashed stream are not carried
-over. Every fold runs solo (``streamlin.solo_fold``); the reference's
-fleet coalescer lane comes with the service (ROADMAP.md A.11(d4)).
+over.
+
+Chunk folds route through the service's coalescer when one is
+configured (``fleet.service.configure_coalesce``) and the stream's
+``coalesce?`` option is on (the default): monitored streams share
+lane-batched ``(streamlin:<model>, event bucket)`` folds as
+``/api/check`` tenants share key batches. A fold whose deadline
+(``FOLD_DEADLINE_S``) passes in the queue, or whose coalescer was
+stopped, folds solo; a failed batch raises here as a failed solo fold
+does (the reference folds solo after any coalescer error). With no
+coalescer every fold runs solo (``streamlin.solo_fold``).
 
 Telemetry: the obs sinks in force when a ``StreamCheck`` is built are
 the ones it reports to for its whole life (``so.plan`` once, a
@@ -67,7 +76,12 @@ from ..util import DEFAULT_N_FLOOR
 from ..util import bucket as _bucket
 from .stream import StreamEncoder
 
-__all__ = ["StreamCheck"]
+__all__ = ["StreamCheck", "FOLD_DEADLINE_S"]
+
+#: per-fold coalescer deadline: a fold is one bounded dispatch, so the
+#: budget only matters when the batcher is wedged -- after it the
+#: stream folds solo
+FOLD_DEADLINE_S = 30.0
 
 
 class _Degrade(Exception):
@@ -91,9 +105,11 @@ class StreamCheck:
     ``materialize`` / ``truncate_before`` / ``__len__``) and adds
     ``check(cancel)``. Flat checks and confirms
     run ``confirm-engine`` (default ``jax-wgl``, the device search) on
-    the same device."""
+    the same device. ``owner`` (or ``opts["owner"]``) names the stream's
+    tenant to the service's coalescer."""
 
-    def __init__(self, spec, init_ops=(), opts=None, device=None):
+    def __init__(self, spec, init_ops=(), opts=None, device=None,
+                 owner="monitor"):
         opts = dict(opts or {})
         self.spec = spec
         self.device = resolve_device(device)
@@ -107,6 +123,8 @@ class StreamCheck:
         self.confirm_engine = opts.get("confirm-engine") or "jax-wgl"
         self.confirm_opts = {"device": self.device,
                              **(opts.get("confirm-opts") or {})}
+        self.coalesce = bool(opts.get("coalesce?", True))
+        self.owner = str(opts.get("owner") or owner)
         # the sinks of this stream's whole life, captured now
         _, self._reg = obs.current_sinks()
         self.so = obs_search.capture()
@@ -122,7 +140,11 @@ class StreamCheck:
         self.flat_checks = 0
         self.probe_overflows = 0
         self.confirm_mismatches = 0
+        self.coalesced_folds = 0
         self.solo_folds = 0
+        #: widest batch any of this stream's folds rode (>= 2 shows
+        #: strangers' streams shared a fold)
+        self.batch_peak = 1
         self.sealed_rows = 0
         self.frontier_size = 1
         self.frontier_peak = 1
@@ -359,15 +381,39 @@ class StreamCheck:
                 "ev_kind": ev_kind, "ev_slot": ev_slot, "w_f": w_f,
                 "w_args": w_args, "w_ret": w_ret, "clear_w": clear_w},
                 len(events), self.device)
-            self.solo_folds += 1
-            r = streamlin.solo_fold(job)
+            r = self._dispatch(job)
             self.fold_passes += r["passes"]
             self.fold_cells += r["steps"]
-            self.device_s += float(r["device_s"])
+            self.device_s += float(r.get("device_s") or 0.0)
             if r["status"] == 2 and self.F < self.frontier_cap \
                     and self._grow_frontier():
                 continue
             return r
+
+    def _dispatch(self, job):
+        """Coalesced when the service's coalescer is live, solo
+        otherwise. A deadline "unknown" and a stopped coalescer both
+        fold solo (per-stream isolation, never a verdict change); an
+        error of the batch itself is re-raised by ``wait``."""
+        if self.coalesce:
+            from ..fleet import service as fsvc
+            co = fsvc.coalescer()
+            if co is not None:
+                try:
+                    item = co.submit(
+                        streamlin.fold_lane_spec(self.spec), job, None,
+                        deadline=time.monotonic() + FOLD_DEADLINE_S,
+                        owner=self.owner)
+                except fsvc.CoalescerStopped:
+                    item = None
+                got = co.wait(item) if item is not None else None
+                if isinstance(got, dict) and "status" in got:
+                    self.coalesced_folds += 1
+                    self.batch_peak = max(self.batch_peak,
+                                          int(got.get("batch") or 1))
+                    return got
+        self.solo_folds += 1
+        return streamlin.solo_fold(job)
 
     def _stream_check(self, cancel):
         t0 = time.monotonic()
@@ -486,7 +532,9 @@ class StreamCheck:
             "flat_checks": self.flat_checks,
             "probe_overflows": self.probe_overflows,
             "confirm_mismatches": self.confirm_mismatches,
+            "coalesced_folds": self.coalesced_folds,
             "solo_folds": self.solo_folds,
+            "batch_peak": self.batch_peak,
             "sealed_rows": self.sealed_rows,
             "device_s": self.device_s,
         }

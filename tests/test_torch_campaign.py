@@ -787,10 +787,17 @@ def test_ha_lease_and_standby_take_the_references_arguments(cls):
 
 @pytest.mark.parametrize("name,item", [("service", "d4")])
 def test_unported_fleet_modules_raise_naming_their_sub_slice(name, item):
+    """The fleet's last unported module (the service) came with its
+    sub-slice, A.11(d4): nothing in ``fleet`` raises naming a sub-slice
+    now, and the name resolves to the port's module with the JAX
+    package's public names."""
+    import jepsen_tpu.fleet as jfleet
     import jepsen_tpu_torch.fleet as tfleet
-    with pytest.raises(NotImplementedError,
-                       match=rf"A\.11\({item}\)"):
-        getattr(tfleet, name)
+    assert tfleet.UNPORTED == {}
+    ours = getattr(tfleet, name)
+    assert ours.__name__ == f"jepsen_tpu_torch.fleet.{name}"
+    assert set(getattr(jfleet, name).__all__) <= set(ours.__all__)
+    assert item == "d4"
 
 
 @pytest.mark.parametrize("name", [
@@ -1142,19 +1149,24 @@ def test_cli_helpers_equal(fn, args):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--serve"], "d4"),
+    (["--serve", "--serve-ip", "127.0.0.1", "--capacity", "plan"], "d5"),
     (["--capacity", "plan"], "d5"),
     (["--device-mem-budget", "16G"], "d5"),
     (["--device-slots", "auto"], "d5"),
 ])
 def test_later_slice_options_exit_255_naming_their_sub_slice(
         argv, item, caplog):
+    """The capacity planner's options (A.11(d5)) exit 255 naming it
+    before anything runs, with or without ``--serve`` (which A.11(d4)
+    ported): no campaign is written and no server is started."""
+    from jepsen_tpu_torch.fleet import service
     with caplog.at_level(logging.CRITICAL):
         assert _main(TORCH, ["campaign", "--no-ssh", "--seeds", "1",
                              "--device", "cpu"] + argv) == 255
     assert "NotImplementedError" in caplog.text
     assert f"A.11({item})" in caplog.text
     assert tstore.campaigns() == []
+    assert service.coalescer() is None
 
 
 @pytest.mark.parametrize("argv", [
@@ -1181,10 +1193,8 @@ def test_fleet_options_lint_as_the_reference(argv, capsys):
                                    if side is TORCH else []))
         text = capsys.readouterr().out
         out[side.name] = (code, sorted(set(re.findall(r"PL\d{3}", text))))
-    # PL016 is the service's (ROADMAP.md A.11(d4)): the reference runs it
-    # beside PL014 under --workers
-    theirs = (out["jax"][0], [c for c in out["jax"][1] if c != "PL016"])
-    assert out["torch"] == theirs
+    # PL016, the service's, rides beside PL014 under --workers in both
+    assert out["torch"] == out["jax"]
     assert tstore.campaigns() == []
 
 

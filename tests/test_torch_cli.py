@@ -123,8 +123,7 @@ def _dests(mod, main_mod, which):
 def test_parsers_have_jax_dests_plus_device(which):
     ours = _dests(cli, tmain, which)
     theirs = _dests(jcli, jmain, which)
-    if which != "serve":
-        assert ours.pop("device") == (None, ["cuda", "cpu"])
+    assert ours.pop("device") == (None, ["cuda", "cpu"])
     assert ours == theirs
 
 
@@ -198,14 +197,17 @@ def test_unknown_command_exits_254(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve"], "A.11(d4)"),
+    (["serve", "--host", "127.0.0.1", "--device", "cpu",
+      "--capacity-plan", "capacity_plan.json"], "A.11(d5)"),
     (["campaign", "--no-ssh", "--seeds", "1", "--capacity", "plan",
       "--device", "cpu"], "A.11(d5)"),
 ])
 def test_unported_routes_exit_255(argv, item, caplog):
-    """The routes that need later sub-slices (the service, the capacity
-    planner) exit 255 naming theirs; the campaign route, its fleet
-    route and test-all's are ported (``tests/test_torch_campaign.py``,
+    """The routes that need the capacity planner (a later sub-slice)
+    exit 255 naming it before anything runs or listens: ``serve
+    --capacity-plan`` and ``campaign --capacity``. ``serve`` itself, the
+    campaign route, its fleet route and test-all's are ported
+    (``tests/test_torch_web.py``, ``tests/test_torch_campaign.py``,
     ``test_ported_fleet_routes_exit_as_the_reference``)."""
     with caplog.at_level(logging.CRITICAL):
         assert _main(argv) == 255

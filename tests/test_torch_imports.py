@@ -396,8 +396,9 @@ def test_campaign_and_fleet_modules_import_without_jax():
     (``fleet/{ledger,backends,chaos,sync,worker,dispatch,ha}``), the
     control-plane audit (``analysis/fleetmodel``, ``analysis/fleetlint``)
     and the campaign folds and trend gate (``obs/merge``,
-    ``obs/bubbles``, ``obs/trend``) stand alone too; the fleet's one
-    unported submodule (the service) raises naming its sub-slice."""
+    ``obs/bubbles``, ``obs/trend``) stand alone too, and so do the
+    service (``fleet/service``) and the viewer (``web``): the fleet has
+    no unported submodule left."""
     probe = r"""
 import sys
 sys.modules["jax"] = None
@@ -448,13 +449,19 @@ assert issubclass(fleet.FleetError, campaign.CampaignError)
 assert worker.RESULT_MARKER == "JEPSEN-FLEET-RESULT:"
 assert set(chaos.PROFILES) >= {"soak", "coordinator-kill"}
 assert backends.DEFAULT_LADDER == ("gpu", "cpu")
-assert fleet.UNPORTED == {"service": "A.11(d4)"}
-try:
-    fleet.service
-except NotImplementedError as e:
-    assert "A.11(d4)" in str(e)
-else:
-    raise AssertionError("service")
+assert fleet.UNPORTED == {}
+from jepsen_tpu_torch import web
+from jepsen_tpu_torch.fleet import service
+assert fleet.service is service
+for f in (service.check_history, service.submit_campaign,
+          service.campaign_status, service.configure,
+          service.configure_coalesce, service.metrics_text,
+          service.shutdown, web.serve, planlint.lint_service,
+          compile_cache.bucket, compile_cache.bucket_for):
+    assert callable(f)
+for cls in (service.Admission, service.Coalescer, service.ApiError,
+            web.Handler):
+    assert isinstance(cls, type)
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,

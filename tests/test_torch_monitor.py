@@ -7,9 +7,10 @@ core.py``) against the JAX package's, on the CPU.
    ``linear``, ``wgl`` and ``streamlin``, valid and falsified, keyed and
    unkeyed. ``summary()`` must be equal field for field (tolerance:
    equality), leaving out the time fields (``time_to_first_verdict_s``,
-   ``detection_latency_s``, the stream block's ``device_s``) and the two
-   stream counters of the JAX package's service coalescer, which the
-   port does not have yet (``coalesced_folds``, ``batch_peak``).
+   ``detection_latency_s``, the stream block's ``device_s``). The stream
+   block carries the service coalescer's counters (``coalesced_folds``,
+   ``batch_peak``) on both sides; with no coalescer configured they
+   read 0 and 1 and must be equal too.
 2. The JAX package's ``tests/test_monitor.py`` cases on the port, except
    the campaign ones (ROADMAP.md A.11(d)).
 3. Small monitored ``core.run``s on the default device engine (a few
@@ -62,8 +63,6 @@ SPEC = mbase.model_spec("cas-register")
 JSPEC = jbase.model_spec("cas-register")
 ENGINES = ("jax-wgl", "linear", "wgl", "streamlin")
 TIME_FIELDS = ("time_to_first_verdict_s", "detection_latency_s")
-#: stream counters of the JAX package's service coalescer (A.11(d))
-COALESCER_FIELDS = ("coalesced_folds", "batch_peak")
 
 
 @pytest.fixture(autouse=True)
@@ -122,7 +121,7 @@ def _comparable(summary):
     out = {k: v for k, v in summary.items() if k not in TIME_FIELDS}
     if "stream" in out:
         out["stream"] = {k: v for k, v in out["stream"].items()
-                         if k != "device_s" and k not in COALESCER_FIELDS}
+                         if k != "device_s"}
     return out
 
 
@@ -143,8 +142,9 @@ def test_summary_equals_jax(engine, chunk, falsify, keyed):
                              keyed=keyed)
     got, want = _drive(mon, ours, chunk), _drive(jmon_, theirs, chunk)
     if engine == "streamlin":
-        assert set(want["stream"]) - set(got["stream"]) \
-            == set(COALESCER_FIELDS)
+        assert set(want["stream"]) == set(got["stream"])
+        assert got["stream"]["coalesced_folds"] == 0
+        assert got["stream"]["batch_peak"] == 1
     assert _comparable(got) == _comparable(want)
     assert got["verdict"] is (falsify is None)
     assert latch.is_set() is jlatch.is_set() is (falsify is not None)

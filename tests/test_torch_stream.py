@@ -201,3 +201,173 @@ def test_engine_dispatch_matches_jax():
     assert mengine.TXN_WORKLOADS == jengine.TXN_WORKLOADS
     with pytest.raises(ValueError):
         mengine.check_prefix(SPEC, e, init, engine="nope")
+
+
+# ---------------------------------------------------------------------------
+# the coalescer's fold lane (fleet.service): monitored streams share
+# lane-batched folds
+
+
+#: stream counters that say which path a fold took, not what it found
+LANE_FIELDS = ("coalesced_folds", "solo_folds", "batch_peak", "device_s")
+
+#: the fold-lane streams: (rounds, bad round or None, overlapped)
+LANE_STREAMS = ((10, None, True), (10, 6, True), (12, None, False),
+                (9, 4, False))
+
+
+@pytest.fixture()
+def coalescer():
+    from jepsen_tpu_torch.fleet import service
+    service.reset()
+    yield lambda **kw: service.configure_coalesce(
+        enabled=True, device="cpu", **kw)
+    service.reset()
+
+
+def _lane_run(checks, every=3, rounds_barrier=True):
+    """Feed each stream its ops from a thread of its own, checking every
+    ``every`` completions; the threads meet before each check so their
+    folds land in one coalescing window. Returns each stream's verdicts
+    and final summary."""
+    import threading
+    streams = [_paired(n, bad_at=b, overlap=o) for n, b, o in LANE_STREAMS]
+    n_checks = min(sum(op["type"] != "invoke" for op in s) // every
+                   for s in streams)
+    gate = threading.Barrier(len(streams)) if rounds_barrier else None
+    out = [None] * len(streams)
+    errors = []
+
+    def feed(k):
+        try:
+            sc, done, verdicts = checks[k], 0, []
+            for i, op in enumerate(streams[k]):
+                if sc.offer(op, i):
+                    done += 1
+                    if done % every == 0 and done // every <= n_checks:
+                        if gate is not None:
+                            gate.wait(timeout=30)
+                        verdicts.append(sc.check()["valid"])
+            verdicts.append(sc.check()["valid"])
+            out[k] = (verdicts, sc.stream_summary())
+        except Exception as exc:  # noqa: BLE001 - asserted below
+            errors.append(exc)
+            if gate is not None:
+                gate.abort()
+
+    threads = [threading.Thread(target=feed, args=(k,))
+               for k in range(len(streams))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _without_lane_fields(summary):
+    return {k: v for k, v in summary.items() if k not in LANE_FIELDS}
+
+
+def test_coalesced_streams_give_the_solo_verdicts_and_summaries(
+        coalescer):
+    """Four streams behind a live coalescer: every check's verdict and
+    the final summaries equal the same streams folded solo (and the JAX
+    package's, which the other tests hold the solo path to), apart from
+    which path each fold took; folds were batched across streams."""
+    solo = _lane_run([StreamCheck(SPEC, device="cpu")
+                      for _ in LANE_STREAMS], rounds_barrier=False)
+    coalescer(window_ms=100)
+    coal = _lane_run([StreamCheck(SPEC, opts={"owner": f"s{k}"},
+                                  device="cpu")
+                      for k in range(len(LANE_STREAMS))])
+    for (sv, ss), (cv, cs), (_n, bad, _o) in zip(solo, coal,
+                                                 LANE_STREAMS):
+        assert cv == sv
+        assert (False in cv) == (bad is not None)
+        assert _without_lane_fields(cs) == _without_lane_fields(ss)
+        assert ss["coalesced_folds"] == 0 and ss["batch_peak"] == 1
+        assert cs["coalesced_folds"] + cs["solo_folds"] \
+            == ss["solo_folds"]
+    assert all(cs["coalesced_folds"] > 0 for _v, cs in coal)
+    assert max(cs["batch_peak"] for _v, cs in coal) >= 2
+    jsc = JStreamCheck(JSPEC, opts={"coalesce?": False})
+    assert set(jsc.stream_summary()) == set(coal[0][1])
+
+
+def test_fold_lane_opt_out_and_stopped_coalescer_fold_solo(coalescer):
+    """``coalesce?`` off folds solo beside a live coalescer; a stopped
+    one hands its folds to the solo path (its submit raises)."""
+    coal = coalescer(window_ms=20)
+    sc = StreamCheck(SPEC, opts={"coalesce?": False}, device="cpu")
+    for i, op in enumerate(_paired(6)):
+        sc.offer(op, i)
+    assert sc.check()["valid"] is True
+    assert sc.coalesced_folds == 0 and sc.solo_folds > 0
+    assert coal.stats()["batches"] == 0
+    coal.stop()
+    sc = StreamCheck(SPEC, device="cpu")
+    for i, op in enumerate(_paired(6)):
+        sc.offer(op, i)
+    assert sc.check()["valid"] is True
+    assert sc.coalesced_folds == 0 and sc.solo_folds > 0
+
+
+def test_a_failed_fold_batch_raises_not_folds_solo(coalescer,
+                                                    monkeypatch):
+    """Deliberate divergence: the reference's stream folds solo after a
+    coalescer error; the port's check raises the batch's error, as a
+    failed solo fold already does."""
+    from jepsen_tpu_torch.fleet import service
+
+    def boom(jobs, owners=None, e_bucket=None):
+        raise RuntimeError("injected fold fault")
+
+    monkeypatch.setattr(streamlin, "batch_fold", boom)
+    coalescer(window_ms=10)
+    sc = StreamCheck(SPEC, device="cpu")
+    for i, op in enumerate(_paired(4)):
+        sc.offer(op, i)
+    with pytest.raises(service.BatchFailed, match="injected fold fault"):
+        sc.check()
+    assert sc.solo_folds == 0 and sc.coalesced_folds == 0
+
+
+def test_fold_lane_spec_and_batch_fold_options_match_jax():
+    """The lane is named as the reference's and interned per model;
+    ``batch_fold``'s ``e_bucket`` pads the event axis as the reference's
+    (the noted plan shape carries it) and ``owners`` is metadata."""
+    from jepsen_tpu.campaign import compile_cache as jcc
+    from jepsen_tpu.checker import streamlin as jstreamlin
+    from jepsen_tpu_torch.campaign import compile_cache as tcc
+    from jepsen_tpu_torch.fleet import service
+    lane = streamlin.fold_lane_spec(SPEC)
+    assert lane is streamlin.fold_lane_spec(SPEC)
+    assert lane.name == jstreamlin.fold_lane_spec(JSPEC).name \
+        == service.STREAM_LANE_PREFIX + SPEC.name
+    assert streamlin.STREAM_LANE_PREFIX == jstreamlin.STREAM_LANE_PREFIX
+    jobs = []
+    for n, bad, overlap in LANE_STREAMS[:3]:
+        sc = StreamCheck(SPEC, device="cpu")
+        for i, op in enumerate(_paired(n, bad_at=bad, overlap=overlap)):
+            sc.offer(op, i)
+        e, init = sc.materialize()
+        jobs.append(streamlin.history_job(SPEC, e, init, device="cpu"))
+    jjobs = [jstreamlin.FoldJob(JSPEC, j.C, {
+        k: (v.numpy() if hasattr(v, "numpy") else v)
+        for k, v in j.arrays.items()}, len(j)) for j in jobs]
+    tcc.reset()
+    jcc.reset()
+    got = streamlin.batch_fold(jobs, owners=["a", "b", "a"], e_bucket=256)
+    want = jstreamlin.batch_fold(jjobs, owners=["a", "b", "a"],
+                                 e_bucket=256)
+    for g, w in zip(got, want):
+        for k in ("status", "viol_slot", "passes", "steps", "n_live",
+                  "batch"):
+            assert g[k] == w[k], k
+    assert [k[1][6] for k in tcc._seen] == [k[1][6] for k in jcc._seen]
+    assert {k[1][6] for k in tcc._seen} == {256}
+    tcc.reset()
+    jcc.reset()
