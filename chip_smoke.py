@@ -285,12 +285,38 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    200, 413 and ``/api/metrics``, and exits 0 on SIGINT. (e) A burst
    against a one-check budget sheds 429s with Retry-After; every 200 is
    right.
+19. ``capacity``: the capacity planner's predictions
+   (``analysis/sizemodel``) against the card's peak allocation above
+   each step's baseline (``torch.cuda`` peak statistics, reset before
+   each step), measured/predicted at most 1: (a) a solo search of the
+   main cas-register history; (b) the batch phase's timed 256-key call,
+   against the prediction at its runtime key axis and the per-lane
+   prediction times that axis; (c) an 8,192-txn closure; (d) one fold at
+   F=8192. (e) ``campaign`` over two register cells with ``--capacity
+   enforce --device-mem-budget 64G --device-slots auto``: exit 0, the
+   slots resolved from the plan, the prediction oracle's error 0.0, the
+   sweep's peak against the size model at the shapes its searches ran
+   (their runtime key axes), beside the plan's per-lane cell figure; (f)
+   the same with a budget below the peak cell: refused (254) before any
+   cell runs. A prediction more than 2x above its measurement is listed
+   in ``loose``. See ``capacity_phase``.
+20. ``suites``: ``toystore test`` on 3 local nodes (5 s, kill nemesis,
+   default algorithm): valid; with ``--stale``: exit 1, invalid;
+   ``zookeeper test --stub`` for 130 s (a child process started before
+   phase 16, so its run overlaps phases 16-20): linearizable through the
+   rollout kernel (its perf graphs need matplotlib on the host); each
+   path's rollout launches. The toystore runs need ``start-stop-daemon``
+   and ``gcc`` on the host and are left out, with the reason, without
+   them. See ``suites_phase``.
 
 The competition, checkpoint, certify, obs, mesh, run, monitor, cli,
-campaign and service solo paths run the rollout kernel (each counted;
+campaign, service solo, capacity search, toystore and zookeeper stub
+paths run the rollout kernel (each counted, the stub's in its child;
 the fleet's in its worker processes, shown by their compile laps, not
 counted here; ``run_keyed`` may not, as the key batch rolls on the scan;
-the monitor's txn paths do not). The planned, batch, independent, queue,
+the monitor's txn paths do not; the capacity sweep's and the suites'
+other paths are counted as they come). The planned, batch, independent,
+queue,
 streamlin, trend, txn, service coalesced and service txn paths do not
 run it: each of them is run with the rollout kernel's launch count set
 to 0 and must leave it at 0. The batch pins the scan rollout, as the JAX
@@ -3095,6 +3121,7 @@ def batch_phase(keys, oracle):
     (``oracle``, the gate phase's verdicts of the first keys)."""
     import torch
     from jepsen_tpu_torch import models, parallel
+    from jepsen_tpu_torch.campaign import compile_cache
     from jepsen_tpu_torch.checker import rollout
     from jepsen_tpu_torch.profile_main import profile_batch
     spec = models.cas_register_spec
@@ -3103,10 +3130,15 @@ def batch_phase(keys, oracle):
     prof = profile_batch(spec, pairs)                   # warms up too
     torch.cuda.synchronize()
     rollout.launches = 0
+    dev = torch.device("cuda")
     t0 = time.monotonic()
-    res = parallel.check_batch_encoded(spec, pairs)
-    torch.cuda.synchronize()
+    # the capacity phase's (b): the timed call's peak above its baseline
+    # and the plan key the batch noted (its runtime key axis)
+    noted = compile_cache.noted_counts()
+    res, peak = mem_step(dev, lambda: parallel.check_batch_encoded(
+        spec, pairs))
     wall = time.monotonic() - t0
+    plan_key = batch_plan_key(compile_cache.noted_since(noted))
     launches = scan_only("batch")
     unknown = [k for k, r in enumerate(res) if r["valid"] not in (True,
                                                                  False)]
@@ -3135,7 +3167,8 @@ def batch_phase(keys, oracle):
            "oracle_keys": 32,
            "profiled": {k: v for k, v in prof.items()
                         if k != "top_kernels"},
-           "top_kernels": prof["top_kernels"][:5]}
+           "top_kernels": prof["top_kernels"][:5],
+           "peak_bytes": peak, "plan_key": plan_key}
     return row
 
 
@@ -3775,8 +3808,14 @@ def service_phase(dev, keys, oracle, tenants=SERVICE_TENANTS,
             t_a = time.monotonic()
             ids = [list(range(t * per_tenant, (t + 1) * per_tenant))
                    for t in range(tenants)]
+            # each request asks the service's longest budget: 32 keys
+            # solo took 19.55-26.55 s beside an H100 (PERF.md §5),
+            # close to the default 30 s, which a slower host passed,
+            # turning the last keys "unknown"
             payloads = [{"history": service_keyed(keys, i), "keyed": True,
-                         "model": "cas-register"} for i in ids]
+                         "model": "cas-register",
+                         "timeout-s": service.CHECK_TIMEOUT_CAP_S}
+                        for i in ids]
             a = {}
             verdicts = {}
             for mode, flag in (("solo", False), ("coalesced", True)):
@@ -4129,6 +4168,530 @@ class ServeProcess:
 
 
 
+#: the capacity phase: the sweep's register cells (campaign (a)'s matrix,
+#: two register cells, its per-key limit cut to the floor bucket so every
+#: planned segment pads to the one predicted shape), the budget the card
+#: holds, and the fold and closure sizes the size model is held at
+CAPACITY_TIME_LIMIT, CAPACITY_PER_KEY, CAPACITY_BUDGET = 2, 20, "64G"
+CAPACITY_FOLD_F, CAPACITY_FOLD_OPS, CAPACITY_CLOSURE_N = 8192, 60, 8192
+
+
+def mem_step(dev, fn):
+    """``(fn(), bytes)``: the device memory ``fn`` allocated at its peak
+    above what was allocated before it (``torch.cuda`` peak statistics,
+    reset first); None for the bytes off the card."""
+    import torch
+    if dev.type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(dev) - base
+
+
+def held(name, predicted, measured, **extra):
+    """One capacity step's row: the prediction, the peak measured above
+    the baseline, their ratio, and ``within_2x`` (the ratio at least
+    0.5: a prediction looser than that is flagged, not failed); raises
+    where the measurement exceeds the prediction (the size model is then
+    wrong)."""
+    ratio = None if measured is None else measured / predicted
+    row = {"predicted_bytes": predicted, "measured_bytes": measured,
+           "measured_over_predicted": ratio,
+           "within_2x": None if ratio is None else ratio >= 0.5, **extra}
+    if measured is not None and measured > predicted:
+        raise AssertionError(f"capacity {name}: measured {measured} bytes "
+                             f"over the predicted {predicted}")
+    return row
+
+
+def batch_plan_key(noted):
+    """The widest key-batch plan key (``torch-wgl-batch``) among the
+    canonical keys ``noted`` (``compile_cache.noted_since``), as a list:
+    its second field is the batch's runtime key axis."""
+    keys = [list(k) for eng, k in noted if eng == "torch-wgl-batch"]
+    if not keys:
+        raise AssertionError("no key-batch plan shape was noted")
+    return max(keys, key=lambda k: k[1])
+
+
+def search_bytes(engine, key):
+    """``{"keys", "n", "C", "predicted_bytes"}`` of one noted search
+    (``compile_cache`` plan key): ``sizemodel.hbm_bytes`` at the key's
+    own sizes, the key batch (``torch-wgl-batch``) at its runtime key
+    axis."""
+    from jepsen_tpu_torch.analysis import sizemodel
+    if engine == "torch-wgl":
+        _name, n, B, S, C, A, W, O, T, *_rest = key
+        K = 1
+    elif engine == "torch-wgl-batch":
+        _name, K, W, n, B, S, C, A, O, T, *_rest = key
+    else:
+        raise AssertionError(f"capacity (e): no size model for {engine}")
+    total = sizemodel.hbm_bytes(n, S, C, keys=K, arg_width=A,
+                                sizes=(B, W, O, T), engine=engine)["total"]
+    return {"keys": K, "n": n, "C": C, "predicted_bytes": total}
+
+
+def capacity_sweep(dev):
+    """The capacity phase's (e) and (f) (``capacity_phase``): ``({"e",
+    "f"}, the sweep's rollout launches)``."""
+    import contextlib
+    import logging
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import __main__ as demo_main
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.campaign import compile_cache
+    from jepsen_tpu_torch.checker import rollout
+    cuda = dev.type == "cuda"
+    out = {}
+    root = logging.getLogger()
+    saved_log = (root.level, list(root.handlers))
+    base = store.base_dir
+    tmp = tempfile.mkdtemp(prefix="jepsen-capacity-")
+    store.base_dir = os.path.join(tmp, "store")
+    argv = ["campaign", "--no-ssh", "--axis", "workload=register",
+            "--seeds", "2", "--parallel", "2", "--concurrency", "10n",
+            "--per-key-limit", str(CAPACITY_PER_KEY), "--time-limit",
+            str(CAPACITY_TIME_LIMIT), "--capacity", "enforce",
+            "--device-slots", "auto"] + ([] if cuda else ["--device", "cpu"])
+
+    def main(args):
+        with contextlib.redirect_stdout(sys.stderr):
+            try:
+                demo_main.main(args)
+                return 0
+            except SystemExit as exc:
+                return exc.code
+
+    try:
+        rollout.launches = 0
+        noted = compile_cache.noted_counts()
+        t0 = time.monotonic()
+        code, peak = mem_step(dev, lambda: main(
+            argv + ["--device-mem-budget", CAPACITY_BUDGET]))
+        wall = time.monotonic() - t0
+        sweep_launches = rollout.launches
+        searches = [dict(search_bytes(eng, key), engine=eng)
+                    for (eng, key), times in compile_cache.noted_counts()
+                    .items() for _ in range(times - noted.get((eng, key), 0))]
+        cid = store.latest_campaign()
+        if code != 0 or cid is None:
+            raise AssertionError(f"capacity (e): exit {code}")
+        with open(store.campaign_path(cid, "report.json")) as f:
+            rep = json.load(f)
+        with open(store.campaign_path(cid, "campaign.json")) as f:
+            meta = json.load(f)
+        with open(store.campaign_path(cid, "capacity_plan.json")) as f:
+            plan = json.load(f)
+        slots = meta.get("device-slots")
+        want = plan["hbm"]["auto_slots"]
+        if not isinstance(slots, int) or slots != want or slots < 1:
+            raise AssertionError(f"capacity (e): device slots {slots!r}, "
+                                 f"the plan's auto {want!r}")
+        oracle = rep["capacity"]["oracle"]
+        if oracle["error_frac"] != 0.0 or not oracle["actual"]:
+            raise AssertionError(f"capacity (e): oracle {oracle}")
+        # the sweep's real peak against the size model at the shapes the
+        # cells ran (each search's noted plan key, the batch's runtime
+        # key axis included), every search counted as if all overlapped;
+        # and against the plan's per-cell figure, a per-lane number
+        # (ROADMAP.md C.12): where one search's keyed figure passes it,
+        # the resolved slots x that figure oversubscribes the budget
+        per_cell = plan["hbm"]["per_cell_peak_bytes"]
+        widest = max(s_["predicted_bytes"] for s_ in searches)
+        out["e"] = held(
+            "e", sum(s_["predicted_bytes"] for s_ in searches), peak,
+            exit=code, wall_s=wall, device_slots=slots,
+            peak_cell_bytes=per_cell,
+            budget_bytes=plan["hbm"]["budget_bytes"],
+            searches=searches,
+            widest_search_over_peak_cell=widest / per_cell,
+            slots_times_widest_search_over_budget=slots * widest
+            / plan["hbm"]["budget_bytes"],
+            oracle=oracle, outcomes=rep["summary"]["outcomes"])
+        low = plan["hbm"]["per_cell_peak_bytes"] // 2
+        before = store.campaigns()
+        t0 = time.monotonic()
+        code = main(argv + ["--device-mem-budget", str(low)])
+        if code != 254 or store.campaigns() != before:
+            raise AssertionError(f"capacity (f): exit {code} with a "
+                                 f"budget of {low} bytes, campaigns "
+                                 f"{store.campaigns()}")
+        out["f"] = {"exit": code, "budget_bytes": low,
+                    "seconds": time.monotonic() - t0}
+    finally:
+        # the scheduler attached the disk ledger under the temporary
+        # store: detach it before the store goes
+        from jepsen_tpu_torch.fleet import ledger
+        ledger.detach()
+        store.base_dir = base
+        root.setLevel(saved_log[0])
+        root.handlers[:] = saved_log[1]
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, sweep_launches
+
+
+def capacity_phase(dev, batch_mem, fold_hist):
+    """The capacity planner against the card (``analysis/sizemodel``,
+    ``analysis/capplan``). Each step resets the peak statistics, runs,
+    and prints the prediction, the peak above its baseline and
+    measured/predicted, which must not exceed 1. (a) A solo
+    ``torch_wgl`` search of the main cas-register history against
+    ``sizemodel.search_shape(...)["hbm"]["total"]`` at the engine's own
+    bucket and concurrency. (b) The batch phase's timed 256-key call
+    (``batch_mem``, measured there) against the per-lane prediction times
+    the batch's runtime key axis and against the prediction at that key
+    axis (``keyshard.batch_sizes`` narrows each key's frontier and stack).
+    (c) ``closure_shape(8192)`` against ``cycle.transitive_closure`` of an
+    8,192-txn graph. (d) ``stream_frontier_shape`` at F=8192 against one
+    fold at F=8192 (``streamlin.solo_fold``, the fold ``StreamCheck``
+    dispatches). (e) ``campaign`` over two register cells with
+    ``--capacity enforce --device-mem-budget 64G --device-slots auto``:
+    exit 0, the resolved slot count (budget // peak cell), the oracle's
+    ``error_frac`` 0.0, and the sweep's peak at most the size model's
+    figures for the searches it ran (``search_bytes``: each noted plan
+    key at its own sizes and key axis, all counted as if they
+    overlapped); the widest search's figure is printed beside the plan's
+    per-lane cell figure and the resolved slots. (f) The same with a
+    budget below the peak cell: refused (254) before any cell runs, no
+    campaign written. Steps whose prediction is more than 2x above the
+    measurement are listed in ``loose``."""
+    import numpy as np
+    from jepsen_tpu_torch import cycle, models, simulate
+    from jepsen_tpu_torch.analysis import sizemodel
+    from jepsen_tpu_torch.checker import rollout, streamlin, torch_wgl
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    out = {"phase": "capacity"}
+    launches = {}
+    spec = models.cas_register_spec
+
+    # (a) the main history's solo search
+    hist = simulate.random_history(random.Random(45100), "cas-register",
+                                   64, 10_000, 0.05)
+    e, st = spec.encode(hist)
+    prep = torch_wgl._prepare_search(spec, e, st)
+    *_, n_pad, C, A, S = prep[1]
+    shape = sizemodel.search_shape("cas-register", len(e), concurrency=C,
+                                   engine="torch-wgl")
+    if (shape["bucket"], shape["C"], shape["A"], shape["S"]) \
+            != (n_pad, C, A, S):
+        raise AssertionError(f"capacity (a): the size model's shape "
+                             f"{shape} is not the engine's "
+                             f"{(n_pad, C, A, S)}")
+    rollout.launches = 0
+    t0 = time.monotonic()
+    r, peak = mem_step(dev, lambda: torch_wgl.check_encoded(
+        spec, e, st, device=dev))
+    if r["valid"] is not True:
+        raise AssertionError(f"capacity (a): decided {r['valid']!r}")
+    launches["capacity_search"] = rollout.launches
+    if cuda and rollout.launches <= 0:
+        raise AssertionError("capacity (a): the search launched no "
+                             "rollout kernel")
+    out["a"] = held("a", shape["hbm"]["total"], peak, hbm=shape["hbm"],
+                    sizes=shape["sizes"], C=C, n=n_pad,
+                    seconds=time.monotonic() - t0)
+
+    # (b) the batch phase's timed call
+    (_name, K, _W, bn, _B, bS, bC, bA, *_rest) = batch_mem["key"]
+    lane = sizemodel.hbm_bytes(bn, bS, bC, keys=1, arg_width=bA,
+                               engine="torch-wgl-batch")["total"]
+    keyed = sizemodel.hbm_bytes(bn, bS, bC, keys=K, arg_width=bA,
+                                engine="torch-wgl-batch")
+    out["b"] = held("b", keyed["total"], batch_mem["peak_bytes"],
+                    per_lane_bytes=lane, keys=K,
+                    per_lane_times_keys=lane * K,
+                    measured_over_per_lane_times_keys=None
+                    if batch_mem["peak_bytes"] is None
+                    else batch_mem["peak_bytes"] / (lane * K),
+                    per_lane_times_keys_within_2x=None
+                    if batch_mem["peak_bytes"] is None
+                    else batch_mem["peak_bytes"] >= lane * K / 2,
+                    hbm=keyed, n=bn, C=bC)
+    if batch_mem["peak_bytes"] is not None \
+            and batch_mem["peak_bytes"] > lane * K:
+        raise AssertionError("capacity (b): over the per-lane prediction "
+                             "times the key axis")
+
+    # (c) a closure of CAPACITY_CLOSURE_N txns
+    rng = np.random.default_rng(45100)
+    n = CAPACITY_CLOSURE_N
+    adj = np.zeros((n, n), bool)
+    src = rng.integers(0, n - 1, 4 * n)
+    adj[src, src + 1 + rng.integers(0, 8, 4 * n) % (n - 1 - src)] = True
+    t0 = time.monotonic()
+    reach, peak = mem_step(dev, lambda: cycle.transitive_closure(
+        adj, device=dev))
+    pred = sizemodel.closure_shape(n, device=str(dev))
+    out["c"] = held("c", pred["hbm"]["total"], peak, hbm=pred["hbm"],
+                    n=n, reach_pairs=int(reach.sum()),
+                    seconds=time.monotonic() - t0)
+
+    # (d) one fold at F=CAPACITY_FOLD_F
+    fe, fst = spec.encode(fold_hist)
+    job = streamlin.history_job(spec, fe, fst, F=CAPACITY_FOLD_F,
+                                device=dev)
+    t0 = time.monotonic()
+    fr, peak = mem_step(dev, lambda: streamlin.solo_fold(job))
+    pred = sizemodel.stream_frontier_shape(
+        job.F, job.B * 32, state_size=job.S, arg_width=job.A,
+        open_cap=job.C, events=job.E)
+    out["d"] = held("d", pred["hbm"]["total"], peak, hbm=pred["hbm"],
+                    F=job.F, window=job.B * 32, C=job.C, events=job.E,
+                    status=fr.get("status"),
+                    seconds=time.monotonic() - t0)
+
+    # (e)-(f) the sweep with the plan enforced, then refused
+    sweep, launches["capacity_sweep"] = capacity_sweep(dev)
+    out.update(sweep)
+    out["launches"] = launches
+    out["loose"] = [k for k in "abcde" if out[k].get("within_2x") is False] \
+        + (["b per lane x keys"] if out["b"][
+            "per_lane_times_keys_within_2x"] is False else [])
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+#: the suites phase: the toystore runs' time limits, and the zookeeper
+#: stub's: its generator issues one op a second on average
+#: (zookeeper.clj's ``stagger 1``), failed cas ops drop out of the
+#: checked history (about 0.73 kept a second), and the engine rolls
+#: chains only past 64 ops (``torch_wgl._rollout_shape``), so 130 s keep
+#: about 95 ops, 64 lies about four standard deviations below
+SUITES_TOYSTORE_S, SUITES_ZK_S = 5, 130
+SUITES_STALE_S, SUITES_STALE_CONCURRENCY = 6, 6
+
+#: the zookeeper stub's child process: the suite's ``main`` (what
+#: ``python -m jepsen_tpu_torch.suites.zookeeper`` runs) with its
+#: printing on stderr, then one JSON line: its exit code and the rollout
+#: kernel's launches in that process
+ZK_CHILD = """
+import contextlib, json, sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+from jepsen_tpu_torch import store
+from jepsen_tpu_torch.checker import checkers, rollout
+from jepsen_tpu_torch.suites import zookeeper
+store.base_dir = sys.argv[1]
+with contextlib.redirect_stdout(sys.stderr):
+    try:
+        zookeeper.main(sys.argv[2:])
+        code = 0
+    except SystemExit as exc:
+        code = exc.code
+    checkers.join_racers()
+print(json.dumps({"exit": code, "launches": rollout.launches}))
+"""
+
+
+def missing_module(result):
+    """The module a checker result's errors (its own, or its
+    sub-checkers') say could not be imported, or None."""
+    import re
+    text = json.dumps(result, default=str)
+    m = re.search(r"No module named '([\w.]+)'", text.replace("\\'", "'"))
+    return m.group(1) if m else None
+
+
+class ZkStubRun:
+    """``zookeeper test --stub`` for ``SUITES_ZK_S`` in a child process
+    (``ZK_CHILD``) with a store of its own, started before the phases
+    whose time its one-op-a-second run overlaps; the suites phase reads
+    its result."""
+
+    def __init__(self, dev):
+        import tempfile
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.tmp = tempfile.mkdtemp(prefix="jepsen-zk-")
+        self.store = os.path.join(self.tmp, "store")
+        args = ["test", "--stub", "--node", "n1", "--node", "n2",
+                "--time-limit", str(SUITES_ZK_S), "--concurrency", "4"]
+        if dev.type != "cuda":
+            args += ["--device", "cpu"]
+        self.out = open(os.path.join(self.tmp, "child.out"), "w+")
+        self.err = open(os.path.join(self.tmp, "child.err"), "w+")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", ZK_CHILD, self.store, *args],
+            cwd=self.tmp, env=dict(os.environ, PYTHONPATH=here),
+            stdin=subprocess.DEVNULL, stdout=self.out, stderr=self.err)
+
+    def result(self, timeout):
+        """``(exit, launches, test, wall seconds, waited seconds)`` once
+        the child has ended; raises if it failed."""
+        from jepsen_tpu_torch import store
+        t0 = time.monotonic()
+        self.proc.wait(timeout=timeout)
+        waited = time.monotonic() - t0
+        self.out.seek(0)
+        lines = self.out.read().splitlines()
+        self.err.seek(0)
+        log = self.err.read()
+        sys.stderr.write(log[-20000:])
+        if self.proc.returncode != 0 or not lines:
+            raise AssertionError(f"suites (c): the zookeeper child exited "
+                                 f"{self.proc.returncode}: {log[-2000:]}")
+        row = json.loads(lines[-1])
+        base = store.base_dir
+        store.base_dir = self.store
+        try:
+            test = store.latest()
+        finally:
+            store.base_dir = base
+        return (row["exit"], row["launches"], test,
+                time.monotonic() - self.t0, waited)
+
+    def close(self):
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def suites_phase(dev, zk):
+    """The d6 suites as their users run them, in process through each
+    suite's ``main`` (``python -m jepsen_tpu_torch.suites.<name> test``),
+    the store in a temporary directory. First the host tools the
+    toystore rig needs (``start-stop-daemon``, ``gcc``); without either,
+    the toystore runs are left out and the row says why. (a) ``toystore
+    test`` on 3 local nodes for 5 s with the kill nemesis and the
+    default algorithm: exit 0, valid, the rollout kernel launched. (b)
+    The same with ``--stale`` (no nemesis, 6 threads, 6 s): exit 1, the
+    linearizability checker's verdict False. (c) ``zookeeper test
+    --stub`` (``zk``, the ``ZkStubRun`` started before phase 16): its
+    linearizability verdict True over more than 64 checked ops, the
+    rollout kernel launched, exit 0 (2 when the host lacks matplotlib,
+    which the suite's perf graphs need: those checkers then read unknown
+    and are listed; any other missing module fails). Each path's rollout
+    launches are counted."""
+    import contextlib
+    import logging
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checker import checkers, rollout
+    from jepsen_tpu_torch.suites import toystore
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    device = [] if cuda else ["--device", "cpu"]
+    out = {"phase": "suites"}
+    tools = {t: shutil.which(t) for t in ("start-stop-daemon", "gcc")}
+    out["host_tools"] = tools
+    launches = {}
+    root = logging.getLogger()
+    saved_log = (root.level, list(root.handlers))
+    base = store.base_dir
+    tmp = tempfile.mkdtemp(prefix="jepsen-suites-")
+    store.base_dir = os.path.join(tmp, "store")
+
+    def run(main, args):
+        rollout.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(sys.stderr):
+            try:
+                main(args + device)
+                code = 0
+            except SystemExit as exc:
+                code = exc.code
+        checkers.join_racers()
+        test = store.latest()
+        return code, test, rollout.launches, time.monotonic() - t0
+
+    nodes = ["--node", "n1", "--node", "n2", "--node", "n3"]
+    try:
+        if all(tools.values()):
+            code, test, n, wall = run(toystore.main, [
+                "test", *nodes, "--time-limit", str(SUITES_TOYSTORE_S),
+                "--nemesis-mode", "kill", "--base-port",
+                str(toystore.free_base_port(3))])
+            res = test["results"]
+            if code != 0 or res["valid"] is not True:
+                raise AssertionError(f"suites (a): toystore exit {code}, "
+                                     f"valid {res.get('valid')!r}")
+            if cuda and n <= 0:
+                raise AssertionError("suites (a): the toystore run "
+                                     "launched no rollout kernel")
+            launches["toystore"] = n
+            ops = sum(1 for o in test["history"]
+                      if o.get("type") == "invoke"
+                      and o.get("process") != "nemesis")
+            out["a"] = {"exit": code, "valid": res["valid"], "wall_s": wall,
+                        "client_ops": ops,
+                        "engine": res["linear"].get("engine"),
+                        "rollout_launches": n}
+            code, test, n, wall = run(toystore.main, [
+                "test", *nodes, "--time-limit", str(SUITES_STALE_S),
+                "--concurrency", str(SUITES_STALE_CONCURRENCY),
+                "--stale", "--nemesis-mode", "none", "--base-port",
+                str(toystore.free_base_port(3))])
+            lin = test["results"]["linear"]
+            if code != 1 or lin["valid"] is not False:
+                raise AssertionError(f"suites (b): --stale exit {code}, "
+                                     f"linear {lin.get('valid')!r}")
+            launches["toystore_stale"] = n
+            out["b"] = {"exit": code, "valid": lin["valid"], "wall_s": wall,
+                        "engine": lin.get("engine"),
+                        "op": {k: lin["op"].get(k)
+                               for k in ("f", "value", "process")},
+                        "rollout_launches": n}
+        else:
+            out["toystore_left_out"] = (
+                f"the host lacks {[t for t, p in tools.items() if not p]}, "
+                "which the toystore rig runs its nodes with")
+        code, n, test, wall, waited = zk.result(
+            timeout=SUITES_ZK_S + 300)
+        res = test["results"]
+        # the suite composes the perf graphs beside the checker (as
+        # zookeeper.clj does); they need matplotlib, a host library the
+        # card's machine may lack, and are then "unknown" (exit 2): the
+        # run is held to its linearizability verdict and to each other
+        # checker being valid or missing only that library
+        host_only = sorted(
+            k for k, v in res.items() if isinstance(v, dict)
+            and v.get("valid") is not True
+            and missing_module(v) == "matplotlib")
+        if res["linear"]["valid"] is not True \
+                or any(v.get("valid") is not True for k, v in res.items()
+                       if isinstance(v, dict) and k not in host_only) \
+                or code != (0 if not host_only else 2):
+            raise AssertionError(f"suites (c): zookeeper --stub exit "
+                                 f"{code}, valid {res.get('valid')!r}, "
+                                 f"left out {host_only}")
+        checked = sum(1 for o in test["history"]
+                      if o.get("type") == "ok"
+                      and o.get("process") != "nemesis")
+        if checked <= 64 or (cuda and n <= 0):
+            raise AssertionError(f"suites (c): zookeeper --stub checked "
+                                 f"{checked} ops with {n} rollout "
+                                 f"launches")
+        launches["zookeeper_stub"] = n
+        out["c"] = {"exit": code, "valid": res["linear"]["valid"],
+                    "checkers_without_a_host_library": host_only,
+                    "wall_s": wall, "waited_s": waited,
+                    "client_ops": sum(1 for o in test["history"]
+                                      if o.get("type") == "invoke"
+                                      and o.get("process") != "nemesis"),
+                    "ok_ops": checked,
+                    "engine": res["linear"].get("engine"),
+                    "rollout_launches": n}
+    finally:
+        store.base_dir = base
+        root.setLevel(saved_log[0])
+        root.handlers[:] = saved_log[1]
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
 def main(argv):
     import torch
     if argv:
@@ -4240,17 +4803,34 @@ def main(argv):
     queues = queue_phase(fifo)
     emit(queues)
 
-    # -- 16-17. the streaming fold and the txn closure ---------------------
-    rollout.launches = 0
-    emit(streamlin_phase(keys, dev))
-    stream_launches = scan_only("streamlin")
-    rollout.launches = 0
-    emit(txn_phase(dev))
-    txn_launches = scan_only("txn")
+    # the suites phase's zookeeper stub: its one-op-a-second run starts
+    # here, in a child process, and overlaps phases 16-20
+    zk = ZkStubRun(dev)
+    try:
+        # -- 16-17. the streaming fold and the txn closure -----------------
+        rollout.launches = 0
+        emit(streamlin_phase(keys, dev))
+        stream_launches = scan_only("streamlin")
+        rollout.launches = 0
+        emit(txn_phase(dev))
+        txn_launches = scan_only("txn")
 
-    # -- 18. service: /api/check tenants, the coalescer's lanes, serve -----
-    svc_row = service_phase(dev, keys, oracle)
-    emit(svc_row)
+        # -- 18. service: /api/check tenants, the coalescer's lanes, serve -
+        svc_row = service_phase(dev, keys, oracle)
+        emit(svc_row)
+
+        # -- 19. capacity: the planner's predictions against the card ------
+        cap_row = capacity_phase(
+            dev, {"peak_bytes": row["peak_bytes"], "key": row["plan_key"]},
+            simulate.random_history(random.Random(7), "cas-register", 8,
+                                    CAPACITY_FOLD_OPS, 0.0))
+        emit(cap_row)
+
+        # -- 20. suites: toystore and zookeeper as their users run them ---
+        suites_row = suites_phase(dev, zk)
+        emit(suites_row)
+    finally:
+        zk.close()
     by_path = {"main": main_launches, **gate["launches"],
                **obs_row["launches"], "mesh": mesh_row["launches"],
                **run_row["launches"], **mon_row["launches"],
@@ -4261,7 +4841,8 @@ def main(argv):
                **{c["model"]: c["rollout_launches"]
                   for c in queues["checks"] if "rollout_launches" in c},
                "streamlin": stream_launches, "txn": txn_launches,
-               **svc_row["launches"]}
+               **svc_row["launches"], **cap_row["launches"],
+               **suites_row["launches"]}
 
     main_shape = cases[1]
     emit({"kernels": [{

@@ -29,6 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+#: guards the two tables below: ``_finish`` writes them under the
+#: caller's ``_lock`` or alone
+_tables_lock = threading.Lock()
 _libs = {}
 #: seconds each library took to build in this process (0.0 when reused)
 build_seconds = {}
@@ -78,8 +81,10 @@ def _finish(name, src, proc, tmp, out, t0):
                 f"nvcc failed on {os.path.basename(src)} (exit "
                 f"{proc.returncode}):\n{err}")
         os.replace(tmp, out)
-    build_seconds[name] = time.monotonic() - t0 if proc else 0.0
-    _libs[name] = ctypes.CDLL(out)
+    lib = ctypes.CDLL(out)
+    with _tables_lock:
+        build_seconds[name] = time.monotonic() - t0 if proc else 0.0
+        _libs[name] = lib
 
 
 def build_all():

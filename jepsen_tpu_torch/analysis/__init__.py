@@ -31,21 +31,29 @@
   every invocation: PL012 (the sweep matrix), PL018 (fleetlint), PL020
   (coalescing) and PL024 (coordinator HA), with PL014 (the fleet's
   config) under fleet knobs and the service lint (PL016) under
-  ``--serve`` or fleet knobs, and before ``serve`` binds its socket.
-  The capacity pass comes with the planner (ROADMAP.md A.11(d5)).
+  ``--serve`` or fleet knobs, and before ``serve`` binds its socket;
+  the capacity pass (PL021) with the capacity planner.
+* **sizemodel** / **capplan** -- whole-campaign static capacity
+  planning: every plan shape, device-memory footprint and int32-wall
+  crossing a campaign will produce, predicted from the matrix and the
+  ModelSpecs before anything runs (CP001-CP008, ``capacity_plan.json``),
+  and after the run the prediction oracle in ``report.json["capacity"]``.
+* **codelint** -- an AST pass over the port's own source flagging
+  unsynchronized mutation of shared state reachable from threaded paths
+  (CL001-CL004); ``python -m jepsen_tpu_torch.lint`` drives it.
 * **fleetmodel** / **fleetlint** -- the campaign control plane's
   recorded history (``campaign.json``, ``cells.jsonl``, per-run traces)
   replayed against its protocol's invariants (FL001-FL016) into
   ``fleet_analysis.json``; ``preflight`` is the subset ``--resume``
   runs before trusting a journal.
 
-All report through one ``Diagnostic`` model and its renderers. The other
-lint analyzers (jaxlint's tracing checks, which do not apply to torch;
-codelint and capplan) wait for ROADMAP.md A.11(d5).
+All report through one ``Diagnostic`` model and its renderers. jaxlint's
+tracing checks do not apply to torch; its JX007 is ``shapelint``.
 """
 
-from . import (certify, fleetlint, fleetmodel,  # noqa: F401
-               histlint, planlint, searchplan, shapelint)
+from . import (capplan, certify, codelint, fleetlint,  # noqa: F401
+               fleetmodel, histlint, planlint, searchplan, shapelint,
+               sizemodel)
 from .diagnostics import (Diagnostic, ERROR, INFO,  # noqa: F401
                           SEVERITIES, WARNING, diag, errors, render_text,
                           run_analyzer, severity_counts, to_json)
@@ -57,7 +65,7 @@ __all__ = [
     "Diagnostic", "ERROR", "WARNING", "INFO", "SEVERITIES", "diag",
     "errors", "severity_counts", "render_text", "to_json", "run_analyzer",
     "histlint", "planlint", "searchplan", "shapelint", "certify",
-    "fleetlint", "fleetmodel",
+    "fleetlint", "fleetmodel", "capplan", "codelint", "sizemodel",
     "lint_history", "lint_encoded", "lint_test_history", "model_op_set",
     "lint_plan", "preflight", "PlanLintError",
 ]

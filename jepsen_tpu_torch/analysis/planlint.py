@@ -47,6 +47,7 @@ JAX package's ``cli.py:842-873``):
   PL018 mixed    fleetlint knob and the --resume journal gate
                  (``lint_fleetlint``)
   PL020 mixed    cross-tenant coalescing knobs (``lint_coalesce``)
+  PL021 mixed    capacity-planning knobs (``lint_capacity``)
   PL024 mixed    coordinator-HA knobs (``lint_ha``)
 
 ``preflight(test)`` is the core.run hook: FATAL codes raise
@@ -57,8 +58,11 @@ False``); everything else is logged and recorded. The fleet lint
 (a trace merge with artifact sync off) rides ``lint_telemetry``. The
 service lint (PL016, ``lint_service``) runs in the campaign preflight
 with ``--serve`` or ``--workers``, inside ``fleet.run_fleet`` and before
-``serve`` binds its socket. The capacity pass (PL021) comes with the
-planner (ROADMAP.md A.11(d5)).
+``serve`` binds its socket. The capacity pass (PL021,
+``lint_capacity``) runs in ``capplan.preflight`` (the campaign command
+with ``--capacity``, ``--device-mem-budget`` or ``--device-slots auto``,
+and ``fleet.run_fleet``) and before ``serve`` pre-registers a
+``--capacity-plan``.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["lint_plan", "lint_telemetry", "lint_introspection",
            "lint_trend", "lint_certify", "lint_campaign", "lint_fleet",
-           "lint_service", "lint_coalesce",
+           "lint_service", "lint_coalesce", "lint_capacity",
            "lint_fleetlint", "lint_ha", "FLEETLINT_MODES", "preflight",
            "PlanLintError", "FATAL_CODES", "monitor_diags",
            "searchplan_diags", "robustness_knob_diags"]
@@ -1223,6 +1227,92 @@ def lint_ha(cfg):
             "ha.coordinator-lease-s",
             "keep the coordinator lease TTL under the cell lease so "
             "takeover wins the race against mass cell expiry"))
+    return diags
+
+
+def lint_capacity(cfg):
+    """PL021: capacity-planning preflight (analysis/capplan.py),
+    before any plan is built or cell run. Recognized keys:
+    ``capacity`` (the --capacity mode), ``device-mem-budget``
+    (bytes), ``device-slots`` (an int or the literal "auto"),
+    ``unknown-cells`` (how many cells the built plan could not model,
+    for the enforce warning), and ``capacity-plan-file`` (a persisted
+    capacity_plan.json path the serve subcommand pre-registers
+    coalescer buckets from)."""
+    diags = []
+    cfg = cfg or {}
+    mode = cfg.get("capacity")
+    if mode is not None:
+        from .capplan import CAPACITY_MODES
+        if str(mode) not in CAPACITY_MODES:
+            diags.append(diag(
+                "PL021", ERROR,
+                f"unknown --capacity mode {mode!r}: known modes are "
+                f"{list(CAPACITY_MODES)}",
+                "capacity.mode",
+                "'plan' persists capacity_plan.json, 'warn' also "
+                "prints the table, 'enforce' refuses on CP/PL021 "
+                "errors"))
+            mode = None
+    budget = cfg.get("device-mem-budget")
+    if budget is not None and (not isinstance(budget, (int, float))
+                               or isinstance(budget, bool)
+                               or budget <= 0):
+        diags.append(diag(
+            "PL021", ERROR,
+            f"--device-mem-budget must be a positive byte count, got "
+            f"{budget!r}",
+            "capacity.device-mem-budget",
+            "pass the device's usable HBM in bytes (suffixes K/M/G "
+            "accepted on the CLI)"))
+        budget = None
+    slots = cfg.get("device-slots")
+    slots_auto = isinstance(slots, str) and slots.strip() == "auto"
+    if str(mode) == "enforce" and budget is None:
+        diags.append(diag(
+            "PL021", ERROR,
+            "--capacity enforce with no --device-mem-budget: the HBM "
+            "half of enforcement has nothing to enforce against",
+            "capacity.device-mem-budget",
+            "pass --device-mem-budget, or use --capacity warn"))
+    if slots_auto and budget is None:
+        diags.append(diag(
+            "PL021", ERROR,
+            "--device-slots auto with no --device-mem-budget: the "
+            "slot count derives from budget // peak cell footprint",
+            "capacity.device-slots",
+            "pass --device-mem-budget alongside --device-slots auto"))
+    if budget is not None and mode is None and not slots_auto:
+        diags.append(diag(
+            "PL021", WARNING,
+            "--device-mem-budget is set but no --capacity mode (or "
+            "--device-slots auto) consumes it: the knob is ignored",
+            "capacity.device-mem-budget",
+            "pass --capacity plan|warn|enforce, or drop the budget"))
+    unknown = cfg.get("unknown-cells")
+    if str(mode) == "enforce" and isinstance(unknown, int) \
+            and not isinstance(unknown, bool) and unknown > 0:
+        diags.append(diag(
+            "PL021", WARNING,
+            f"--capacity enforce over a matrix with {unknown} "
+            "unknown-shape cell(s): enforcement only covers the cells "
+            "the planner can see",
+            "capacity.enforce",
+            "register shape models (capplan.register_shapes) for the "
+            "unknown workloads, or use --capacity warn"))
+    pf = cfg.get("capacity-plan-file")
+    if pf is not None:
+        from .capplan import load_plan
+        if load_plan(str(pf)) is None:
+            diags.append(diag(
+                "PL021", ERROR,
+                f"--capacity-plan {pf!r} is not a readable "
+                "capacity_plan.json: there are no planned buckets to "
+                "pre-register",
+                "capacity.plan-file",
+                "point it at a capacity_plan.json produced by "
+                "`campaign --capacity plan` or `python -m "
+                "jepsen_tpu_torch.lint --matrix`"))
     return diags
 
 

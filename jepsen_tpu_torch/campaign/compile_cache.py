@@ -30,12 +30,19 @@ workers' per-cell deltas (and the cold/warm wall split) from there.
 service's cross-tenant coalescer groups ``/api/check`` segments on
 ``bucket_for(n_ops)``, the op-count bucket every engine pads to.
 
+``noted_keys`` is every plan shape this process noted, hits and misses
+alike, under the port's labels (``analysis.sizemodel.ledger_key_shape``
+maps them onto the reference's key indices). The capacity planner's
+prediction oracle brackets a campaign with ``noted_counts`` and takes
+``noted_since`` as its "actual" side: the shapes noted during the
+campaign, including those an earlier campaign of the same process had
+noted already, which a diff of the key sets would lose (ROADMAP.md
+C.11).
+
 Not carried over (ROADMAP.md, deliberate divergences): the settable
 op-count floor (``set_n_floor`` / ``bucket_floor``): a coarser bucket
 buys the port no reuse, only padding rows, so the floor stays the
-constant ``util.DEFAULT_N_FLOOR`` read through ``torch_wgl._n_floor``;
-and ``noted_keys``, whose one reader is the capacity planner's
-prediction oracle (ROADMAP.md A.11(d5)).
+constant ``util.DEFAULT_N_FLOOR`` read through ``torch_wgl._n_floor``.
 
 Deliberately dependency-light (obs only): the engines import this from
 inside the search entry points, and nothing here may drag the
@@ -50,10 +57,15 @@ from .. import obs
 from ..util import bucket
 
 __all__ = ["note", "stats", "delta", "reset", "set_ledger", "get_ledger",
-           "bucket", "bucket_for"]
+           "bucket", "bucket_for", "noted_keys", "noted_counts",
+           "noted_since"]
 
 _lock = threading.Lock()
 _seen: set = set()
+_noted: dict = {}         # key -> times THIS process noted it (hit or
+#                           miss); never pre-seeded by a ledger attach,
+#                           so a before/after bracket of the counts yields
+#                           exactly one campaign's shapes (the oracle)
 _hits: dict = {}          # engine -> int
 _misses: dict = {}        # engine -> int
 _ledger = None            # fleet.ledger.Ledger when persistence is on
@@ -125,6 +137,7 @@ def note(engine, key):
         _refresh_from(led)
     with _lock:
         hit = k in _seen
+        _noted[k] = _noted.get(k, 0) + 1
         if hit:
             _hits[engine] = _hits.get(engine, 0) + 1
         else:
@@ -135,6 +148,29 @@ def note(engine, key):
     obs.inc("campaign.compile_cache.hits" if hit
             else "campaign.compile_cache.misses", engine=str(engine))
     return hit
+
+
+def noted_keys():
+    """Canonical ``(engine, key)`` pairs every search THIS process has
+    noted (hits and misses alike; never pre-seeded from a ledger
+    attach): the keys of ``noted_counts``."""
+    return set(noted_counts())
+
+
+def noted_counts():
+    """``{(engine, key): times noted}`` for this process: the oracle's
+    bracket (``noted_since``)."""
+    with _lock:
+        return dict(_noted)
+
+
+def noted_since(before):
+    """The canonical keys noted since the ``noted_counts()`` snapshot
+    ``before``: every key whose count grew, so a shape an earlier
+    campaign of this process noted still counts when this one notes it
+    again."""
+    with _lock:
+        return {k for k, n in _noted.items() if n > before.get(k, 0)}
 
 
 def stats():
@@ -166,6 +202,7 @@ def reset():
     global _ledger
     with _lock:
         _seen.clear()
+        _noted.clear()
         _hits.clear()
         _misses.clear()
         _ledger = None

@@ -37,13 +37,13 @@ Cells are ``{"id": str, "test": <test map>}`` or ``{"id": str,
 keep a malformed cell's crash contained to that cell (journaled
 ``"crashed"``, as in the reference).
 
-The capacity plan's oracle (``capacity_plan=``) needs a later
-sub-slice and raises ``NotImplementedError`` naming it (ROADMAP.md
-A.11(d5)) before any cell runs or any state is written. Resuming a
-coordinator-HA journal raises the reference's ``CampaignError``,
-pointing at the fleet path. The finalize audits (fleetlint,
-certification) stay contained as in the reference, except that a
-``NotImplementedError`` is never contained.
+The capacity plan (``capacity_plan=``) is persisted next to the
+journal and its prediction oracle runs at finalize, contained, as in
+the reference; its bracket counts notes, so a shape an earlier
+campaign of the process noted still counts (ROADMAP.md C.11). Resuming a coordinator-HA journal raises the reference's
+``CampaignError``, pointing at the fleet path. The finalize audits
+(fleetlint, certification) stay contained as in the reference, except
+that a ``NotImplementedError`` is never contained.
 """
 
 from __future__ import annotations
@@ -159,22 +159,21 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
     to the CPU oracle instead of crashing it); the chosen tier is
     journaled on the cell record.
 
-    ``capacity_plan`` (an analysis.capplan plan dict) is, in the JAX
-    package, persisted next to the journal and diffed at finalize
-    against the shapes the campaign noted.
+    ``capacity_plan`` (an analysis.capplan plan dict, built by the
+    CLI from the matrix + base options) is persisted as
+    ``capacity_plan.json`` in the campaign directory, and at finalize
+    the plan's predicted (model, bucket) shapes are diffed against
+    the plan shapes this campaign actually noted
+    (``compile_cache.noted_counts``/``noted_since`` bracket) into
+    ``report["capacity"]`` -- the prediction oracle. CONTAINED both
+    ends: a crashing planner/oracle never changes a cell outcome or
+    the campaign exit code (the searchplan rule).
 
     ``certify=True`` (default) re-certifies a deterministic sample of
     the cells' persisted runs at finalize from their own artifacts
     (analysis.certify: witness replay + certificate/results
     agreement) into ``report["certification"]``. CONTAINED the same
-    way: sampled findings are reported, never outcome-bearing.
-
-    In the port ``capacity_plan`` raises ``NotImplementedError``
-    (ROADMAP.md A.11(d5)) before anything runs."""
-    if capacity_plan is not None:
-        raise NotImplementedError(
-            "the capacity plan and its prediction oracle "
-            "(analysis.capplan) are not ported yet: ROADMAP.md A.11(d5)")
+    way: sampled findings are reported, never outcome-bearing."""
     cells = list(cells)
     ids = [c["id"] for c in cells]
     if len(set(ids)) != len(ids):
@@ -281,6 +280,20 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
         from ..fleet import backends as fbackends
         backends = fbackends.as_failover(backends)
     cc_before = compile_cache.stats()
+    cap_before = None
+    if capacity_plan is not None:
+        # persist the plan next to the journal and open the oracle
+        # bracket; contained -- the plan is advisory, never a gate
+        try:
+            from ..analysis import capplan
+            capplan.dump_plan(
+                capacity_plan,
+                store.campaign_path(campaign_id, capplan.PLAN_FILE))
+            cap_before = compile_cache.noted_counts()
+        except Exception:  # noqa: BLE001 - planning is advisory
+            logger.warning("couldn't persist the capacity plan "
+                           "(contained)", exc_info=True)
+            capacity_plan = None
     pending = [c for c in cells if c["id"] not in done]
     reg.set_gauge("campaign.cells_total", len(cells))
     reg.set_gauge("campaign.cells_resumed", len(done))
@@ -447,6 +460,22 @@ def run_cells(cells, *, campaign_id=None, parallel=1, device_slots=1,
         jr.write_meta({**(jr.load_meta() or {}),
                        "status": "aborted" if aborted else "complete",
                        "updated": store.local_time()})
+        if capacity_plan is not None:
+            # the prediction oracle: predicted (model, bucket) shapes
+            # vs the plan shapes this campaign actually noted.
+            # CONTAINED -- a crashing oracle costs the report block,
+            # never an outcome or the exit code
+            try:
+                from ..analysis import capplan
+                actual = compile_cache.noted_since(cap_before or {})
+                report["capacity"] = capplan.report_section(
+                    capacity_plan, actual,
+                    path=store.campaign_path(campaign_id,
+                                             capplan.PLAN_FILE))
+                jr.write_report(report)
+            except Exception:  # noqa: BLE001 - oracle is contained
+                logger.warning("capacity oracle crashed (contained)",
+                               exc_info=True)
         if fleetlint:
             try:
                 # control-plane audit (analysis.fleetlint): scheduler

@@ -34,9 +34,11 @@ JAX package does; the ``independent`` checker hands the mesh to the
 mesh key batch instead. A mesh under any other algorithm raises
 ValueError: the JAX package would fail inside a racer.
 
-The module also carries the JAX package's host checkers that the demo and
-the suites compose beside the gate: ``unhandled_exceptions``, ``stats``
-and ``set_checker`` (checker.clj:124-183, 240-291), copied unchanged.
+The module also carries the JAX package's host checkers, copied
+unchanged over the port's host models: ``unhandled_exceptions``,
+``stats``, ``queue``, ``set_checker``, ``set_full``, ``total_queue`` (with
+``expand_queue_drain_ops``), ``unique_ids``, ``counter`` and
+``log_file_pattern`` (checker.clj:124-881).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import collections
 import contextlib
 import contextvars
 import logging
+import re
 import sys
 import threading
 import time
@@ -55,7 +58,9 @@ from ..models import base as mbase
 from .core import Checker, merge_valid
 
 __all__ = ["unhandled_exceptions", "stats", "Linearizable", "linearizable",
-           "join_racers", "set_checker"]
+           "join_racers", "set_checker", "queue", "set_full",
+           "expand_queue_drain_ops", "total_queue", "unique_ids",
+           "counter", "log_file_pattern"]
 
 logger = logging.getLogger(__name__)
 
@@ -107,10 +112,16 @@ def short_switch(interval=None):
     try:
         yield
     finally:
-        with _races_lock:
-            _switch["open"].remove(interval)
-            sys.setswitchinterval(min(_switch["open"])
-                                  if _switch["open"] else _switch["saved"])
+        _leave_switch(interval)
+
+
+def _leave_switch(interval):
+    """Close one ``short_switch`` scope: the shortest interval still
+    open, or the saved one once none is."""
+    with _races_lock:
+        _switch["open"].remove(interval)
+        sys.setswitchinterval(min(_switch["open"])
+                              if _switch["open"] else _switch["saved"])
 
 
 class _UnhandledExceptions(Checker):
@@ -503,6 +514,31 @@ def linearizable(opts):
     return Linearizable(opts)
 
 
+class _Queue(Checker):
+    """Model-fold queue check: non-failing enqueues count, only ok
+    dequeues count (checker.clj:218-238)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def check(self, test, hist, opts=None):
+        state = self.model
+        for op in hist:
+            f = op.get("f")
+            take = (f == "enqueue" and h.invoke(op)) or \
+                   (f == "dequeue" and h.ok(op))
+            if not take:
+                continue
+            state = state.step(op)
+            if mbase.is_inconsistent(state):
+                return {"valid": False, "error": state.msg}
+        return {"valid": True, "final-queue": state}
+
+
+def queue(model):
+    return _Queue(model)
+
+
 class _SetChecker(Checker):
     """adds + final read: lost/unexpected/recovered analysis
     (checker.clj:240-291)."""
@@ -537,3 +573,314 @@ class _SetChecker(Checker):
 
 def set_checker():
     return _SetChecker()
+
+
+class _SetFullElement:
+    """Per-element timeline state (checker.clj SetFullElement,
+    :300-340)."""
+
+    __slots__ = ("element", "known", "last_present", "last_absent")
+
+    def __init__(self, element):
+        self.element = element
+        self.known = None
+        self.last_present = None
+        self.last_absent = None
+
+    def add_ok(self, op):
+        if self.known is None:
+            self.known = op
+
+    def read_present(self, inv, op):
+        if self.known is None:
+            self.known = op
+        if self.last_present is None or \
+                self.last_present["index"] < inv["index"]:
+            self.last_present = inv
+
+    def read_absent(self, inv, op):
+        if self.last_absent is None or \
+                self.last_absent["index"] < inv["index"]:
+            self.last_absent = inv
+
+    def results(self):
+        """Outcome classification (checker.clj:346-405)."""
+        idx = lambda o, d=-1: o["index"] if o is not None else d  # noqa:E731
+        stable = bool(self.last_present is not None and
+                      idx(self.last_absent) < idx(self.last_present))
+        lost = bool(self.known is not None and
+                    self.last_absent is not None and
+                    idx(self.last_present) < idx(self.last_absent) and
+                    self.known["index"] < idx(self.last_absent))
+        never_read = not (stable or lost)
+        known_time = self.known["time"] if self.known else None
+        stable_latency = None
+        lost_latency = None
+        if stable:
+            stable_time = (self.last_absent["time"] + 1
+                           if self.last_absent else 0)
+            stable_latency = int(max(0, stable_time - known_time) / 1e6)
+        if lost:
+            lost_time = (self.last_present["time"] + 1
+                         if self.last_present else 0)
+            lost_latency = int(max(0, lost_time - known_time) / 1e6)
+        return {"element": self.element,
+                "outcome": ("stable" if stable else
+                            "lost" if lost else "never-read"),
+                "stable-latency": stable_latency,
+                "lost-latency": lost_latency,
+                "known": self.known,
+                "last-absent": self.last_absent,
+                "never_read": never_read}
+
+
+def _frequency_distribution(points, values):
+    values = sorted(values)
+    if not values:
+        return None
+    n = len(values)
+    return {p: values[min(n - 1, int(n * p))] for p in points}
+
+
+class _SetFull(Checker):
+    """Per-element stable/lost timeline analysis with latency quantiles
+    (checker.clj:294-592)."""
+
+    def __init__(self, linearizable=False):
+        self.linearizable = linearizable
+
+    def check(self, test, hist, opts=None):
+        hist = h.ensure_indexed(hist)
+        elements = {}
+        reads = {}
+        dups = {}
+        for op in hist:
+            if not isinstance(op.get("process"), int):
+                continue
+            f = op.get("f")
+            v = op.get("value")
+            p = op.get("process")
+            if f == "add":
+                if h.invoke(op):
+                    elements[v] = _SetFullElement(v)
+                elif h.ok(op) and v in elements:
+                    elements[v].add_ok(op)
+            elif f == "read":
+                if h.invoke(op):
+                    reads[p] = op
+                elif h.fail(op):
+                    reads.pop(p, None)
+                elif h.ok(op):
+                    inv = reads.pop(p, op)
+                    counts = collections.Counter(v)
+                    for k, c in counts.items():
+                        if c > 1:
+                            dups[k] = max(dups.get(k, 0), c)
+                    vs = set(v)
+                    for el, state in elements.items():
+                        if el in vs:
+                            state.read_present(inv, op)
+                        else:
+                            state.read_absent(inv, op)
+        rs = [elements[k].results()
+              for k in sorted(elements, key=lambda x: (str(type(x)), x))]
+        outcomes = collections.defaultdict(list)
+        for r in rs:
+            outcomes[r["outcome"]].append(r)
+        stale = [r for r in outcomes["stable"]
+                 if r["stable-latency"] and r["stable-latency"] > 0]
+        valid = (False if outcomes["lost"] else
+                 "unknown" if not outcomes["stable"] else
+                 False if self.linearizable and stale else True)
+        if dups:
+            valid = False
+        out = {"valid": valid,
+               "attempt-count": len(rs),
+               "stable-count": len(outcomes["stable"]),
+               "lost-count": len(outcomes["lost"]),
+               "lost": sorted(r["element"] for r in outcomes["lost"]),
+               "never-read-count": len(outcomes["never-read"]),
+               "never-read": sorted(r["element"]
+                                    for r in outcomes["never-read"]),
+               "stale-count": len(stale),
+               "stale": sorted(r["element"] for r in stale),
+               "worst-stale": sorted(stale, key=lambda r:
+                                     -(r["stable-latency"] or 0))[:8],
+               "duplicated-count": len(dups),
+               "duplicated": dups}
+        points = (0, 0.5, 0.95, 0.99, 1)
+        sl = [r["stable-latency"] for r in rs
+              if r["stable-latency"] is not None]
+        ll = [r["lost-latency"] for r in rs
+              if r["lost-latency"] is not None]
+        if sl:
+            out["stable-latencies"] = _frequency_distribution(points, sl)
+        if ll:
+            out["lost-latencies"] = _frequency_distribution(points, ll)
+        return out
+
+
+def set_full(checker_opts=None):
+    opts = checker_opts or {}
+    return _SetFull(linearizable=opts.get("linearizable?", False))
+
+
+def expand_queue_drain_ops(hist):
+    """Expand ok :drain ops into dequeue invoke/ok pairs
+    (checker.clj:594-626)."""
+    out = []
+    for op in hist:
+        if op.get("f") != "drain":
+            out.append(op)
+        elif h.invoke(op) or h.fail(op):
+            continue
+        elif h.ok(op):
+            for element in op.get("value") or []:
+                inv = dict(op)
+                inv.update(type="invoke", f="dequeue", value=None)
+                comp = dict(op)
+                comp.update(type="ok", f="dequeue", value=element)
+                out.extend([inv, comp])
+        else:
+            raise ValueError(
+                f"not sure how to handle a crashed drain: {op!r}")
+    return out
+
+
+class _TotalQueue(Checker):
+    """Multiset conservation: what goes in must come out
+    (checker.clj:628-687)."""
+
+    def check(self, test, hist, opts=None):
+        hist = expand_queue_drain_ops(hist)
+        attempts = collections.Counter(
+            o.get("value") for o in hist
+            if h.invoke(o) and o.get("f") == "enqueue")
+        enqueues = collections.Counter(
+            o.get("value") for o in hist
+            if h.ok(o) and o.get("f") == "enqueue")
+        dequeues = collections.Counter(
+            o.get("value") for o in hist
+            if h.ok(o) and o.get("f") == "dequeue")
+        ok = dequeues & attempts
+        unexpected = collections.Counter(
+            {k: v for k, v in dequeues.items() if k not in attempts})
+        duplicated = dequeues - attempts - unexpected
+        lost = enqueues - dequeues
+        recovered = ok - enqueues
+        return {"valid": not lost and not unexpected,
+                "attempt-count": sum(attempts.values()),
+                "acknowledged-count": sum(enqueues.values()),
+                "ok-count": sum(ok.values()),
+                "unexpected-count": sum(unexpected.values()),
+                "duplicated-count": sum(duplicated.values()),
+                "lost-count": sum(lost.values()),
+                "recovered-count": sum(recovered.values()),
+                "lost": dict(lost), "unexpected": dict(unexpected),
+                "duplicated": dict(duplicated),
+                "recovered": dict(recovered)}
+
+
+def total_queue():
+    return _TotalQueue()
+
+
+class _UniqueIds(Checker):
+    """Are generated IDs distinct? (checker.clj:689-734)"""
+
+    def check(self, test, hist, opts=None):
+        attempted = sum(1 for o in hist
+                        if h.invoke(o) and o.get("f") == "generate")
+        acks = [o.get("value") for o in hist
+                if h.ok(o) and o.get("f") == "generate"]
+        counts = collections.Counter(acks)
+        dups = {k: v for k, v in counts.items() if v > 1}
+        rng = [min(acks), max(acks)] if acks else None
+        top_dups = dict(sorted(dups.items(), key=lambda kv: -kv[1])[:48])
+        return {"valid": not dups,
+                "attempted-count": attempted,
+                "acknowledged-count": len(acks),
+                "duplicated-count": len(dups),
+                "duplicated": top_dups,
+                "range": rng}
+
+
+def unique_ids():
+    return _UniqueIds()
+
+
+class _Counter(Checker):
+    """Bounds-interval counter check: each read must fall within
+    [sum of ok adds at invoke, sum of attempted adds at completion]
+    (checker.clj:737-795)."""
+
+    def check(self, test, hist, opts=None):
+        hist = [o for o in h.complete(hist)
+                if not h.fail(o) and not o.get("fails?")]
+        lower = 0
+        upper = 0
+        pending = {}
+        reads = []
+        for op in hist:
+            key = (op.get("type"), op.get("f"))
+            if key == ("invoke", "read"):
+                pending[op["process"]] = [lower, op.get("value")]
+            elif key == ("ok", "read"):
+                r = pending.pop(op["process"], None)
+                if r is not None:
+                    reads.append(r + [upper])
+            elif key == ("invoke", "add"):
+                v = op.get("value") or 0
+                # a pending add widens the bound in its direction; a
+                # negative add lowers the reachable floor instead
+                if v >= 0:
+                    upper += v
+                else:
+                    lower += v
+            elif key == ("ok", "add"):
+                v = op.get("value") or 0
+                if v >= 0:
+                    lower += v
+                else:
+                    upper += v
+        errors = [r for r in reads
+                  if not (r[0] <= r[1] <= r[2])]
+        return {"valid": not errors, "reads": reads, "errors": errors}
+
+
+def counter():
+    return _Counter()
+
+
+class _LogFilePattern(Checker):
+    """Greps downloaded node logs in the store dir for a pattern
+    (checker.clj:839-881)."""
+
+    def __init__(self, pattern, filename):
+        self.pattern = re.compile(pattern)
+        self.filename = filename
+
+    def check(self, test, hist, opts=None):
+        from .. import store
+        try:
+            paths = {node: store.path(test, node, self.filename)
+                     for node in test.get("nodes", [])}
+        except (AssertionError, KeyError):
+            return {"valid": "unknown",
+                    "error": "no store directory for this test"}
+        matches = []
+        for node, path in paths.items():
+            try:
+                with open(path, errors="replace") as f:
+                    for line in f:
+                        if self.pattern.search(line):
+                            matches.append({"node": node,
+                                            "line": line.rstrip("\n")})
+            except FileNotFoundError:
+                continue
+        return {"valid": not matches, "count": len(matches),
+                "matches": matches}
+
+
+def log_file_pattern(pattern, filename):
+    return _LogFilePattern(pattern, filename)

@@ -25,6 +25,7 @@ none of it.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -47,6 +48,7 @@ SMEM_BUDGET = 232448 - 1024
 #: kernel launches since the count was last reset (set it to 0 to start
 #: a count); the wrapper adds one per launch, and nowhere else
 launches = 0
+_launches_lock = threading.Lock()
 
 
 def gate(step_fn, NS, R, n, B, S, A):
@@ -261,5 +263,6 @@ def run(step_fn, seed_lin, seed_st, seed_ok, invoke, ret, fop, args, rets,
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return j, st

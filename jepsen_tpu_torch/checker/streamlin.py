@@ -123,12 +123,14 @@ _MIX = ((0x9E3779B1, 0x85EBCA6B), (0xC2B2AE35, 0x27D4EB2F))
 #: host reads of device values made by folds (loop conditions and
 #: results): a plain module counter; set it to 0 before a run to count
 syncs = 0
+_syncs_lock = threading.Lock()
 
 
 def _read(t):
     """One host read of a device tensor, counted."""
     global syncs
-    syncs += 1
+    with _syncs_lock:
+        syncs += 1
     return t.tolist()
 
 

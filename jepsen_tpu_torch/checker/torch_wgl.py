@@ -56,6 +56,7 @@ import functools
 import hashlib
 import logging
 import os
+import threading
 import time
 import zipfile
 
@@ -107,12 +108,14 @@ TC = 1 << 16
 #: collective calls made by the sharded searches (``_collective``): a
 #: plain module counter, like ``rollout.launches``
 collective_calls = 0
+_collective_lock = threading.Lock()
 
 
 def _collective(fn, *args, **kwargs):
     """Call one ``torch.distributed`` collective and count it."""
     global collective_calls
-    collective_calls += 1
+    with _collective_lock:
+        collective_calls += 1
     return fn(*args, **kwargs)
 
 
@@ -192,6 +195,20 @@ def _plan_sizes(n, S, C, frontier_width=None, stack_size=None,
         table_size = max(1 << 20, min(1 << 23, 32 * n))
     return (B, _bucket(frontier_width, 8), _bucket(stack_size, 1024),
             _bucket(table_size, 1024))
+
+
+def _rollout_shape(K, n, S, R=None, NS=None):
+    """(R, NS): the greedy chains' length and count per key for a K-key
+    search of n ops and S state words. Deep chains for single-key
+    searches, none for trivially short histories (jax_wgl.py:219), one
+    chain per key in a batch; none at all past the chains' memory cap."""
+    if R is None:
+        R = 0 if n <= 64 else min(1024 if K == 1 else 256, n)
+    if NS is None:
+        NS = max(1, min(8, (64 << 20) // max(1, n * S))) if K == 1 else 1
+    if R and K * NS * n * S > (256 << 20):
+        R, NS = 0, 1
+    return R, NS
 
 
 def _encode_arrays(e):
@@ -426,14 +443,7 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
     G = 1          # table groups: one per device shard of a mesh search
     M = W * C
     KM = K * M
-    if R is None:
-        # greedy chain length per iteration: deep chains for single-key
-        # searches, none for trivially short histories (jax_wgl.py:219)
-        R = 0 if n <= 64 else min(1024 if K == 1 else 256, n)
-    if NS is None:
-        NS = max(1, min(8, (64 << 20) // max(1, n * S))) if K == 1 else 1
-    if R and K * NS * n * S > (256 << 20):
-        R, NS = 0, 1
+    R, NS = _rollout_shape(K, n, S, R, NS)
 
     # the hand-written rollout: single-key searches whose model and
     # shape pass the gate. "auto" takes it on CUDA; "kernel" insists

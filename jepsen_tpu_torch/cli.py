@@ -12,10 +12,10 @@ worker process per cell, leases, stealing, chaos, coordinator HA with
 scheduler. ``serve`` runs the store viewer and the submission API
 (``web.serve``: ``/api/check`` with the cross-tenant coalescer) on
 ``--device`` (default: CUDA), and ``campaign --serve`` runs it beside
-the campaign. The options that need the capacity planner (ROADMAP.md
-A.11(d5)) are registered and raise ``NotImplementedError`` (exit 255)
-before anything runs: ``--capacity``, ``--device-mem-budget``,
-``--device-slots auto`` and ``serve --capacity-plan``.
+the campaign. ``campaign --capacity``, ``--device-mem-budget`` and
+``--device-slots auto`` run the capacity planner (``analysis.capplan``)
+before anything runs, and ``serve --capacity-plan`` pre-registers a
+plan's shapes on the coalescer.
 
 Exit codes (cli.clj:129-139):
 
@@ -32,6 +32,7 @@ import argparse
 import logging
 import re
 import sys
+import time
 import traceback
 
 from . import core, store
@@ -653,7 +654,6 @@ def test_all_cmd(opts):
             raise CliError("--device-slots auto derives from a "
                            "capacity plan over a sweep matrix; use "
                            "the campaign subcommand")
-        refuse_later_slices(options)
         # ANY campaign flag routes through the scheduler -- a
         # --campaign-id or --device-slots on the legacy sequential path
         # would be silently ignored (no journal, nothing to resume)
@@ -749,32 +749,6 @@ def _jsonable_options(options):
     return out
 
 
-#: campaign options whose modules are later sub-slices of ROADMAP.md
-#: A.11(d): (option key, what needs it, the sub-slice)
-LATER_SLICE_OPTS = (
-    ("capacity", "the capacity planner (analysis.capplan)", "A.11(d5)"),
-    ("device-mem-budget", "the capacity planner (analysis.capplan)",
-     "A.11(d5)"),
-)
-
-
-def refuse_later_slices(options):
-    """Raise ``NotImplementedError`` naming the sub-slice for the first
-    option set whose module the port has not got yet (``--device-slots
-    auto`` counts as the capacity planner's): nothing of the campaign
-    has run or been written when it raises."""
-    for key, what, item in LATER_SLICE_OPTS:
-        if options.get(key) not in (None, False, ""):
-            raise NotImplementedError(
-                f"--{key} needs {what}, which is not ported yet: "
-                f"ROADMAP.md {item}")
-    if options.get("device-slots") == "auto":
-        raise NotImplementedError(
-            "--device-slots auto needs the capacity planner "
-            "(analysis.capplan), which is not ported yet: ROADMAP.md "
-            "A.11(d5)")
-
-
 def campaign_cmd(opts):
     """Subcommand ``campaign``: expand a sweep matrix over the suite's
     test-fn and run it as a parallel, resumable campaign (reference
@@ -797,9 +771,12 @@ def campaign_cmd(opts):
     fleet (``fleet.run_fleet``), and ``--standby`` tails a fleet
     campaign and takes it over once its coordinator's lease expires.
     ``--serve`` serves the viewer and ``/api`` beside the campaign
-    (PL016, PL017 and PL020 first). The capacity options raise
-    ``NotImplementedError`` naming A.11(d5) before anything runs
-    (``refuse_later_slices``)."""
+    (PL016, PL017 and PL020 first). ``--capacity``,
+    ``--device-mem-budget`` and ``--device-slots auto`` run the
+    capacity preflight (PL021, CP001-CP008): ``plan`` persists the
+    plan and runs its oracle at finalize, ``warn`` also prints the
+    table, ``enforce`` refuses on errors, and ``auto`` resolves the
+    slot count from the plan."""
     test_fn = opts["test-fn"]
 
     def add_opts(parser):
@@ -814,7 +791,6 @@ def campaign_cmd(opts):
 
         from . import analysis, campaign
 
-        refuse_later_slices(options)
         # --lint with an EXISTING --campaign-id audits that campaign
         # from disk (fleetlint over its journal/traces) instead of dry
         # running a matrix: `campaign --lint --campaign-id soak` is
@@ -844,7 +820,12 @@ def campaign_cmd(opts):
         fleet_cfg = {
             "lease-s": options.get("lease"),
             "serve?": bool(options.get("serve")),
-            "device-slots": options.get("device-slots"),
+            # "auto" resolves AFTER the capacity preflight below;
+            # PL021 owns its validation, so PL014's integer rule
+            # must not see the placeholder
+            "device-slots": None
+            if options.get("device-slots") == "auto"
+            else options.get("device-slots"),
             "backends": [t.strip() for t in
                          str(options["backends"]).split(",")
                          if t.strip()]
@@ -921,15 +902,64 @@ def campaign_cmd(opts):
                 getattr(chaos_prof, "coordinator_kill", 0)),
             "lease-s": options.get("lease"),
         })
+        # capacity preflight (PL021 + CP001-CP008, analysis.capplan):
+        # the whole-campaign static plan -- every plan shape, device
+        # memory footprint, and int32-wall crossing predicted from the
+        # matrix x ModelSpecs before anything runs. plan/warn are
+        # contained (their findings never gate the run); only enforce
+        # may refuse, and only on error diagnostics
+        capacity = options.get("capacity")
+        budget = options.get("device-mem-budget")
+        slots = options.get("device-slots")
+        cap_plan, cap_diags = None, []
+        if capacity is not None or budget is not None \
+                or slots == "auto":
+            from .analysis import capplan
+            try:
+                cap_plan, cap_diags = capplan.preflight(
+                    cells_plan, base=options, mode=capacity,
+                    device_mem_budget=budget, device_slots=slots)
+            except capplan.CapacityError as e:
+                if not options.get("lint?"):
+                    raise CliError(str(e)) from None
+                # --lint reports the refusal instead of raising past
+                # the lint output
+                cap_diags = e.diagnostics
         if options.get("lint?"):
-            print(analysis.render_text(diags, title="campaign lint:"))
+            print(analysis.render_text(diags + cap_diags,
+                                       title="campaign lint:"))
+            if cap_plan is not None:
+                from .analysis import capplan
+                print(capplan.render_table(cap_plan))
             for c in cells_plan:
                 print(c["id"])
-            sys.exit(1 if analysis.errors(diags) else 0)
+            sys.exit(1 if analysis.errors(diags + cap_diags) else 0)
         if analysis.errors(diags):
+            # capacity diagnostics deliberately stay out of this gate:
+            # CP/PL021 findings refuse a run only via --capacity
+            # enforce (capplan.preflight raised above) -- containment
             raise CliError(analysis.render_text(
                 analysis.errors(diags),
                 title="campaign matrix invalid:"))
+        if capacity == "warn" and (cap_diags or cap_plan is not None):
+            print(analysis.render_text(cap_diags,
+                                       title="capacity preflight:"))
+            if cap_plan is not None:
+                from .analysis import capplan
+                print(capplan.render_table(cap_plan))
+        elif cap_diags:
+            logger.warning("%s", analysis.render_text(
+                cap_diags, title="capacity preflight:"))
+        if slots == "auto":
+            from .analysis import capplan
+            resolved = capplan.auto_slots(cap_plan)
+            if resolved is None:
+                raise CliError(
+                    "--device-slots auto: the capacity plan has no "
+                    "computable slot count (pass --device-mem-budget "
+                    "and make sure the matrix has known-shape cells)")
+            logger.info("--device-slots auto -> %d", resolved)
+            options["device-slots"] = resolved
         # coordinator HA (fleet.ha): the standby tails the journal
         # read-only until the active coordinator's lease expires,
         # fences it with a journaled takeover record, and falls
@@ -983,7 +1013,8 @@ def campaign_cmd(opts):
                        "coalesce-window-ms":
                            options.get("coalesce-window-ms"),
                        "coalesce-max-segments":
-                           options.get("coalesce-max-segments")})
+                           options.get("coalesce-max-segments"),
+                       "capacity-plan": cap_plan})
         if workers is not None:
             from . import fleet
             try:
@@ -1014,6 +1045,9 @@ def campaign_cmd(opts):
                         "coalesce-window-ms"),
                     coalesce_max_segments=options.get(
                         "coalesce-max-segments"),
+                    capacity=capacity,
+                    device_mem_budget=budget,
+                    capacity_plan=cap_plan,
                     coordinator_lease_s=options.get(
                         "coordinator-lease-s"),
                     takeover_grace_s=options.get("takeover-grace-s"),
@@ -1055,7 +1089,8 @@ def campaign_cmd(opts):
                 resume=bool(options.get("resume")),
                 ledger=not options.get("no-ledger"),
                 backends=options.get("backends") or None,
-                fleetlint=options.get("fleetlint") != "off")
+                fleetlint=options.get("fleetlint") != "off",
+                capacity_plan=cap_plan)
         except campaign.CampaignError as e:
             raise CliError(str(e)) from e
         print(campaign.report.render_text(report))
@@ -1073,8 +1108,8 @@ def serve_cmd():
     the submission API. The JAX package's options plus ``--device
     {cuda,cpu}`` (default: CUDA), where the coalescer's batches and
     every solo search run; without a card the default exits 255
-    before the socket opens. ``--capacity-plan`` needs the capacity
-    planner and exits 255 naming ROADMAP.md A.11(d5). PL016 and PL020
+    before the socket opens. ``--capacity-plan`` pre-registers a
+    capacity plan's shapes on the coalescer. PL016, PL020 and PL021
     run first; SIGINT drains the service and aborts its submitted
     campaigns (``service.shutdown``), then exits 0."""
 
@@ -1114,21 +1149,18 @@ def serve_cmd():
                                  "non-positive values).")
         parser.add_argument("--capacity-plan", default=None,
                             metavar="FILE",
-                            help="A capacity_plan.json whose predicted "
-                                 "(model, bucket) shapes pre-register "
-                                 "on the coalescer (needs the capacity "
-                                 "planner, not ported yet: exits 255).")
+                            help="A capacity_plan.json (from "
+                                 "`campaign --capacity plan` or "
+                                 "`python -m jepsen_tpu_torch.lint "
+                                 "--matrix`) whose predicted (model, "
+                                 "bucket) shapes pre-register on the "
+                                 "coalescer, so first-window strangers "
+                                 "land in planned shapes (PL021 "
+                                 "rejects unreadable files).")
 
     def run_serve(options):
-        import time
-
         from . import web
         from .analysis import errors, planlint, render_text
-        if options.get("capacity-plan") is not None:
-            raise NotImplementedError(
-                "serve --capacity-plan needs the capacity planner "
-                "(analysis.capplan), which is not ported yet: "
-                "ROADMAP.md A.11(d5)")
         diags = planlint.lint_service({
             "serve?": True, "serve-ip": options.get("host"),
             "auth-token?": bool(options.get("token"))})
@@ -1137,12 +1169,15 @@ def serve_cmd():
             "coalesce-window-ms": options.get("coalesce-window-ms"),
             "coalesce-max-segments":
                 options.get("coalesce-max-segments")})
+        diags += planlint.lint_capacity({
+            "capacity-plan-file": options.get("capacity-plan")})
         if diags:
             print(render_text(diags, title="serve preflight:"))
         if errors(diags):
             raise CliError("refusing to serve: fix the preflight "
                            "errors above (bind 127.0.0.1 / pass "
-                           "--token / fix the coalesce knobs)")
+                           "--token / fix the coalesce or "
+                           "capacity-plan knobs)")
         server = web.serve({
             "ip": options.get("host", "0.0.0.0"),
             "port": options.get("port", 8080),
@@ -1151,7 +1186,8 @@ def serve_cmd():
             "coalesce?": not options.get("no-coalesce"),
             "coalesce-window-ms": options.get("coalesce-window-ms"),
             "coalesce-max-segments":
-                options.get("coalesce-max-segments")})
+                options.get("coalesce-max-segments"),
+            "capacity-plan": options.get("capacity-plan")})
         host, port = server.server_address[:2]
         print(f"Listening on http://{host}:{port}/", flush=True)
         try:

@@ -39,9 +39,7 @@ share the card, as two TPU workers share a host in the reference.
 Where the port differs (ROADMAP.md, deliberate divergences): a backend
 tier reaches the worker as the spec's ``backend`` (the worker overlays
 the tier's ``device`` option, ``backends.tier_options``), not as an
-environment variable; and the capacity plan (``capacity``,
-``device_mem_budget``, ``capacity_plan``) raises
-``NotImplementedError`` naming A.11(d5) before anything is written.
+environment variable.
 """
 
 from __future__ import annotations
@@ -229,10 +227,17 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
     searchplan follows for verdicts.
 
     **Capacity** (``capacity`` / ``device_mem_budget`` /
-    ``capacity_plan``): the JAX package's static capacity pass and
-    its prediction oracle. In the port they raise
-    ``NotImplementedError`` naming ROADMAP.md A.11(d5) before any
-    state is written.
+    ``capacity_plan``): with a ``--capacity`` mode (or a pre-built
+    plan from the CLI), the analysis.capplan static pass predicts
+    every cell's plan shapes and device-memory footprint before any
+    host is contacted -- PL021 lints the knobs, ``enforce`` refuses on
+    CP/PL021 errors, the plan persists as ``capacity_plan.json``, a
+    live service coalescer pre-registers the planned (model, bucket)
+    buckets, and at finalize the prediction is diffed against the plan
+    shapes the campaign actually noted (persistent-ledger delta + the
+    coordinator's own) into ``report["capacity"]`` -- the prediction
+    oracle. ``plan``/``warn`` are CONTAINED: findings and planner
+    crashes can never flip a cell outcome or the exit code.
 
     **Coordinator HA** (``coordinator_lease_s`` / ``takeover_grace_s``
     / ``ha_epoch``): with a coordinator lease TTL set, THIS
@@ -249,12 +254,6 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
     marker), which is what the HA soak recovers from."""
     from ..analysis import planlint, render_text, errors as diag_errors
     from . import sync as fsync
-
-    if capacity is not None or device_mem_budget is not None \
-            or capacity_plan is not None:
-        raise NotImplementedError(
-            "the capacity plan and its prediction oracle "
-            "(analysis.capplan) are not ported yet: ROADMAP.md A.11(d5)")
 
     workers = [w if isinstance(w, Worker) else Worker(w, w)
                for w in (workers or [])]
@@ -334,8 +333,27 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
             getattr(chaos, "coordinator_kill", 0))
         if chaos is not None else False,
     })
-    if diags:
-        logger.warning("%s", render_text(diags, title="fleet preflight:"))
+    # PL021 + the capacity plan (analysis.capplan): the static pass
+    # over the cells' params x ModelSpecs -- predicted plan shapes,
+    # device memory vs budget, int32 wall -- before any host is
+    # contacted. Only "enforce" may refuse (CapacityError ->
+    # FleetError); in plan/warn mode the capacity diagnostics are
+    # LOGGED but deliberately kept out of the fatal check below --
+    # CP/PL021 findings can never refuse a non-enforce campaign
+    cap_diags = []
+    if capacity_plan is None and (capacity is not None
+                                  or device_mem_budget is not None):
+        from ..analysis import capplan
+        try:
+            capacity_plan, cap_diags = capplan.preflight(
+                cells, base=base_options, mode=capacity,
+                device_mem_budget=device_mem_budget,
+                device_slots=device_slots)
+        except capplan.CapacityError as e:
+            raise FleetError(str(e)) from None
+    if diags or cap_diags:
+        logger.warning("%s", render_text(diags + cap_diags,
+                                         title="fleet preflight:"))
     if diag_errors(diags):
         raise FleetError(render_text(diag_errors(diags),
                                      title="fleet config invalid:"))
@@ -1034,6 +1052,28 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
     from . import service as fservice
     metrics_source = fservice.register_metrics_source(
         f"fleet:{campaign_id}", _live_gauges)
+    cap_led_before, cap_noted_before = set(), {}
+    if capacity_plan is not None:
+        # persist the plan, open the prediction-oracle brackets
+        # (persistent-ledger keys cover worker processes, the noted
+        # set covers the coordinator), and pre-register the planned
+        # buckets on any live coalescer so first-window strangers
+        # land in planned shapes. Contained: planning is advisory
+        try:
+            from ..analysis import capplan
+            capplan.dump_plan(
+                capacity_plan,
+                store.campaign_path(campaign_id, capplan.PLAN_FILE))
+            if led is not None:
+                cap_led_before = set(led.refresh())
+            cap_noted_before = compile_cache.noted_counts()
+            coal = fservice.coalescer()
+            if coal is not None:
+                coal.preregister(capplan.predicted_keys(capacity_plan))
+        except Exception:  # noqa: BLE001 - planning is advisory
+            logger.warning("couldn't persist/pre-register the "
+                           "capacity plan (contained)", exc_info=True)
+            capacity_plan = None
     try:
         if resume and done:
             with obs.bind(tr, reg):
@@ -1198,6 +1238,30 @@ def run_fleet(cells, workers, *, campaign_id=None, resume=False,
         jr.write_meta({**(jr.load_meta() or {}),
                        "status": "aborted" if aborted else "complete",
                        "updated": store.local_time()})
+        if capacity_plan is not None:
+            # the prediction oracle: predicted (model, bucket) shapes
+            # vs what the campaign actually noted -- worker processes
+            # report through the persistent ledger, the coordinator
+            # through its own noted set. CONTAINED: a crashing oracle
+            # costs the report block, nothing else
+            try:
+                from ..analysis import capplan
+                actual = compile_cache.noted_since(cap_noted_before)
+                if led is not None:
+                    actual |= set(led.refresh()) - cap_led_before
+                # cap_led_before = shapes on disk BEFORE the run: a
+                # worker using one warm leaves no campaign-scoped
+                # evidence (the ledger records first sightings only),
+                # so the oracle reports it "warm", never "missed"
+                report["capacity"] = capplan.report_section(
+                    capacity_plan, actual,
+                    path=store.campaign_path(campaign_id,
+                                             capplan.PLAN_FILE),
+                    warm_keys=cap_led_before)
+                jr.write_report(report)
+            except Exception:  # noqa: BLE001 - oracle is contained
+                logger.warning("capacity oracle crashed (contained)",
+                               exc_info=True)
         if fleetlint != "off":
             # the control-plane audit: replay everything this campaign
             # just journaled/traced against the protocol's invariants.

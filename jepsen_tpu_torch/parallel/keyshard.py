@@ -217,6 +217,20 @@ def _dummy_key(n_pad, S_pad, A):
             None)
 
 
+def batch_sizes(n_live, sizes, narrow=True):
+    """The per-key (B, W, O, T) of an ``n_live``-key batch from the
+    single-key ``sizes``: many keys share the card, and a narrow per-key
+    frontier keeps the batched search depth-first (wide frontiers
+    degenerate to BFS over the whole config space, which is catastrophic
+    for valid histories). ``narrow`` (no caller-fixed frontier width)
+    narrows W as the batch grows, but never RAISES it above what
+    ``_plan_sizes`` chose (its (W, C, S) memory cap must survive)."""
+    B, W, O, T = sizes
+    if narrow:
+        W = min(W, max(32, 4096 // _bucket(n_live, 1)))
+    return B, W, max(4096, O // _bucket(min(n_live, 8), 1)), T
+
+
 def check_batch_encoded(spec, pairs, max_configs=50_000_000,
                         chunk_iters=256, timeout_s=None, mesh=None,
                         frontier_width=None, stack_size=None,
@@ -309,18 +323,11 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
                             ret32.astype(np.int64))))
     C = min(_bucket(C, 4), n_pad)
 
-    # shrink per-key budgets relative to single-key defaults: many keys
-    # share the card, and a narrow per-key frontier keeps the batched
-    # search depth-first (wide frontiers degenerate to BFS over the whole
-    # config space, which is catastrophic for valid histories)
+    # shrink per-key budgets relative to single-key defaults
     n_live = len(live)
-    B, W, O, T = _plan_sizes(n_pad, S_pad, C, frontier_width, stack_size,
-                             table_size)
-    if frontier_width is None:
-        # narrow per key as the batch grows, but never RAISE W above
-        # what _plan_sizes chose (its (W, C, S) memory cap must survive)
-        W = min(W, max(32, 4096 // _bucket(n_live, 1)))
-    O = max(4096, O // _bucket(min(n_live, 8), 1))
+    B, W, O, T = batch_sizes(n_live, _plan_sizes(
+        n_pad, S_pad, C, frontier_width, stack_size, table_size),
+        narrow=frontier_width is None)
     max_iters = max(1, max_configs // (W * n_live))
     if rollout_seeds is None:
         # one greedy chain per key: the key axis already fills the card

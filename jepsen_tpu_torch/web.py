@@ -26,9 +26,8 @@ hands its folds to the solo path). The lanes are observable on
 
 ``serve`` takes the service's device once (``device``, None: CUDA):
 the coalescer's batches and every solo search run there. Its
-``capacity-plan`` option needs the capacity planner and raises
-``NotImplementedError`` naming ROADMAP.md A.11(d5) before any socket
-opens.
+``capacity-plan`` option pre-registers a capacity plan's predicted
+(model, bucket) shapes on the coalescer.
 
 API transport hardening lives here: request bodies are refused (413)
 when Content-Length exceeds ``service.MAX_BODY_BYTES`` -- BEFORE any
@@ -472,6 +471,16 @@ def _zip_dir(full):
     return buf.getvalue()
 
 
+class Server(ThreadingHTTPServer):
+    """The viewer's and the service's listener. Its accept queue holds a
+    burst of clients (socketserver's default holds 5): the admission
+    gate answers each request past its budget with a 429, which an
+    overflowing queue can turn into a reset connection while the accept
+    loop waits for the interpreter behind a running check."""
+
+    request_queue_size = 128
+
+
 class Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # quiet
         logger.debug("web: " + fmt, *args)
@@ -712,15 +721,13 @@ def serve(opts=None):
     the socket opens, and the cross-tenant coalescing knobs --
     coalesce? (default True: queued ``jax-wgl`` /api/check submissions
     merge into one padded device batch), coalesce-window-ms,
-    coalesce-max-segments. capacity-plan needs the capacity planner
-    (ROADMAP.md A.11(d5)) and raises before anything is configured."""
+    coalesce-max-segments, capacity-plan (a capplan plan dict or a
+    capacity_plan.json path whose predicted (model, bucket) shapes
+    pre-register on the coalescer, so first-window strangers land in
+    planned shapes instead of discovering them; a plan that cannot be
+    read is logged and skipped, as in the reference)."""
     from .fleet import service
     opts = opts or {}
-    if opts.get("capacity-plan") is not None:
-        raise NotImplementedError(
-            "web.serve's capacity-plan pre-registration needs the "
-            "capacity planner (analysis.capplan), which is not ported "
-            "yet: ROADMAP.md A.11(d5)")
     qw = opts.get("queue-wait-s")
     if opts.get("token") or opts.get("budgets") or qw is not None:
         # NB ``qw or 15.0`` would coerce a legal explicit 0 (shed
@@ -728,13 +735,24 @@ def serve(opts=None):
         service.configure(
             token=opts.get("token"), budgets=opts.get("budgets"),
             queue_wait_s=15.0 if qw is None else qw)
+    planned = None
+    cap = opts.get("capacity-plan")
+    if cap is not None:
+        try:
+            from .analysis import capplan
+            plan = capplan.load_plan(str(cap)) \
+                if not isinstance(cap, dict) else cap
+            planned = sorted(capplan.predicted_keys(plan))
+        except Exception:  # noqa: BLE001 - pre-registration is advisory
+            logger.warning("couldn't pre-register capacity-plan "
+                           "buckets (contained)", exc_info=True)
     service.configure_coalesce(
         enabled=opts.get("coalesce?", True),
         window_ms=opts.get("coalesce-window-ms"),
         max_segments=opts.get("coalesce-max-segments"),
-        device=opts.get("device"))
+        planned=planned, device=opts.get("device"))
     addr = (opts.get("ip", "0.0.0.0"), opts.get("port", 8080))
-    server = ThreadingHTTPServer(addr, Handler)
+    server = Server(addr, Handler)
     thread = threading.Thread(target=server.serve_forever, daemon=True,
                               name="jepsen web")
     thread.start()

@@ -646,17 +646,35 @@ def test_install_txn_hands_the_campaign_slot_to_the_monitor():
 
 
 # ---------------------------------------------------------------------------
-# later sub-slices raise before anything runs
+# the capacity plan: persisted, and its oracle at finalize
 
-@pytest.mark.parametrize("kw,item", [
-    ({"capacity_plan": {"cells": []}}, r"A\.11\(d5\)"),
+@pytest.mark.parametrize("kw,predicted", [
+    ({"capacity_plan": {"cells": []}}, []),
+    ({"capacity_plan": {"compiles": {"distinct": 1,
+                                     "keys": [["cas-register", 64]]}}},
+     [["cas-register", 64]]),
 ])
-def test_later_slice_branches_raise_before_any_state(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tscheduler.run_cells([{"id": "a", "test": quick_cell(TORCH, "a")}],
-                             campaign_id="later", **kw)
-    assert not os.path.exists(tstore.campaign_path("later"))
-    assert tstore.campaigns() == []
+def test_later_slice_branches_raise_before_any_state(kw, predicted):
+    """``run_cells(capacity_plan=)`` works as the reference's: the plan
+    lands next to the journal and ``report["capacity"]`` holds the same
+    oracle on both packages (host-only cells note no plan shape, so a
+    predicted shape reads "missed")."""
+    out = {}
+    for side in SIDES:
+        rep = side.scheduler.run_cells(
+            [{"id": "a", "test": quick_cell(side, "a")}],
+            campaign_id="later", **kw)
+        path = side.store.campaign_path("later", "capacity_plan.json")
+        with open(path) as f:
+            assert json.load(f) == kw["capacity_plan"]
+        cap = dict(rep["capacity"])
+        assert cap.pop("path") == path
+        out[side.name] = (cap, _mask_report(rep)["summary"])
+    assert out["torch"] == out["jax"]
+    oracle = out["torch"][0]["oracle"]
+    assert oracle["predicted"] == predicted and oracle["actual"] == []
+    assert oracle["missed"] == predicted
+    assert oracle["error_frac"] == (1.0 if predicted else 0.0)
 
 
 @pytest.mark.parametrize("backends", [["gpu", "cpu"], "cpu"])
@@ -1148,23 +1166,32 @@ def test_cli_helpers_equal(fn, args):
     assert call(getattr(tcli, fn)) == call(getattr(jcli, fn))
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--serve", "--serve-ip", "127.0.0.1", "--capacity", "plan"], "d5"),
-    (["--capacity", "plan"], "d5"),
-    (["--device-mem-budget", "16G"], "d5"),
-    (["--device-slots", "auto"], "d5"),
+@pytest.mark.parametrize("argv", [
+    ["--serve", "--serve-ip", "127.0.0.1", "--capacity", "plan"],
+    ["--capacity", "plan"],
+    ["--device-mem-budget", "16G"],
+    ["--device-slots", "auto"],
 ])
 def test_later_slice_options_exit_255_naming_their_sub_slice(
-        argv, item, caplog):
-    """The capacity planner's options (A.11(d5)) exit 255 naming it
-    before anything runs, with or without ``--serve`` (which A.11(d4)
-    ported): no campaign is written and no server is started."""
+        argv, capsys):
+    """The capacity planner's options lint as the reference's do, with
+    or without ``--serve``: the same exit code, the same PL/CP codes
+    from ``--lint`` (``--device-slots auto`` without a budget is a
+    PL021 error, a budget nothing consumes a PL021 warning), and the
+    capacity table where a plan was built. Nothing is written and no
+    server starts."""
     from jepsen_tpu_torch.fleet import service
-    with caplog.at_level(logging.CRITICAL):
-        assert _main(TORCH, ["campaign", "--no-ssh", "--seeds", "1",
-                             "--device", "cpu"] + argv) == 255
-    assert "NotImplementedError" in caplog.text
-    assert f"A.11({item})" in caplog.text
+    out = {}
+    for side in SIDES:
+        base = ["campaign", "--no-ssh", "--seeds", "1", "--lint"] + argv
+        code = _main(side, base + (["--device", "cpu"]
+                                   if side is TORCH else []))
+        text = capsys.readouterr().out
+        out[side.name] = (code,
+                          sorted(set(re.findall(r"(?:PL|CP)\d{3}", text))),
+                          "capacity plan:" in text)
+    assert out["torch"] == out["jax"]
+    assert out["torch"][0] == (1 if "auto" in argv else 0)
     assert tstore.campaigns() == []
     assert service.coalescer() is None
 

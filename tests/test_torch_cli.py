@@ -196,24 +196,31 @@ def test_unknown_command_exits_254(capsys):
     assert "jepsen_tpu_torch" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv,item", [
+@pytest.mark.parametrize("argv,code", [
     (["serve", "--host", "127.0.0.1", "--device", "cpu",
-      "--capacity-plan", "capacity_plan.json"], "A.11(d5)"),
+      "--capacity-plan", "capacity_plan.json"], 254),
     (["campaign", "--no-ssh", "--seeds", "1", "--capacity", "plan",
-      "--device", "cpu"], "A.11(d5)"),
+      "--workload", "noop", "--time-limit", "1", "--device", "cpu"], 0),
 ])
-def test_unported_routes_exit_255(argv, item, caplog):
-    """The routes that need the capacity planner (a later sub-slice)
-    exit 255 naming it before anything runs or listens: ``serve
-    --capacity-plan`` and ``campaign --capacity``. ``serve`` itself, the
-    campaign route, its fleet route and test-all's are ported
-    (``tests/test_torch_web.py``, ``tests/test_torch_campaign.py``,
-    ``test_ported_fleet_routes_exit_as_the_reference``)."""
-    with caplog.at_level(logging.CRITICAL):
-        assert _main(argv) == 255
-    assert "NotImplementedError" in caplog.text
-    assert item in caplog.text
-    assert store.campaigns() == []
+def test_unported_routes_exit_255(argv, code, capsys):
+    """The capacity planner's routes exit as the reference's: ``serve
+    --capacity-plan`` naming an unreadable plan is refused by PL021
+    before anything listens (254), and ``campaign --capacity plan``
+    runs, persists ``capacity_plan.json`` and reports its oracle."""
+    from jepsen_tpu_torch.fleet import service
+    assert _main(argv) == code
+    out = capsys.readouterr().out
+    assert "PL021" in out if argv[0] == "serve" else "PL021" not in out
+    assert service.coalescer() is None
+    if argv[0] == "campaign":
+        cid = store.latest_campaign()
+        assert os.path.isfile(store.campaign_path(cid,
+                                                  "capacity_plan.json"))
+        from jepsen_tpu_torch.campaign.journal import CampaignJournal
+        rep = CampaignJournal(cid).load_report()
+        assert rep["capacity"]["oracle"]["error_frac"] == 0.0
+    else:
+        assert store.campaigns() == []
 
 
 @pytest.mark.parametrize("argv", [

@@ -7,6 +7,7 @@ against the JAX package's ``checkers.linearizable`` (equal verdicts)."""
 
 import collections
 import itertools
+import os
 import random
 import time
 
@@ -483,25 +484,29 @@ def test_lost_write_history_is_invalid_under_both():
 
 
 # ---------------------------------------------------------------------------
-# branches that need modules not ported yet raise, naming the queue item
+# the campaign scheduler's capacity plan, on a run of the port's core
 
-@pytest.mark.parametrize("knob,item", [
-    # the capacity plan's oracle needs analysis.capplan
-    ({"capacity_plan": {"cells": []}}, r"A\.11\(d5\)"),
+@pytest.mark.parametrize("knob,error_frac", [
+    # a plan predicting nothing, over a run that notes no plan shape
+    ({"capacity_plan": {"cells": []}}, 0.0),
 ])
-def test_unported_branches_raise(knob, item):
-    """A run driven by the campaign scheduler: the branches that need a
-    later sub-slice raise before the run starts (nothing recorded)."""
+def test_unported_branches_raise(knob, error_frac):
+    """A run driven by the campaign scheduler with a capacity plan: the
+    run happens, the plan lands next to the journal and the oracle's
+    error is reported (the branch raised while the planner was not
+    ported)."""
     from jepsen_tpu_torch.campaign import scheduler
     state = Atom(None)
     t = dummy_test(name="unported", db=tst.atom_db(state),
                    client=tst.atom_client(state), concurrency=2,
                    generator=gen.clients(gen.limit(
                        4, gen.repeat({"f": "read"}))))
-    with pytest.raises(NotImplementedError, match=item):
-        scheduler.run_cells([{"id": "c", "test": t}],
-                            campaign_id="unported", **knob)
-    assert "history" not in t and store.campaigns() == []
+    rep = scheduler.run_cells([{"id": "c", "test": t}],
+                              campaign_id="unported", **knob)
+    assert rep["capacity"]["oracle"]["error_frac"] == error_frac
+    assert os.path.isfile(store.campaign_path("unported",
+                                              "capacity_plan.json"))
+    assert store.campaigns() == ["unported"]
 
 
 def test_backend_failover_runs_the_cell_on_its_tier():

@@ -13,6 +13,7 @@ paths (each side's store root). Everything else -- the per-cell outcome
 fold, the terminal-once records, lease counts, steal attempts and the
 report's summary -- is compared at equality."""
 
+import importlib
 import json
 import os
 import subprocess
@@ -492,11 +493,32 @@ def test_fleet_pl014_errors_refuse_the_run(workers, kw):
 @pytest.mark.parametrize("kw", [{"capacity": "plan"},
                                 {"device_mem_budget": 1 << 30},
                                 {"capacity_plan": {"cells": []}}])
-def test_fleet_capacity_raises_naming_d5(kw):
-    with pytest.raises(NotImplementedError, match=r"A\.11\(d5\)"):
-        tdispatch.run_fleet(_cells(1), tdispatch.parse_workers("local"),
-                            campaign_id="cap", **kw)
-    assert tstore.campaigns() == []
+def test_fleet_capacity_raises_naming_d5(kw, monkeypatch):
+    """The capacity arguments take the reference's path: a mode or a
+    budget runs ``capplan.preflight`` over the cells (a pre-built plan
+    skips it) before PL014 refuses a bad fleet config, with the same
+    arguments on both packages and nothing written."""
+    seen = {}
+    for name, side in SIDES.items():
+        capplan = importlib.import_module(
+            side["dispatch"].__name__.split(".")[0] + ".analysis.capplan")
+        calls = []
+
+        def spy(cells, real=capplan.preflight, calls=calls, **kw2):
+            # the port's base options carry its device option too
+            base = {k: v for k, v in kw2["base"].items() if k != "device"}
+            calls.append(sorted(dict(kw2, base=base).items()))
+            return real(cells, **kw2)
+        monkeypatch.setattr(capplan, "preflight", spy)
+        with pytest.raises(side["dispatch"].FleetError, match="PL014"):
+            side["dispatch"].run_fleet(
+                _cells(1), side["dispatch"].parse_workers("local"),
+                campaign_id="cap", base_options=side["options"],
+                lease_s=0, **kw)
+        seen[name] = calls
+        assert side["store"].campaigns() == []
+    assert seen["torch"] == seen["jax"]
+    assert len(seen["torch"]) == (0 if "capacity_plan" in kw else 1)
 
 
 # ---------------------------------------------------------------------------

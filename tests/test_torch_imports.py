@@ -426,7 +426,7 @@ for f in (campaign.run_cells, compile_cache.note, compile_cache.stats,
           bubbles.fold_run, bubbles.fold_campaign, bubbles.dumps,
           trend.fingerprint, trend.record, trend.load, trend.compare,
           trend.mini_bench, trend.main, cli.campaign_exit_code,
-          cli.parse_axes, cli.refuse_later_slices, cli._jsonable_options,
+          cli.parse_axes, cli.parse_bytes, cli._jsonable_options,
           ledger.attach, ledger.attached, ledger.detach, ledger.canon_key,
           ledger.fold_walls, backends.probe, backends.apply,
           backends.as_failover, backends.tier_options, chaos.parse,
@@ -462,6 +462,59 @@ for f in (service.check_history, service.submit_campaign,
 for cls in (service.Admission, service.Coalescer, service.ApiError,
             web.Handler):
     assert isinstance(cls, type)
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_capacity_codelint_and_leaf_modules_import_without_jax():
+    """The capacity planner (``analysis/{sizemodel,capplan}``), the code
+    lint (``analysis/codelint``, ``lint``), the six host checkers and the
+    leaves (``suites/{zookeeper,zk_proto,toystore}``, ``repl``,
+    ``report``, ``codec``, ``fs_cache``) stand alone too: the port's
+    module map is closed, and no branch raises naming a sub-slice."""
+    probe = r"""
+import pathlib, re, sys
+sys.modules["jax"] = None
+sys.modules["jepsen_tpu"] = None
+import jepsen_tpu_torch
+from jepsen_tpu_torch import codec, fs_cache, lint, repl, report
+from jepsen_tpu_torch.analysis import capplan, codelint, planlint, sizemodel
+from jepsen_tpu_torch.campaign import compile_cache
+from jepsen_tpu_torch.checker import checkers
+from jepsen_tpu_torch.suites import toystore, zk_proto, zookeeper
+for f in (sizemodel.plan_sizes, sizemodel.bucket_for, sizemodel.hbm_bytes,
+          sizemodel.search_shape, sizemodel.closure_shape,
+          sizemodel.stream_frontier_shape, sizemodel.ledger_key_shape,
+          sizemodel.int32_wall, capplan.register_shapes,
+          capplan.shapes_for_cell, capplan.build_plan,
+          capplan.recommend_floor, capplan.auto_slots, capplan.dump_plan,
+          capplan.load_plan, capplan.predicted_keys, capplan.oracle,
+          capplan.report_section, capplan.render_table, capplan.preflight,
+          planlint.lint_capacity, compile_cache.noted_keys,
+          codelint.lint_source, codelint.lint_paths,
+          codelint.threaded_modules, lint.main, lint.run_matrix_plan,
+          checkers.queue, checkers.set_full, checkers.total_queue,
+          checkers.expand_queue_drain_ops, checkers.unique_ids,
+          checkers.counter, checkers.log_file_pattern, codec.encode,
+          codec.decode, report.to, repl.latest_test, repl.latest_history,
+          fs_cache.fs_path, fs_cache.save_string, fs_cache.deploy_remote,
+          fs_cache.locking, zookeeper.zk_test, zookeeper.main,
+          toystore.toystore_test, toystore.main):
+    assert callable(f)
+for cls in (capplan.CapacityError, capplan.UnknownShape,
+            zk_proto.ZkWireClient, zk_proto.FakeZkServer, zk_proto.ZkError,
+            toystore.ToystoreDB, zookeeper.ZkDB):
+    assert isinstance(cls, type)
+assert capplan.CAPACITY_MODES == ("plan", "warn", "enforce")
+root = pathlib.Path(jepsen_tpu_torch.__file__).parent
+raised = [str(p) for p in root.rglob("*.py")
+          if re.search(r"A[.]11[(]d[56][)]", p.read_text())]
+assert not raised, raised
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,

@@ -9,10 +9,11 @@ same HTML. Over real sockets (every server binds ``127.0.0.1:0`` and is
 shut down by its fixture): the ``/api/check`` round trip equal to the
 JAX server's, the 413 before any body read, the JSON errors, the
 campaign listing, browsing, zips and the path-traversal guard, the
-token gate on every route, 429 with Retry-After, ``/api/metrics`` with a
+token gate on every route, 429 with Retry-After (for a burst of 32
+clients too), ``/api/metrics`` with a
 registered source, and the 404 that falls back to
 ``fleet.sync.fetch_on_demand``. The entry points: ``serve`` with its
-``capacity-plan`` (raises naming ROADMAP.md A.11(d5) before any socket)
+``capacity-plan`` (the plan's shapes pre-registered on the coalescer)
 and without a device (CUDA, raising here), ``python -m jepsen_tpu_torch
 serve`` in a subprocess (401/200/413, exit 0 on SIGINT), ``campaign
 --serve`` and PL016 in the command line's and ``run_fleet``'s
@@ -340,6 +341,42 @@ def test_shed_is_429_with_retry_after_over_socket(servers):
     assert _counted("check", "429", 1) == 1
 
 
+def test_a_burst_past_the_budget_is_answered_not_reset(servers):
+    """32 clients at once against a full gate: the listener's accept
+    queue holds them all (socketserver's default holds 5), and each gets
+    its 429, none a reset connection."""
+    import threading
+    base = servers("torch", token="sekrit",
+                   budgets={"concurrent-checks": 1, "queue-depth": 0},
+                   **{"queue-wait-s": 0})
+    assert tweb.Server.request_queue_size >= 32
+    burst = 32
+    barrier, codes = threading.Barrier(burst), []
+    body = json.dumps({"history": BAD_HIST, "model": "register",
+                       "engine": "wgl"}).encode()
+
+    def call():
+        req = urllib.request.Request(
+            base + "/api/check", data=body,
+            headers={"Authorization": "Bearer sekrit"})
+        barrier.wait()
+        try:
+            urllib.request.urlopen(req, timeout=30)
+            codes.append(200)
+        except urllib.error.HTTPError as e:
+            codes.append(e.code)
+        except OSError as e:
+            codes.append(repr(e))
+
+    with tsvc.admission().check_slot("token"):
+        threads = [threading.Thread(target=call) for _ in range(burst)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=TIME_LIMIT_S)
+    assert codes == [429] * burst
+
+
 def test_metrics_route_serves_a_registered_source(servers):
     base = servers("torch")
     tsvc.register_metrics_source(
@@ -378,18 +415,27 @@ def test_a_browsed_miss_fetches_on_demand(servers, monkeypatch,
     assert s == 404 and asked == ["r/t"]
 
 
-def test_serve_capacity_plan_raises_before_any_socket(monkeypatch):
-    """``capacity-plan`` needs the capacity planner: NotImplementedError
-    naming A.11(d5), raised before the gate or the coalescer is
-    configured and before any socket opens."""
-    opened = []
-    monkeypatch.setattr(tweb, "ThreadingHTTPServer",
-                        lambda *a: opened.append(a))
-    with pytest.raises(NotImplementedError, match=r"A\.11\(d5\)"):
-        tweb.serve({"ip": "127.0.0.1", "port": 0, "device": "cpu",
-                    "token": "t", "capacity-plan": "plan.json"})
-    assert opened == [] and tsvc.coalescer() is None
-    assert not tsvc.admission().tokens
+@pytest.mark.parametrize("plan_form", ["path", "dict", "unreadable"])
+def test_serve_capacity_plan_raises_before_any_socket(plan_form, tmp_path):
+    """``capacity-plan`` pre-registers the plan's predicted shapes on the
+    coalescer, as the reference's does; an unreadable plan is logged
+    and the coalescer starts with none planned."""
+    from jepsen_tpu_torch.analysis import capplan
+    plan, _ = capplan.build_plan(
+        {"base": {"workload": "register"},
+         "axes": {"per-key-limit": [20, 120]}})
+    path = str(tmp_path / "capacity_plan.json")
+    capplan.dump_plan(plan, path)
+    cap = {"path": path, "dict": plan,
+           "unreadable": str(tmp_path / "nope.json")}[plan_form]
+    srv = tweb.serve({"ip": "127.0.0.1", "port": 0, "device": "cpu",
+                      "capacity-plan": cap})
+    try:
+        planned = tsvc.coalescer().stats()["planned"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert planned == (0 if plan_form == "unreadable" else 2)
 
 
 def test_serve_without_a_device_means_cuda(monkeypatch):
