@@ -308,12 +308,23 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    path's rollout launches. The toystore runs need ``start-stop-daemon``
    and ``gcc`` on the host and are left out, with the reason, without
    them. See ``suites_phase``.
+21. ``summary``: the store reader, ``python -m
+   jepsen_tpu_torch.trace_summary``, in subprocesses over the stores
+   phases 9, 12 and 19 wrote on the card (handed over by them in place
+   of being removed): the monitored lost-write run (its sections, its op
+   count equal to the history's client completions, the violation), the
+   fleet sweep's merged trace (a lane per worker, a clean audit) and the
+   planned sweep (its prediction error equal to ``report.json``'s); and,
+   meanwhile, two threads through one ``concurrency_limit(1, ...)`` of
+   the default gate on the main cas-register history: checks that do
+   not overlap, the main phase's verdict. See ``summary_phase``.
 
 The competition, checkpoint, certify, obs, mesh, run, monitor, cli,
-campaign, service solo, capacity search, toystore and zookeeper stub
-paths run the rollout kernel (each counted, the stub's in its child;
-the fleet's in its worker processes, shown by their compile laps, not
-counted here; ``run_keyed`` may not, as the key batch rolls on the scan;
+campaign, service solo, capacity search, toystore, zookeeper stub and
+concurrency_limit paths run the rollout kernel (each counted, the
+stub's in its child; the fleet's in its worker processes, shown by
+their compile laps, not counted here; ``run_keyed`` may not, as the
+key batch rolls on the scan;
 the monitor's txn paths do not; the capacity sweep's and the suites'
 other paths are counted as they come). The planned, batch, independent,
 queue,
@@ -2036,7 +2047,7 @@ def monitor_check_stats(test):
 
 def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
                   lost_ops=RUN_LOST_OPS, stream_ops=MONITOR_STREAM_OPS,
-                  txns=MONITOR_TXNS, bad_txns=MONITOR_BAD_TXNS):
+                  txns=MONITOR_TXNS, bad_txns=MONITOR_BAD_TXNS, kept=None):
     """Monitored runs (``test["monitor"]``) through ``core.run`` on the
     card, with run_phase's harness: ``ssh={"dummy?": True}``, each test's
     store in a temporary directory, run_phase's clients and checker
@@ -2064,7 +2075,8 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
     anomaly classes among its own (a class's -realtime variant counts as
     the class), the cycle witness certified (no VC013).
     Each case's rollout launches are counted from 0; the txn cases' must
-    stay 0."""
+    stay 0. With ``kept`` (``KeptStores``) the temporary store is handed
+    over with (b)'s run directory for the summary phase, not removed."""
     import itertools
     import shutil
     import tempfile
@@ -2229,6 +2241,8 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
         out["lost_write"] = {**row, **violation("lost-write", test, mon),
                              "valid": False, "oracle_valid": want,
                              "history_entries": len(test["history"])}
+        read = {"run_dir": store.path(test), "client_ops": sum(
+            o["type"] != "invoke" for o in client_ops)}
         test, mon, row = lost_write_run(
             "monitor_skip_offline",
             {"chunk": MONITOR_CHUNK, "skip-offline?": True})
@@ -2342,7 +2356,10 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
             "offline_anomaly_types": r["anomaly_types"]}
     finally:
         core.analyze = real_analyze
-        shutil.rmtree(store.base_dir, ignore_errors=True)
+        if kept is not None and "lost_write" in out:
+            kept.keep(store.base_dir, monitor=read)
+        else:
+            shutil.rmtree(store.base_dir, ignore_errors=True)
         store.base_dir = base
     out["launches"] = launches
     out["seconds"] = time.monotonic() - t_start
@@ -2918,7 +2935,7 @@ FLEET_WORKERS = "local,local,local,local"
 
 
 def fleet_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT, per_key=CAMPAIGN_PER_KEY,
-                kill_seed=FLEET_KILL_SEED):
+                kill_seed=FLEET_KILL_SEED, kept=None):
     """The fleet (``jepsen_tpu_torch/fleet``): campaign (a)'s matrix with
     every cell in a worker process of its own, its store in a temporary
     directory. (a) ``campaign --no-ssh --axis workload=register,append
@@ -2942,7 +2959,9 @@ def fleet_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT, per_key=CAMPAIGN_PER_KEY,
     cell's wall, each worker's start-up (the coordinator's send to the
     worker's receipt, the handshake's first leg) and the seconds of
     each part. The workers' rollout launches are in their processes,
-    which this script's counter does not see: it must stay at 0."""
+    which this script's counter does not see: it must stay at 0. With
+    ``kept`` (``KeptStores``) the temporary store is handed over with
+    (a)'s campaign directory for the summary phase, not removed."""
     import argparse
     import contextlib
     import logging
@@ -3104,8 +3123,13 @@ def fleet_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT, per_key=CAMPAIGN_PER_KEY,
         # the campaign attached the disk ledger under the temporary
         # store: detach it before the store goes
         fleet.ledger.detach()
+        if kept is not None and "a" in out:
+            kept.keep(tmp, fleet={
+                "campaign_dir": store.campaign_path("fleet"),
+                "workers": sorted(out["a"]["trace"]["workers"])})
+        else:
+            shutil.rmtree(tmp, ignore_errors=True)
         store.base_dir = base
-        shutil.rmtree(tmp, ignore_errors=True)
         root.setLevel(saved_log[0])
         for h in list(root.handlers):
             if h not in saved_log[1]:
@@ -4235,9 +4259,11 @@ def search_bytes(engine, key):
     return {"keys": K, "n": n, "C": C, "predicted_bytes": total}
 
 
-def capacity_sweep(dev):
+def capacity_sweep(dev, kept=None):
     """The capacity phase's (e) and (f) (``capacity_phase``): ``({"e",
-    "f"}, the sweep's rollout launches)``."""
+    "f"}, the sweep's rollout launches)``. With ``kept`` (``KeptStores``)
+    the temporary store is handed over with (e)'s campaign directory for
+    the summary phase, not removed."""
     import contextlib
     import logging
     import shutil
@@ -4312,7 +4338,8 @@ def capacity_sweep(dev):
             widest_search_over_peak_cell=widest / per_cell,
             slots_times_widest_search_over_budget=slots * widest
             / plan["hbm"]["budget_bytes"],
-            oracle=oracle, outcomes=rep["summary"]["outcomes"])
+            oracle=oracle, outcomes=rep["summary"]["outcomes"],
+            campaign=cid)
         low = plan["hbm"]["per_cell_peak_bytes"] // 2
         before = store.campaigns()
         t0 = time.monotonic()
@@ -4328,14 +4355,18 @@ def capacity_sweep(dev):
         # store: detach it before the store goes
         from jepsen_tpu_torch.fleet import ledger
         ledger.detach()
+        if kept is not None and "e" in out:
+            kept.keep(tmp, capacity={"campaign_dir": store.campaign_path(
+                out["e"]["campaign"])})
+        else:
+            shutil.rmtree(tmp, ignore_errors=True)
         store.base_dir = base
         root.setLevel(saved_log[0])
         root.handlers[:] = saved_log[1]
-        shutil.rmtree(tmp, ignore_errors=True)
     return out, sweep_launches
 
 
-def capacity_phase(dev, batch_mem, fold_hist):
+def capacity_phase(dev, batch_mem, fold_hist, kept=None):
     """The capacity planner against the card (``analysis/sizemodel``,
     ``analysis/capplan``). Each step resets the peak statistics, runs,
     and prints the prediction, the peak above its baseline and
@@ -4359,7 +4390,8 @@ def capacity_phase(dev, batch_mem, fold_hist):
     per-lane cell figure and the resolved slots. (f) The same with a
     budget below the peak cell: refused (254) before any cell runs, no
     campaign written. Steps whose prediction is more than 2x above the
-    measurement are listed in ``loose``."""
+    measurement are listed in ``loose``. ``kept`` goes to
+    ``capacity_sweep``."""
     import numpy as np
     from jepsen_tpu_torch import cycle, models, simulate
     from jepsen_tpu_torch.analysis import sizemodel
@@ -4447,7 +4479,7 @@ def capacity_phase(dev, batch_mem, fold_hist):
                     seconds=time.monotonic() - t0)
 
     # (e)-(f) the sweep with the plan enforced, then refused
-    sweep, launches["capacity_sweep"] = capacity_sweep(dev)
+    sweep, launches["capacity_sweep"] = capacity_sweep(dev, kept)
     out.update(sweep)
     out["launches"] = launches
     out["loose"] = [k for k in "abcde" if out[k].get("within_2x") is False] \
@@ -4692,6 +4724,183 @@ def suites_phase(dev, zk):
     return out
 
 
+class KeptStores:
+    """Temporary stores that the monitor, fleet and capacity phases leave
+    for the summary phase to read: each phase hands over its store's
+    directory and what the summary should read there, in place of
+    removing it. ``close`` removes them all."""
+
+    def __init__(self):
+        self.dirs = []
+        self.reads = {}
+
+    def keep(self, tmp, **reads):
+        self.dirs.append(tmp)
+        self.reads.update(reads)
+
+    def close(self):
+        import shutil
+        for d in self.dirs:
+            shutil.rmtree(d, ignore_errors=True)
+        self.dirs.clear()
+
+
+#: the store reader's sections a monitored, certified run must show
+SUMMARY_RUN_SECTIONS = ("-- lifecycle phases (wall time) --",
+                        "-- WGL search telemetry --",
+                        "-- streaming monitor --",
+                        "-- verdict certificate --")
+
+
+def read_store(args, here):
+    """Start ``python -m jepsen_tpu_torch.trace_summary ARGS`` from the
+    checkout's root; ``Popen`` (text output)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.trace_summary", *args],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def summary_phase(dev, kept, main_verdict, here, n_ops=10_000):
+    """The store reader (``jepsen_tpu_torch/trace_summary.py``) over the
+    stores earlier phases wrote on the card, each run as a user runs it,
+    in a subprocess, while (d) runs here. (a) The monitor phase's
+    lost-write run (monitored, certified, aborted by the monitor): exit
+    0, the lifecycle, op-latency, WGL-telemetry, streaming-monitor and
+    certificate sections, its op count equal to the history's client
+    completions (an op span closes at its completion), the violation
+    instant. (b) ``--campaign`` over the fleet phase's sweep: exit 0, one
+    lane per worker beside the coordinator's, each worker's exec row, a
+    clean fleetlint audit. (c) ``--campaign`` over capacity (e)'s planned
+    sweep: exit 0, the prediction error equal to its ``report.json``'s
+    ``error_frac``. (d) Two threads check the main cas-register history
+    (``n_ops`` ops) through one ``concurrency_limit(1,
+    linearizable({"model": "cas-register"}))`` (the default gate) on the
+    card: their checks (each timed inside the limit) must not overlap
+    and each verdict must equal the main phase's; the rollout launches of
+    both are the ``concurrency_limit`` path's."""
+    import threading
+    from jepsen_tpu_torch import simulate
+    from jepsen_tpu_torch.checker import checkers, core, rollout
+    t_start = time.monotonic()
+    cuda = dev.type == "cuda"
+    reads = kept.reads
+    procs = {
+        "a": read_store([reads["monitor"]["run_dir"]], here),
+        "b": read_store(["--campaign", reads["fleet"]["campaign_dir"]],
+                        here),
+        "c": read_store(["--campaign", reads["capacity"]["campaign_dir"]],
+                        here)}
+    out = {"phase": "summary"}
+    try:
+        # (d) two threads through one limit while the readers run
+        hist = simulate.random_history(random.Random(45100),
+                                       "cas-register", 64, n_ops, 0.05)
+        spans = []
+        lock = threading.Lock()
+
+        class Timed(core.Checker):
+            """The gate, its wall recorded inside the limit."""
+
+            def __init__(self, inner):
+                self.inner = inner
+
+            def check(self, test, h, opts=None):
+                t0 = time.monotonic()
+                r = self.inner.check(test, h, opts)
+                sync(dev)
+                with lock:
+                    spans.append((t0, time.monotonic(), r["valid"]))
+                return r
+
+        opts = {"model": "cas-register"}
+        if not cuda:
+            opts["engine_opts"] = {"device": "cpu"}
+        limited = core.concurrency_limit(
+            1, Timed(checkers.linearizable(opts)))
+        errors = []
+
+        def check():
+            try:
+                limited.check({}, hist, {})
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                errors.append(exc)
+
+        rollout.launches = 0
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=check) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        checkers.join_racers()
+        d_wall = time.monotonic() - t0
+        launches = rollout.launches
+        if errors:
+            raise errors[0]
+        spans.sort()
+        if any(t.is_alive() for t in threads) or len(spans) != 2 \
+                or spans[0][1] > spans[1][0] \
+                or [v for _a, _b, v in spans] != [main_verdict] * 2:
+            raise AssertionError(f"summary d: checks {spans}, the main "
+                                 f"phase's verdict {main_verdict!r}")
+        if cuda and launches <= 0:
+            raise AssertionError("summary d: the limited checks launched "
+                                 "no rollout kernel")
+        out["d"] = {"wall_s": d_wall, "check_s": [b - a for a, b, _v
+                                                  in spans],
+                    "gap_s": spans[1][0] - spans[0][1],
+                    "valid": main_verdict, "rollout_launches": launches}
+        texts = {}
+        for k, p in procs.items():
+            stdout, stderr = p.communicate(timeout=120)
+            if p.returncode != 0:
+                raise AssertionError(f"summary {k}: exit {p.returncode}: "
+                                     f"{stderr[-2000:]}")
+            texts[k] = stdout
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    # (a) the monitored run
+    a, run = texts["a"], reads["monitor"]
+    want = f"-- op latency ({run['client_ops']} ops, from trace spans) --"
+    missing = [x for x in SUMMARY_RUN_SECTIONS + (want,) if x not in a]
+    if missing or "!! monitor violation at history index" not in a:
+        raise AssertionError(f"summary a: missing {missing}: {a[-3000:]}")
+    out["a"] = {"client_ops": run["client_ops"], "lines": len(a.split("\n")),
+                "sections": sorted(x for x in a.split("\n")
+                                   if x.startswith("-- "))}
+
+    # (b) the fleet's merged trace
+    b, fl = texts["b"], reads["fleet"]
+    lanes = sorted(x.split(": ", 1)[1].split("   ")[0]
+                   for x in b.split("\n") if x.startswith("lane "))
+    want = sorted(["coordinator"] + [f"worker {w}" for w in fl["workers"]])
+    rows = b.split("-- per-worker (exec / search / sync) --\n")[-1]
+    no_exec = [w for w in fl["workers"]
+               if f"{w:>16}  exec " not in rows]
+    if lanes != want or no_exec \
+            or "\n-- fleetlint audit --\nclean: 0 error(s)" not in b:
+        raise AssertionError(f"summary b: lanes {lanes} (want {want}), "
+                             f"no exec row for {no_exec}: {b[-3000:]}")
+    out["b"] = {"lanes": lanes, "lines": len(b.split("\n"))}
+
+    # (c) the planned campaign
+    c, cap = texts["c"], reads["capacity"]
+    with open(os.path.join(cap["campaign_dir"], "report.json")) as f:
+        error_frac = json.load(f)["capacity"]["oracle"]["error_frac"]
+    if f"prediction error: {error_frac} (" not in c:
+        raise AssertionError(f"summary c: report.json's error_frac "
+                             f"{error_frac}: {c[-3000:]}")
+    out["c"] = {"error_frac": error_frac, "lines": len(c.split("\n"))}
+    out["launches"] = {"concurrency_limit": launches}
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
 def main(argv):
     import torch
     if argv:
@@ -4779,92 +4988,102 @@ def main(argv):
     run_row = run_phase(dev)
     emit(run_row)
 
-    # -- 9. monitor: monitored runs, the monitors on the card --------------
-    mon_row = monitor_phase(dev, run_row["register"]["interpreter_ops_per_s"])
-    emit(mon_row)
-
-    # -- 10. cli: the command line, python -m jepsen_tpu_torch and suites --
-    cli_row = cli_phase(dev)
-    emit(cli_row)
-
-    # -- 11. campaign: a sweep of runs behind one device slot --------------
-    camp_row = campaign_phase(dev)
-    emit(camp_row)
-
-    # -- 12. fleet: the sweep's cells in worker processes ------------------
-    fleet_row = fleet_phase(dev)
-    emit(fleet_row)
-
-    # -- 13-15. the key batch, independent, the queue models ---------------
-    row = batch_phase(keys, oracle)
-    emit(row)
-    ind = independent_phase(keys[:INDEPENDENT_KEYS])
-    emit(ind)
-    queues = queue_phase(fifo)
-    emit(queues)
-
-    # the suites phase's zookeeper stub: its one-op-a-second run starts
-    # here, in a child process, and overlaps phases 16-20
-    zk = ZkStubRun(dev)
+    kept = KeptStores()
     try:
-        # -- 16-17. the streaming fold and the txn closure -----------------
-        rollout.launches = 0
-        emit(streamlin_phase(keys, dev))
-        stream_launches = scan_only("streamlin")
-        rollout.launches = 0
-        emit(txn_phase(dev))
-        txn_launches = scan_only("txn")
+        # -- 9. monitor: monitored runs, the monitors on the card -------------
+        mon_row = monitor_phase(
+            dev, run_row["register"]["interpreter_ops_per_s"], kept=kept)
+        emit(mon_row)
 
-        # -- 18. service: /api/check tenants, the coalescer's lanes, serve -
-        svc_row = service_phase(dev, keys, oracle)
-        emit(svc_row)
+        # -- 10. cli: the command line, python -m jepsen_tpu_torch and suites -
+        cli_row = cli_phase(dev)
+        emit(cli_row)
 
-        # -- 19. capacity: the planner's predictions against the card ------
-        cap_row = capacity_phase(
-            dev, {"peak_bytes": row["peak_bytes"], "key": row["plan_key"]},
-            simulate.random_history(random.Random(7), "cas-register", 8,
-                                    CAPACITY_FOLD_OPS, 0.0))
-        emit(cap_row)
+        # -- 11. campaign: a sweep of runs behind one device slot -------------
+        camp_row = campaign_phase(dev)
+        emit(camp_row)
 
-        # -- 20. suites: toystore and zookeeper as their users run them ---
-        suites_row = suites_phase(dev, zk)
-        emit(suites_row)
+        # -- 12. fleet: the sweep's cells in worker processes -----------------
+        fleet_row = fleet_phase(dev, kept=kept)
+        emit(fleet_row)
+
+        # -- 13-15. the key batch, independent, the queue models --------------
+        row = batch_phase(keys, oracle)
+        emit(row)
+        ind = independent_phase(keys[:INDEPENDENT_KEYS])
+        emit(ind)
+        queues = queue_phase(fifo)
+        emit(queues)
+
+        # the suites phase's zookeeper stub: its one-op-a-second run starts
+        # here, in a child process, and overlaps phases 16-20
+        zk = ZkStubRun(dev)
+        try:
+            # -- 16-17. the streaming fold and the txn closure ----------------
+            rollout.launches = 0
+            emit(streamlin_phase(keys, dev))
+            stream_launches = scan_only("streamlin")
+            rollout.launches = 0
+            emit(txn_phase(dev))
+            txn_launches = scan_only("txn")
+
+            # -- 18. service: /api/check tenants, the coalescer's lanes, serve 
+            svc_row = service_phase(dev, keys, oracle)
+            emit(svc_row)
+
+            # -- 19. capacity: the planner's predictions against the card -----
+            cap_row = capacity_phase(
+                dev, {"peak_bytes": row["peak_bytes"], "key": row["plan_key"]},
+                simulate.random_history(random.Random(7), "cas-register", 8,
+                                        CAPACITY_FOLD_OPS, 0.0), kept)
+            emit(cap_row)
+
+            # -- 20. suites: toystore and zookeeper as their users run them ---
+            suites_row = suites_phase(dev, zk)
+            emit(suites_row)
+        finally:
+            zk.close()
+
+        # -- 21. summary: the store reader over the card's own stores ------
+        sum_row = summary_phase(dev, kept, main_rows[0]["valid"], here)
+        emit(sum_row)
+        by_path = {"main": main_launches, **gate["launches"],
+                   **obs_row["launches"], "mesh": mesh_row["launches"],
+                   **run_row["launches"], **mon_row["launches"],
+                   "cli": sum(cli_row["launches"].values()),
+                   **cli_row["launches"], **camp_row["launches"],
+                   "batch": row["rollout_launches"],
+                   "independent": ind["rollout_launches"],
+                   **{c["model"]: c["rollout_launches"]
+                      for c in queues["checks"] if "rollout_launches" in c},
+                   "streamlin": stream_launches, "txn": txn_launches,
+                   **svc_row["launches"], **cap_row["launches"],
+                   **suites_row["launches"], **sum_row["launches"]}
+
+        main_shape = cases[1]
+        emit({"kernels": [{
+            "name": "rollout", "route": "cuda",
+            "source": "jepsen_tpu_torch/checker/csrc/rollout.cu",
+            "replaces": ROLLOUT_REPLACES,
+            "launches": main_launches, "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in cases + adversarial),
+            "ms": main_shape["kernel_ms"],
+            "kernel_ms": main_shape["kernel_ms"],
+            "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"], "library_ms": None,
+            "bound_ms_sweep": main_shape["bound_ms_sweep"],
+            "latency_floor_ms": main_shape["latency_floor_ms"],
+            "step_ns": step,
+            "shape": main_shape["shape"], "parity": "exact",
+            "fleet_worker_compile_laps": sum(
+                1 for v in fleet_row["a"]["compile_lap_s"].values() if v > 0),
+            "adversarial_cases": len(adversarial),
+            "adversarial_max_abs_err": max(a["max_abs_err"]
+                                           for a in adversarial),
+            "shapes": cases}]})
     finally:
-        zk.close()
-    by_path = {"main": main_launches, **gate["launches"],
-               **obs_row["launches"], "mesh": mesh_row["launches"],
-               **run_row["launches"], **mon_row["launches"],
-               "cli": sum(cli_row["launches"].values()),
-               **cli_row["launches"], **camp_row["launches"],
-               "batch": row["rollout_launches"],
-               "independent": ind["rollout_launches"],
-               **{c["model"]: c["rollout_launches"]
-                  for c in queues["checks"] if "rollout_launches" in c},
-               "streamlin": stream_launches, "txn": txn_launches,
-               **svc_row["launches"], **cap_row["launches"],
-               **suites_row["launches"]}
-
-    main_shape = cases[1]
-    emit({"kernels": [{
-        "name": "rollout", "route": "cuda",
-        "source": "jepsen_tpu_torch/checker/csrc/rollout.cu",
-        "replaces": ROLLOUT_REPLACES,
-        "launches": main_launches, "launches_by_path": by_path,
-        "max_abs_err": max(c["max_abs_err"] for c in cases + adversarial),
-        "ms": main_shape["kernel_ms"], "kernel_ms": main_shape["kernel_ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": None,
-        "bound_ms_sweep": main_shape["bound_ms_sweep"],
-        "latency_floor_ms": main_shape["latency_floor_ms"],
-        "step_ns": step,
-        "shape": main_shape["shape"], "parity": "exact",
-        "fleet_worker_compile_laps": sum(
-            1 for v in fleet_row["a"]["compile_lap_s"].values() if v > 0),
-        "adversarial_cases": len(adversarial),
-        "adversarial_max_abs_err": max(a["max_abs_err"]
-                                       for a in adversarial),
-        "shapes": cases}]})
+        kept.close()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -14,6 +14,8 @@ tests pass). Nothing heavy happens at import: kernels build at first use.
 
 from __future__ import annotations
 
+__version__ = "0.1.0"
+
 
 def resolve_device(device=None):
     """The torch.device an entry point runs on. ``None`` means CUDA and

@@ -55,15 +55,17 @@ from . import (capplan, certify, codelint, fleetlint,  # noqa: F401
                fleetmodel, histlint, planlint, searchplan, shapelint,
                sizemodel)
 from .diagnostics import (Diagnostic, ERROR, INFO,  # noqa: F401
-                          SEVERITIES, WARNING, diag, errors, render_text,
-                          run_analyzer, severity_counts, to_json)
+                          SEVERITIES, WARNING, diag, errors,
+                          max_severity, render_text, run_analyzer,
+                          severity_counts, to_json, warnings)
 from .histlint import (lint_encoded, lint_history,  # noqa: F401
                        lint_test_history, model_op_set)
 from .planlint import PlanLintError, lint_plan, preflight  # noqa: F401
 
 __all__ = [
     "Diagnostic", "ERROR", "WARNING", "INFO", "SEVERITIES", "diag",
-    "errors", "severity_counts", "render_text", "to_json", "run_analyzer",
+    "errors", "warnings", "max_severity", "severity_counts",
+    "render_text", "to_json", "run_analyzer",
     "histlint", "planlint", "searchplan", "shapelint", "certify",
     "fleetlint", "fleetmodel", "capplan", "codelint", "sizemodel",
     "lint_history", "lint_encoded", "lint_test_history", "model_op_set",

@@ -63,12 +63,24 @@ def errors(diags):
     return [d for d in diags if d.severity == ERROR]
 
 
+def warnings(diags):
+    return [d for d in diags if d.severity == WARNING]
+
+
 def severity_counts(diags):
     """{"error": n, "warning": n, "info": n} (zero-filled)."""
     out = {s: 0 for s in SEVERITIES}
     for d in diags:
         out[d.severity] = out.get(d.severity, 0) + 1
     return out
+
+
+def max_severity(diags):
+    """The worst severity present, or None for a clean report."""
+    for s in SEVERITIES:
+        if any(d.severity == s for d in diags):
+            return s
+    return None
 
 
 def sort_by_severity(diags):

@@ -23,8 +23,8 @@ from .. import history as h
 from .. import obs
 from ..util import real_pmap
 
-__all__ = ["Checker", "check", "check_safe", "compose", "noop",
-           "unbridled_optimism", "merge_valid", "valid_prio",
+__all__ = ["Checker", "check", "check_safe", "compose", "concurrency_limit",
+           "noop", "unbridled_optimism", "merge_valid", "valid_prio",
            "lint_history", "plan_history", "certify_verdict"]
 
 logger = logging.getLogger(__name__)
@@ -295,3 +295,30 @@ class _Optimism(Checker):
 def unbridled_optimism():
     """Everything is awesome! (checker.clj:118-122)"""
     return _Optimism()
+
+
+_limit_semaphores = {}
+_limit_lock = threading.Lock()
+
+
+class ConcurrencyLimit(Checker):
+    """At most ``limit`` concurrent executions of this checker across
+    threads, keyed by ``key`` -- memory governance for expensive checkers
+    (checker.clj:101-116). Limits under one key share the first one's
+    semaphore, whatever their own ``limit``."""
+
+    def __init__(self, limit, checker, key=None):
+        self.checker = as_checker(checker)
+        self.key = key if key is not None else id(self)
+        with _limit_lock:
+            if self.key not in _limit_semaphores:
+                _limit_semaphores[self.key] = threading.Semaphore(limit)
+            self.sem = _limit_semaphores[self.key]
+
+    def check(self, test, hist, opts=None):
+        with self.sem:
+            return self.checker.check(test, hist, opts)
+
+
+def concurrency_limit(limit, checker, key=None):
+    return ConcurrencyLimit(limit, checker, key)

@@ -184,6 +184,10 @@ class StreamCheck:
     def last_index(self):
         return self.enc.last_index
 
+    @property
+    def skipped(self):
+        return self.enc.skipped
+
     def materialize(self):
         return self.enc.materialize()
 

@@ -20,7 +20,26 @@ call and one profiled call, printed as one JSON line with the same
 fields but the host time before and after the search (iterations are
 the batch's: its longest-running key's), plus the compactions and the
 invalid keys. Its trace is not written: it holds hundreds of thousands
-of kernels.
+of kernels. ``--keys K`` sizes that batch (default 256: the first K keys
+of ``simulate.bench_histories``).
+
+``--rung 0`` profiles the JAX package's rung 0 (``tools/profile_kernel.py
+--rung 0``, the shape of ``BASELINE.json``'s primary metric, the longest
+history decidable in 60 s): an 80,000-op, 64-process cas-register
+history from ``random.Random(157000)`` at ``crash_p=0.05``, through
+``torch_wgl.check_encoded(..., timeout_s=120, chunk_iters=32)`` after a
+``max_configs=1`` warm-up. The whole search runs once unprofiled under
+the phase plane: its wall, verdict, whether it hit the timeout, the
+split at its first and last ``device`` lap into host time before the
+search, the search and host time after it, rollout launches, and the
+card's peak allocation beside ``sizemodel``'s prediction. ``torch.profiler``
+cannot gather the kernel events of a 120 s search, so the profile covers
+the search's first chunks only: a second run stopped at the first chunk
+boundary past ``RUNG0_WINDOW_S`` (its chunks and verdict printed; all of
+the search when it ends sooner), for launches per iteration, the
+device's idle share in the search loop and the rollout kernel's share
+of busy time. Its trace is not written either. An
+undecided verdict at the timeout is a finding, not a failure.
 """
 
 from __future__ import annotations
@@ -33,6 +52,16 @@ import sys
 import time
 
 HISTORIES = (("cas-register", 0.05), ("mutex", 0.02))
+
+#: rung 0 of ``tools/profile_kernel.py``: its seed (77000 + 80000),
+#: processes, ops, crash probability, timeout and chunk size
+RUNG0 = {"seed": 157_000, "processes": 64, "n_ops": 80_000,
+         "crash_p": 0.05, "timeout_s": 120, "chunk_iters": 32}
+#: the profiled window of rung 0: a search stopped at the first chunk
+#: boundary past this many seconds
+RUNG0_WINDOW_S = 3.0
+#: the key batch's default width (``profile_kernel.py --keys``)
+BATCH_KEYS = 256
 
 
 def split(events, iterations):
@@ -163,17 +192,143 @@ def profile_batch(spec, pairs):
             "wall_s": wall, **out}
 
 
-def main(argv=None):
-    import argparse
+def rung0_history(n_ops=RUNG0["n_ops"]):
+    """Rung 0's history (``RUNG0``), cut to ``n_ops`` where a caller asks
+    for fewer."""
+    from . import simulate
+    return simulate.random_history(random.Random(RUNG0["seed"]),
+                                   "cas-register", RUNG0["processes"],
+                                   n_ops, RUNG0["crash_p"])
 
+
+def _sync(dev):
     import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lap_split(events):
+    """Host seconds before the search, the search and host seconds after
+    it, from one search's phase-plane spans (``wgl.phase.*``, in time
+    order): split at the first and last ``device`` lap."""
+    laps = sorted((e for e in events if e.get("cat") == "phase"
+                   and e["name"].startswith("wgl.phase.")),
+                  key=lambda e: e["ts"])
+    dev = [i for i, e in enumerate(laps) if e["name"] == "wgl.phase.device"]
+    if not dev:
+        return {"host_before_search_s": sum(e["dur"] for e in laps) / 1e6,
+                "search_s": 0.0, "host_after_search_s": 0.0}
+
+    def secs(part):
+        return sum(e["dur"] for e in part) / 1e6
+
+    return {"host_before_search_s": secs(laps[:dev[0]]),
+            "search_s": secs(laps[dev[0]:dev[-1] + 1]),
+            "host_after_search_s": secs(laps[dev[-1] + 1:])}
+
+
+def profile_rung0(n_ops=RUNG0["n_ops"], timeout_s=RUNG0["timeout_s"],
+                  window_s=RUNG0_WINDOW_S, device=None):
+    """Rung 0 on ``device`` (None: CUDA): the whole search unprofiled,
+    then its first chunks under ``torch.profiler`` (``profile_call``),
+    as one row (the module's docstring)."""
+    import torch
+
+    from . import models, obs, resolve_device
+    from .analysis import sizemodel
+    from .checker import rollout, torch_wgl
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    spec = models.cas_register_spec
+    chunk = RUNG0["chunk_iters"]
+    hist = rung0_history(n_ops)
+    t0 = time.monotonic()
+    e, st = spec.encode(hist)
+    encode_s = time.monotonic() - t0
+    prep = torch_wgl._prepare_search(spec, e, st)
+    if prep[0] == "fast":
+        raise RuntimeError(f"rung 0: the host pre-check decided the "
+                           f"history ({prep[1].get('valid')!r}); nothing "
+                           f"to profile")
+    *_, n_pad, C, A, S = prep[1]
+    predicted = sizemodel.search_shape(
+        "cas-register", len(e), concurrency=C,
+        engine="torch-wgl")["hbm"]["total"]
+    torch_wgl.check_encoded(spec, e, st, max_configs=1, device=dev)
+    _sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    rollout.launches = 0
+    test = {}
+    with obs.run_scope(test):
+        t0 = time.monotonic()
+        r = torch_wgl.check_encoded(spec, e, st, timeout_s=timeout_s,
+                                    chunk_iters=chunk, device=dev)
+        _sync(dev)
+        wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base if cuda else None
+    launches = rollout.launches
+    its = r.get("iterations") or 0
+    row = {"rung": 0, "model": "cas-register",
+           "n_ops": sum(1 for o in hist if o["type"] == "invoke"),
+           "n_encoded": len(e), "n_padded": n_pad, "concurrency": C,
+           "valid": r["valid"],
+           "timed_out": r.get("error") == "timeout",
+           "timeout_s": timeout_s, "chunk_iters": chunk,
+           "configs_explored": r.get("configs_explored"),
+           "iterations": its, "wall_s": wall, "encode_s": encode_s,
+           **lap_split(test["obs"]["tracer"].events()),
+           "rollout_launches": launches,
+           "rollout_launches_per_iteration": launches / its if its else None,
+           "peak_bytes": peak, "predicted_bytes": predicted,
+           "peak_over_predicted": peak / predicted if cuda else None}
+    res, pwall, ev = profile_call(
+        lambda: torch_wgl.check_encoded(spec, e, st, timeout_s=window_s,
+                                        chunk_iters=chunk, device=dev),
+        host_ops=False)
+    pits = res.get("iterations") or 0
+    window = split(ev, pits)
+    del window["host_before_first_kernel_s"], \
+        window["host_after_last_kernel_s"]
+    row["profiled_window"] = {"timeout_s": window_s, "wall_s": pwall,
+                              "chunks": -(-pits // chunk),
+                              "valid": res["valid"], **window}
+    return row
+
+
+def batch_pairs(keys=BATCH_KEYS):
+    """The ``--batch`` rung's encoded keys: the first ``keys`` of
+    ``simulate.bench_histories``."""
+    from . import models, simulate
+    spec = models.cas_register_spec
+    return spec, [spec.encode(h) for h in simulate.bench_histories(keys)[0]]
+
+
+def parse_args(argv=None):
+    import argparse
     ap = argparse.ArgumentParser(
         prog="python -m jepsen_tpu_torch.profile_main")
     ap.add_argument("--trace-dir", default=os.path.join("build", "profile"))
-    ap.add_argument("--batch", action="store_true",
-                    help="profile the 256-key batch instead of the main "
-                    "path")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--batch", action="store_true",
+                       help="profile the key batch instead of the main "
+                       "path")
+    which.add_argument("--rung", type=int, choices=(0,),
+                       help="profile rung 0 (the 80,000-op history)")
+    ap.add_argument("--keys", type=int, default=BATCH_KEYS,
+                    help="keys of the --batch rung (default 256)")
     args = ap.parse_args(argv)
+    if args.keys < 1:
+        ap.error("--keys must be at least 1")
+    if args.keys != BATCH_KEYS and not args.batch:
+        ap.error("--keys sizes the --batch rung")
+    return args
+
+
+def main(argv=None):
+    import torch
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: needs a CUDA device", file=sys.stderr)
         return 2
@@ -184,12 +339,14 @@ def main(argv=None):
     print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
     if args.batch:
-        from . import models, parallel, simulate
-        spec = models.cas_register_spec
-        pairs = [spec.encode(h) for h in simulate.bench_histories()[0]]
+        from . import parallel
+        spec, pairs = batch_pairs(args.keys)
         parallel.check_batch_encoded(spec, pairs)       # warm-up
         print(json.dumps({"batch": "cas-register",
                           **profile_batch(spec, pairs)}), flush=True)
+        return 0
+    if args.rung == 0:
+        print(json.dumps(profile_rung0()), flush=True)
         return 0
     for model, crash_p in HISTORIES:
         print(json.dumps(profile_case(model, crash_p, args.trace_dir)),
