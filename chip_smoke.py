@@ -28,7 +28,29 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
 3. ``main``: ``checkers.linearizable`` decides the 10k-op, 64-process
    cas-register and mutex histories on the card; both must be valid and
    the rollout kernel must have been launched. The same histories then
-   run with ``rollout_kernel="scan"`` and must agree.
+   run with ``rollout_kernel="scan"`` and must agree. Every search on
+   the card runs its chunks as replays of a captured CUDA graph of one
+   iteration (``checker/chunk_graph.py``).
+3b. ``graph``: each case once in the eager loop
+   (``torch_wgl.eager_chunks()``) and once as graph replays, the carries
+   equal array for array at every chunk boundary, the results (verdicts,
+   witnesses, iterations, explored counts, table statistics) and the
+   rollout launches equal: the two main histories (cache hits of phase
+   3's graphs), rung 0's history (``profile_main --rung 0``; a capture),
+   the first 64 batch keys and 8 fifo and 8 unordered keys with the
+   fast check off (16 iterations' budget) through the key batch at one
+   iteration a chunk, through its compactions; then two threads
+   checking the cas-register history at once, each holding a graph of
+   its own, both results equal; the 64-key batch in two threads, the
+   second taking the graph the first let go at its compaction while the
+   first waits at its new width, both results equal; then one
+   graph-path check profiled: at most ``GRAPH_MAX_HOST_LAUNCHES`` host
+   launch calls per replayed iteration (a graph launch counts as 1),
+   beside the graph's nodes and the card's idle share; last the 64-key
+   batch in two threads at once with the graph cache bounded to 0
+   bytes (every graph freed beside the other thread's captures), both
+   results equal, then a device-wide sync and the cas-register search
+   again. Captures, cache hits, replays and evictions per case.
 4. ``invalid``: six corrupted 220-op cas-register histories; the device
    verdict must equal the CPU oracle's and every invalid verdict must
    carry a witness op.
@@ -71,13 +93,16 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    wall; ``metrics.json`` holding the phase seconds, the heartbeat
    series and ``checker.checks``; rollout launches equal to phase 3's,
    bound and bound with ``phases?`` off; the cas-register history once
-   profiled unbound and once bound with ``phases?`` off, kernel
-   launches per iteration equal. (b) The first 64 batch keys through
+   run unbound and once bound with ``phases?`` off, each warm, with
+   every racer joined: the profiled kernels per iteration in the eager
+   loop equal, and the torch ops per iteration equal on the graph path
+   and in the eager loop, with the graph path's kernels and host launch
+   calls (a graph launch counting as 1) beside them. (b) The first 64 batch keys through
    ``parallel.check_batch_encoded`` bound, at the gate's unplanned run's
    ``chunk_iters=1`` (its wall beside the gate's): verdicts equal to the
    gate's oracle, heartbeats with keys_alive, keys_running and compactions,
-   explored never decreasing; one profiled iteration bound with
-   ``phases?`` off against one unbound, launches equal. (c) The
+   explored never decreasing; one iteration bound with ``phases?`` off
+   against one unbound, eager-loop kernels and torch ops equal. (c) The
    cas-register history through the default gate under a run scope:
    the device racer's heartbeats in that run's registry, nothing in the
    next step's registry after ``checkers.join_racers``. (d) An invalid
@@ -148,7 +173,8 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    called in process (each run's exit code from its ``SystemExit``,
    its store in a temporary directory, its rollout launches counted
    from 0). (a) ``test --workload register --no-ssh --monitor
-   --concurrency 10n --per-key-limit 200 --time-limit 10``: exit 0,
+   --monitor-chunk 512 --concurrency 10n --per-key-limit 200
+   --time-limit 10``: exit 0,
    valid, the monitor's verdict True, the history, results, test map,
    log and ``monitor.json`` in the store, rollout launches > 0; its
    keys, ops, client ops/s, monitor checks and the ``run-case`` and
@@ -408,6 +434,16 @@ GATE_SEGMENTS = (1, 1, 1, 1, 1, 1, 2, 2, 1, 2, 1, 1, 1, 1, 2, 1,
                  2, 2, 1, 1, 1, 1, 1, 1, 5, 2, 2, 1, 2, 1, 2, 1,
                  1, 2, 1, 1, 2, 1, 1, 1, 1, 1, 1, 2, 1, 1, 1, 1)
 ROLLOUT_REPLACES = "jepsen_tpu/checker/pallas_rollout.py:179"
+#: the graph phase: the single-key A/B's quantum (fixed, so that the eager
+#: and the graph runs stop at the same chunk boundaries), the key batch's
+#: keys, the queue batches' keys and their budget in iterations (cut from
+#: the queues phase's 32 keys and 96 iterations: the A/B's eager side is
+#: the launch-bound loop the graphs replace, ~0.3-0.7 s an iteration on
+#: the scan path), and the most host launch calls a replayed iteration
+#: may take
+GRAPH_CHUNK, GRAPH_BATCH_KEYS = 4, 64
+GRAPH_QUEUE_KEYS, GRAPH_QUEUE_ITERS = 8, 16
+GRAPH_MAX_HOST_LAUNCHES = 10
 #: the streamlin phase. The offline face runs key 0 and the corrupted
 #: key 7 of the batch (key 15 was cut for the gate phase's room: its CPU
 #: sweeps), the stream the corrupted key 7 (key 15 was cut for the
@@ -445,6 +481,15 @@ TXN_OFFLINE_AT = (1024, 2048, 4096, 8192)
 CLOSURE_N, WR_TXNS = 2048, 2048
 #: the one timed squaring stays at rung 15's 16,384 txns
 SQUARING_N = 16384
+
+
+def stream_sync():
+    """Wait for this thread's work on the card: its current stream, where
+    the port's searches run. Not the whole device: a device-wide
+    synchronize fails beside another thread's capture of a search graph
+    (a competition's straggling device racer, a concurrent search)."""
+    import torch
+    torch.cuda.current_stream().synchronize()
 
 
 def emit(obj):
@@ -511,7 +556,7 @@ def same(name, got, want):
     import torch
     j_k, st_k = got
     j_p, st_p = want
-    torch.cuda.synchronize()
+    stream_sync()
     if not (torch.equal(j_k, j_p) and torch.equal(st_k, st_p)):
         bad = int((j_k != j_p).sum())
         raise AssertionError(f"rollout kernel disagrees with its plain "
@@ -586,7 +631,6 @@ def adversarial_cases(dev, step, R=1024):
 
 def main_case(model, crash_p, kernel, n_ops=10_000):
     """One main-path check of an ``n_ops``-op, 64-process history."""
-    import torch
     from jepsen_tpu_torch import simulate
     from jepsen_tpu_torch.checker import checkers, rollout
     hist = simulate.random_history(random.Random(45100), model, 64, n_ops,
@@ -597,7 +641,7 @@ def main_case(model, crash_p, kernel, n_ops=10_000):
     launched = rollout.launches
     t0 = time.monotonic()
     r = chk.check({}, hist)
-    torch.cuda.synchronize()
+    stream_sync()
     wall = time.monotonic() - t0
     n_ops = sum(1 for o in hist if o["type"] == "invoke")
     return r, {"model": model, "rollout": "kernel" if kernel else "scan",
@@ -654,6 +698,385 @@ def scan_only(what):
         raise AssertionError(f"{what}: the rollout kernel was launched "
                              f"{rollout.launches} times on that path")
     return rollout.launches
+
+
+def carry_view(carry):
+    """A search carry's arrays as ``torch_wgl.carry_to_numpy`` reads them
+    (the sentinel rows dropped), left on the card."""
+    from jepsen_tpu_torch.checker import torch_wgl as tw
+    out = []
+    for i, x in enumerate(carry):
+        if i in (tw.IDX_BUF_LIN, tw.IDX_BUF_STATE, tw.IDX_BUF_FP):
+            x = x[:-1]
+        elif i == tw.IDX_TAB:
+            x = x[:, :-1]
+        out.append(x)
+    return out
+
+
+class ChunkTap:
+    """A tap on every ``run_chunk`` of the port's searches (``torch_wgl``'s
+    and the key batch's builds), for the graph phase's A/B: in
+    ``"record"`` mode it keeps a copy, on the card, of the carry each
+    chunk returns; in ``"compare"`` mode it holds each returned carry
+    against the kept one of the same boundary, array for array
+    (``torch.equal``); in ``"meet"`` mode each thread's first chunk waits
+    at a two-party barrier, so two searches hold their graphs at once; in
+    ``"stagger"`` mode the thread named ``graph-a`` sets ``moved`` after
+    its first chunk at a new key count (a compaction) and waits for
+    ``resume``. It notes which graph each chunk's lease held."""
+
+    def __init__(self):
+        self.mode, self.case = None, None
+        self.kept, self.compared = [], 0
+        self.owners = []
+        self.barrier = None
+        self._met = set()
+
+    def start(self, mode, case):
+        import threading
+        self.mode, self.case = mode, case
+        if mode == "record":
+            self.kept = []
+        self.compared = 0
+        self.owners = []
+        self.barrier = threading.Barrier(2, timeout=120)
+        self._met = set()
+        self.moved, self.resume = threading.Event(), threading.Event()
+        self._first_k = None
+
+    def hook(self, carry, lease):
+        import threading
+        import torch
+        if self.mode == "record":
+            self.kept.append([x.clone() for x in carry_view(carry)])
+        elif self.mode == "compare":
+            if self.compared >= len(self.kept):
+                raise AssertionError(f"graph {self.case}: more chunk "
+                                     f"boundaries than the eager run's "
+                                     f"{len(self.kept)}")
+            want = self.kept[self.compared]
+            for i, (a, b) in enumerate(zip(carry_view(carry), want)):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"graph {self.case}: carry array {i} differs from "
+                        f"the eager loop's at chunk boundary "
+                        f"{self.compared}")
+            self.kept[self.compared] = None
+            self.compared += 1
+        name = threading.current_thread().name
+        if lease is not None and lease.entry is not None:
+            self.owners.append((name, id(lease.entry)))
+        if self.mode == "meet" and name not in self._met:
+            self._met.add(name)
+            self.barrier.wait()
+        if self.mode == "stagger" and name == "graph-a" \
+                and not self.moved.is_set():
+            from jepsen_tpu_torch.checker import torch_wgl as tw
+            k = carry[tw.IDX_TOP].shape[0]
+            if self._first_k is None:
+                self._first_k = k
+            elif k != self._first_k:
+                self.moved.set()
+                if not self.resume.wait(300):
+                    raise AssertionError(f"graph {self.case}: never "
+                                         f"resumed")
+
+    def __enter__(self):
+        from jepsen_tpu_torch.checker import torch_wgl
+        from jepsen_tpu_torch.parallel import keyshard
+        real = self._real = torch_wgl._build_search
+        tap = self
+
+        def build(*args, **kwargs):
+            init, body, run = real(*args, **kwargs)
+
+            def run_tapped(carry, consts, bound, lease=None):
+                out = run(carry, consts, bound, lease)
+                tap.hook(out, lease)
+                return out
+
+            run_tapped.uses_kernel = run.uses_kernel
+            run_tapped.graph_key = run.graph_key
+            return init, body, run_tapped
+
+        torch_wgl._build_search = keyshard._build_search = build
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.checker import torch_wgl
+        from jepsen_tpu_torch.parallel import keyshard
+        torch_wgl._build_search = keyshard._build_search = self._real
+        self.kept = []
+        return False
+
+
+def graph_ab(tap, case, run):
+    """One search ``run()`` in the eager loop, then on the graph path:
+    the carries equal at every chunk boundary, the results (verdicts,
+    witnesses, iterations, explored counts, table statistics) equal, and
+    the rollout kernel's launches equal. Returns the case's row and the
+    result."""
+    from jepsen_tpu_torch.checker import rollout, torch_wgl
+    with torch_wgl.eager_chunks():
+        tap.start("record", case)
+        rollout.launches = 0
+        t0 = time.monotonic()
+        want = run()
+        stream_sync()
+        eager_s = time.monotonic() - t0
+        eager_launches = rollout.launches
+    boundaries = len(tap.kept)
+    tap.start("compare", case)
+    before = torch_wgl.chunk_graph.stats()
+    rollout.launches = 0
+    t0 = time.monotonic()
+    got = run()
+    stream_sync()
+    graph_s = time.monotonic() - t0
+    from jepsen_tpu_torch.profile_main import graphs_since
+    graphs = graphs_since(before)
+    if tap.compared != boundaries:
+        raise AssertionError(f"graph {case}: {tap.compared} chunk "
+                             f"boundaries against the eager run's "
+                             f"{boundaries}")
+    if got != want:
+        raise AssertionError(f"graph {case}: the result differs from the "
+                             f"eager loop's")
+    if rollout.launches != eager_launches:
+        raise AssertionError(f"graph {case}: {rollout.launches} rollout "
+                             f"launches against the eager loop's "
+                             f"{eager_launches}")
+    if graphs["replays"] == 0 and boundaries > 1:
+        raise AssertionError(f"graph {case}: no chunk ran as a replay")
+    results = want if isinstance(want, list) else [want]
+    return {"case": case, "boundaries": boundaries,
+            "eager_s": eager_s, "graph_s": graph_s,
+            "rollout_launches": eager_launches,
+            "iterations": max(r.get("iterations") or 0 for r in results),
+            "verdicts": sorted({str(r["valid"]) for r in results}),
+            "graphs": graphs}, want
+
+
+def graph_phase(dev, keys, batch_keys=GRAPH_BATCH_KEYS,
+                queue_keys=GRAPH_QUEUE_KEYS, queue_iters=GRAPH_QUEUE_ITERS,
+                n_ops=10_000, rung0_ops=None):
+    """The search chunk as graph replays against the eager loop it
+    replaces (``checker/chunk_graph.py``): each case runs once with
+    ``torch_wgl.eager_chunks()`` and once on the graph path, with the
+    carries equal at every chunk boundary, the results and the rollout
+    launches equal (``graph_ab``). (a) The two main histories at
+    ``GRAPH_CHUNK`` iterations a chunk (the shapes phase 3 already
+    captured: cache hits); (b) rung 0's history (``profile_main --rung
+    0``; a new shape: an eager first iteration, then a capture); (c) the
+    first ``batch_keys`` batch keys and (d) ``queue_keys`` fifo and
+    unordered keys (fast check off, ``queue_iters`` iterations' budget)
+    through ``parallel.check_batch_encoded`` at one iteration a chunk
+    (compaction widths each get a graph); (e) two threads checking the
+    cas-register main history at once, each holding a graph of its own
+    (their first chunks meet at a barrier), both results equal (a)'s;
+    (f) (c)'s batch in two threads, the second started once the first
+    has compacted and run to its end while the first waits: it takes
+    the graph the first let go (a compacted carry keeps the table and
+    the counters of the width it leaves), both results equal (c)'s
+    (``two_batches``); (g) one graph-path check of the cas-register
+    main history under ``torch.profiler``: the host's launch calls per
+    iteration beside the graph's nodes and kernel launches, and the
+    card's idle share; (h) (c)'s batch in two threads at once with the
+    cache bounded to 0 bytes, so each graph is freed as its search lets
+    it go beside the other thread's captures: both results equal (c)'s,
+    then a device-wide sync and (a)'s cas-register search again."""
+    import threading
+
+    import torch
+    from jepsen_tpu_torch import models, parallel, simulate
+    from jepsen_tpu_torch.checker import rollout, torch_wgl
+    from jepsen_tpu_torch.profile_main import (graphs_since, profile_call,
+                                               rung0_history, split)
+    t_start = time.monotonic()
+    before = torch_wgl.chunk_graph.stats()
+    out = {"phase": "graph", "cases": []}
+    main = {}
+    with ChunkTap() as tap:
+        # (a) the main histories
+        for model, crash_p in MAIN_HISTORIES:
+            spec = models.model_spec(model)
+            e, st = spec.encode(simulate.random_history(
+                random.Random(45100), model, 64, n_ops, crash_p))
+            row, want = graph_ab(tap, model, lambda: torch_wgl.check_encoded(
+                spec, e, st, chunk_iters=GRAPH_CHUNK, device=dev))
+            if want["valid"] is not True:
+                raise AssertionError(f"graph {model}: {want['valid']!r}")
+            main[model] = (spec, e, st, want)
+            out["cases"].append(row)
+        # (b) rung 0
+        spec = models.cas_register_spec
+        e, st = spec.encode(rung0_history(*(
+            (rung0_ops,) if rung0_ops else ())))
+        row, want = graph_ab(tap, "rung0", lambda: torch_wgl.check_encoded(
+            spec, e, st, timeout_s=120, chunk_iters=GRAPH_CHUNK,
+            device=dev))
+        if want["valid"] is not True:
+            raise AssertionError(f"graph rung 0: {want['valid']!r}")
+        out["cases"].append(row)
+        # (c) the key batch
+        pairs = [spec.encode(h) for h in keys[:batch_keys]]
+
+        def batch():
+            return parallel.check_batch_encoded(spec, pairs, chunk_iters=1,
+                                                device=dev)
+        row, batch_want = graph_ab(tap, f"batch{batch_keys}", batch)
+        out["cases"].append(row)
+        # (d) the queue batches
+        for name in QUEUES:
+            search = dataclasses.replace(models.model_spec(name),
+                                         fast_check=None)
+            rng = random.Random(45100)
+            hists = []
+            for k in range(queue_keys):
+                hist = simulate.random_history(rng, name, 6, QUEUE_OPS, 0.02)
+                hists.append(simulate.corrupt(rng, hist)
+                             if k % CORRUPT_EVERY == CORRUPT_EVERY - 1
+                             else hist)
+            qpairs = [search.encode(h) for h in hists]
+            row, _ = graph_ab(tap, name, lambda: parallel.check_batch_encoded(
+                search, qpairs, max_configs=queue_iters * 128 * queue_keys,
+                chunk_iters=1, device=dev))
+            out["cases"].append(row)
+        # (e) two threads, one shape
+        spec, e, st, want = main["cas-register"]
+        tap.start("meet", "two-threads")
+        got, errors = {}, []
+        rollout.launches = 0
+
+        def search(i):
+            try:
+                got[i] = torch_wgl.check_encoded(spec, e, st, device=dev)
+            except Exception as exc:  # noqa: BLE001 - raised below
+                errors.append(exc)
+
+        before2 = torch_wgl.chunk_graph.stats()
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=search, args=(i,),
+                                    name=f"graph-search-{i}")
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        two_s = time.monotonic() - t0
+        launched = rollout.launches
+        if errors:
+            raise errors[0]
+        if got[0] != want or got[1] != want:
+            raise AssertionError("graph two-threads: a result differs from "
+                                 "the single search's")
+        held = {}
+        for name, eid in tap.owners:
+            held.setdefault(name, set()).add(eid)
+        if len(held) != 2 or set.intersection(*held.values()):
+            raise AssertionError(f"graph two-threads: the searches did not "
+                                 f"each hold a graph of their own: {held}")
+        single = next(c for c in out["cases"]
+                      if c["case"] == "cas-register")["rollout_launches"]
+        if launched != 2 * single:
+            raise AssertionError(f"graph two-threads: {launched} rollout "
+                                 f"launches, not twice {single}")
+        out["two_threads"] = {"wall_s": two_s, "rollout_launches": launched,
+                              "graphs": graphs_since(before2)}
+        # (f) a batch that takes the graph another one let go at its
+        # compaction, while that one goes on at its new width
+        tap.start("stagger", "stagger")
+        out["stagger"] = two_batches(tap, batch, batch_want, stagger=True)
+    # (g) the host's launch calls on the graph path
+    before3 = torch_wgl.chunk_graph.stats()
+    r, wall, ev = profile_call(lambda: torch_wgl.check_encoded(
+        spec, e, st, device=dev), host_ops=False)
+    st_ = split(ev, r.get("iterations"))
+    out["profiled"] = {"model": "cas-register", "wall_s": wall,
+                       "iterations": r.get("iterations"),
+                       "graphs": graphs_since(before3),
+                       **{k: st_[k] for k in (
+                           "host_launches", "host_launches_per_iteration",
+                           "graph_launches",
+                           "host_launches_per_replayed_iteration",
+                           "kernel_launches",
+                           "kernel_launches_per_iteration",
+                           "search_loop_s", "device_busy_s",
+                           "device_idle_share_in_search_loop")}}
+    if dev.type == "cuda":
+        per = out["profiled"]["host_launches_per_replayed_iteration"]
+        if per is None or per > GRAPH_MAX_HOST_LAUNCHES:
+            raise AssertionError(f"graph: the host issued {per} launch "
+                                 f"calls per replayed iteration")
+    # (h) two batches at once with no room for idle graphs: each graph is
+    # freed as its search lets it go, beside the other thread's captures
+    with ChunkTap() as tap, torch_wgl.chunk_graph.bounded(0):
+        tap.start("meet", "evicting")
+        out["evicting"] = two_batches(tap, batch, batch_want, stagger=False)
+    if out["evicting"]["graphs"]["evictions"] \
+            < out["evicting"]["graphs"]["captures"]:
+        raise AssertionError(f"graph evicting: {out['evicting']}")
+    if dev.type == "cuda":
+        # the card is sound after it: a device-wide sync (no capture is
+        # open now), then (a)'s cas-register search again
+        torch.cuda.synchronize()
+        if torch_wgl.check_encoded(spec, e, st, device=dev) != want:
+            raise AssertionError("graph evicting: the cas-register search "
+                                 "differs afterwards")
+        torch.cuda.empty_cache()
+    out["graphs"] = graphs_since(before)
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+def two_batches(tap, batch, want, stagger):
+    """``batch()`` in two threads, ``graph-a`` and ``graph-b``, each
+    result equal to ``want``. With ``stagger``, ``graph-b`` starts once
+    ``graph-a`` has moved to a compacted width (``ChunkTap``'s
+    ``"stagger"`` mode), runs to its end while ``graph-a`` waits, and
+    must have taken a cached graph (the one ``graph-a`` let go); else
+    both start together and meet at their first chunks."""
+    import threading
+
+    from jepsen_tpu_torch.checker import torch_wgl
+    from jepsen_tpu_torch.profile_main import graphs_since
+    got, errors = {}, []
+
+    def run(name):
+        try:
+            got[name] = batch()
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+            tap.moved.set()
+
+    before = torch_wgl.chunk_graph.stats()
+    t0 = time.monotonic()
+    a = threading.Thread(target=run, args=("a",), name="graph-a")
+    b = threading.Thread(target=run, args=("b",), name="graph-b")
+    a.start()
+    b_graphs = None
+    if stagger:
+        if not tap.moved.wait(300):
+            raise AssertionError("graph stagger: graph-a never compacted")
+        b.start()
+        b.join()
+        b_graphs = graphs_since(before)
+        tap.resume.set()
+    else:
+        b.start()
+        b.join()
+    a.join()
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    if got.get("a") != want or got.get("b") != want:
+        raise AssertionError(f"graph {tap.case}: a batch's results differ "
+                             f"from the eager loop's")
+    if stagger and not b_graphs["hits"]:
+        raise AssertionError("graph stagger: graph-b took no cached graph")
+    return {"wall_s": wall, "graphs": graphs_since(before),
+            **({"b_graphs": b_graphs} if stagger else {})}
 
 
 def oracle_verdict(hist):
@@ -1081,11 +1504,98 @@ def phase_coverage(events, walls):
     return out
 
 
+class TorchOps:
+    """Counts the torch ops a thread issues while the block runs (views
+    excluded: they launch nothing on the card), through a
+    ``TorchDispatchMode``; ``n`` is the count."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if not func.is_view:
+                    counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = _Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
 def kernels_per_iteration(run, iterations):
-    """Kernel launches per iteration of one profiled call of ``run``."""
-    from jepsen_tpu_torch.profile_main import profile_call
-    _, wall, ev = profile_call(run, host_ops=False)
-    return sum(e[3] for e in ev) / max(1, iterations), wall
+    """Launches per iteration of ``run``, each measured after a warm-up
+    call of the same form, with every competition racer joined first:
+    ``(kernels in the eager loop, wall, kernels on the graph path, host
+    launch calls on the graph path, torch ops on the graph path, torch
+    ops in the eager loop, the eager loop's kernels by name)``. Kernels
+    and host calls come from one profiled call each; on the graph path a
+    search's iteration is a graph replay, whose kernels are its graph's
+    nodes and which the host launches with one call
+    (``profile_main.host_launches``). The eager loop
+    (``torch_wgl.eager_chunks``) launches each of its kernels from the
+    host, as the parent's main path did; ``TorchOps`` counts the torch
+    ops dispatched. ``run`` must stop at the same chunk boundaries each
+    time (each boundary's status read launches kernels of its own), and
+    no other thread may launch work while it is profiled: the profiler
+    records the whole card, so a competition's straggling device racer
+    would add the kernels of its last chunk."""
+    import collections
+
+    from jepsen_tpu_torch.checker import checkers, torch_wgl
+    from jepsen_tpu_torch.profile_main import host_launches, profile_call
+    n = max(1, iterations)
+
+    def profiled():
+        checkers.join_racers()
+        stream_sync()
+        return profile_call(run, host_ops=False)
+
+    run()
+    _, _, ev = profiled()
+    calls = host_launches(ev, n)["host_launches_per_iteration"]
+    with TorchOps() as ops:
+        run()
+    with torch_wgl.eager_chunks():
+        run()
+        _, wall, eager_ev = profiled()
+        with TorchOps() as eager:
+            run()
+    names = collections.Counter(e[2][:60] for e in eager_ev if e[3])
+    return (sum(e[3] for e in eager_ev) / n, wall,
+            sum(e[3] for e in ev) / n, calls, ops.n / n, eager.n / n,
+            names)
+
+
+def kernel_gate(what, prof):
+    """Fail unless the bound and the unbound run of ``prof``
+    (``kernels_per_iteration``'s tuples) launched as many kernels in the
+    eager loop and dispatched as many torch ops on both paths; names the
+    kernels that differ."""
+    a, b = prof["unbound"], prof["phases_off"]
+    if a[0] != b[0] or a[4:6] != b[4:6]:
+        diff = {k: b[6][k] - a[6][k] for k in set(a[6]) | set(b[6])
+                if a[6][k] != b[6][k]}
+        raise AssertionError(
+            f"{what}: eager kernels {a[0]} unbound, {b[0]} phases off; "
+            f"torch ops {a[4:6]} against {b[4:6]}; eager kernels by name, "
+            f"phases off less unbound: {diff}")
+
+
+def kernel_row(v):
+    return {"kernels_per_iteration": v[0], "wall_s": v[1],
+            "graph_kernels_per_iteration": v[2],
+            "host_launches_per_iteration": v[3],
+            "torch_ops_per_iteration": v[4],
+            "eager_torch_ops_per_iteration": v[5]}
 
 
 def obs_phase(dev, keys, main_rows, gate_verdicts, gate_batch_s, trials,
@@ -1099,13 +1609,14 @@ def obs_phase(dev, keys, main_rows, gate_verdicts, gate_batch_s, trials,
     holding the phase, heartbeat and checker series; rollout launches
     equal to phase 3's (``main_rows``) every time, and in one profiled
     run of the cas-register history unbound and one with ``phases?``
-    off kernel launches per iteration equal. (b) The first ``gate_keys``
+    off the eager loop's kernels per iteration equal and the torch ops
+    per iteration equal on both paths (``kernels_per_iteration``). (b) The first ``gate_keys``
     batch keys through ``parallel.check_batch_encoded`` bound at
     ``chunk_iters=1``, as the gate's unplanned run (``gate_batch_s``):
     verdicts equal to the gate's (``gate_verdicts``), heartbeats with
     keys_alive, keys_running and compactions, explored never decreasing;
-    one profiled iteration bound with ``phases?`` off against one
-    unbound, launches equal. (c) The
+    one iteration bound with ``phases?`` off against one unbound, the
+    same comparison. (c) The
     cas-register history through the default gate under a run scope:
     the device racer's heartbeats in the run's registry, nothing in the
     next step's after ``join_racers``. (d) One invalid trial through
@@ -1120,7 +1631,7 @@ def obs_phase(dev, keys, main_rows, gate_verdicts, gate_batch_s, trials,
     import tempfile
 
     from jepsen_tpu_torch import independent, models, obs, parallel
-    from jepsen_tpu_torch import simulate, store
+    from jepsen_tpu_torch import profile_main, simulate, store
     from jepsen_tpu_torch.checker import checkers, core, rollout
     spec = models.cas_register_spec
     t_start = time.monotonic()
@@ -1208,16 +1719,16 @@ def obs_phase(dev, keys, main_rows, gate_verdicts, gate_batch_s, trials,
         its = rows[0]["unbound_iterations"]
         prof = {}
         if dev.type == "cuda":
+            # one chunk: the first quantum (32 iterations) outlasts the
+            # search, so the host's clock decides no boundary
             prof["unbound"] = kernels_per_iteration(
                 lambda: chk.check({}, hist), its)
             with obs.run_scope({"phases?": False}):
                 prof["phases_off"] = kernels_per_iteration(
                     lambda: chk.check({}, hist), its)
-            if prof["unbound"][0] != prof["phases_off"][0]:
-                raise AssertionError(f"obs: kernels per iteration {prof}")
+            kernel_gate("obs", prof)
         out["single_key"] = {"checks": rows, "profiled": {
-            k: {"kernels_per_iteration": v[0], "wall_s": v[1]}
-            for k, v in prof.items()}}
+            k: kernel_row(v) for k, v in prof.items()}}
 
         # (b) the key batch under a bound registry
         pairs = [spec.encode(hh) for hh in keys[:gate_keys]]
@@ -1251,15 +1762,19 @@ def obs_phase(dev, keys, main_rows, gate_verdicts, gate_batch_s, trials,
         bprof = {}
         if dev.type == "cuda":
             bprof = {"unbound": one(False), "phases_off": one(True)}
-            if bprof["unbound"][0] != bprof["phases_off"][0]:
-                raise AssertionError(f"obs batch: launches {bprof}")
+            kernel_gate("obs batch", bprof)
         out["batch"] = {
             "keys": len(pairs), "wall_s": bwall, "chunk_iters": 1,
             "gate_unplanned_batch_s": gate_batch_s, "heartbeats": len(hb),
             "compactions": hb[-1]["compactions"],
             "iterations": max(r.get("iterations") or 0 for r in res),
-            "first_iteration": {k: {"kernels": v[0], "wall_s": v[1]}
+            "first_iteration": {k: kernel_row(v)
                                 for k, v in bprof.items()}}
+        # the profiler's lost records, over every profiled call so far:
+        # its primers take them (``profile_main.PRIMERS``)
+        out["profiler"] = {
+            "primers_launched": profile_main.primers_launched,
+            "primer_records_lost": profile_main.primer_records_lost}
 
         # (c) the default gate: the device racer's heartbeats stay in
         # its run's registry
@@ -2378,6 +2893,13 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
 #: CLI_PROFILE_PER_KEY ops per key for CLI_PROFILE_TIME_LIMIT s
 CLI_TIME_LIMIT, CLI_PER_KEY, CLI_BUG_CHUNK, CLI_BUG_TIME_LIMIT = \
     10, 200, 8, 30
+#: the monitor's check cadence in the cli phase's (a) and the campaign
+#: phase's (a), in completions: with 5 keys in flight a check then takes
+#: ~100 new completions of a key, so its window passes the 64 ops past
+#: which a search rolls chains and launches the rollout kernel (at the
+#: default 64, a monitor whose checks keep up checks windows that roll
+#: none)
+MONITORED_CHUNK = 512
 CLI_HARD_LIMIT, CLI_TXN_TIME_LIMIT = 4, 8
 CLI_PROFILE_PER_KEY, CLI_PROFILE_TIME_LIMIT = 50, 3
 
@@ -2390,7 +2912,8 @@ def cli_phase(dev, time_limit=CLI_TIME_LIMIT,
     caught for the exit code, so the rollout kernel's launches can be
     counted from 0 around each run), each store in a temporary directory;
     run (d) is a real subprocess. (a) ``test --workload register --no-ssh
-    --monitor --concurrency 10n --per-key-limit 200``: exit 0, valid, the
+    --monitor --monitor-chunk 512 --concurrency 10n --per-key-limit
+    200``: exit 0, valid, the
     monitor's verdict True, the store's files, rollout launches > 0 (the
     monitor's per-key checks run the single-key search). (b) The same
     with ``--bug dirty-read --monitor-chunk 8`` and a ``--time-limit`` of
@@ -2419,9 +2942,9 @@ def cli_phase(dev, time_limit=CLI_TIME_LIMIT,
     import threading
     from jepsen_tpu_torch import __main__ as demo_main
     from jepsen_tpu_torch import independent, obs, store
-    from jepsen_tpu_torch.checker import checkers, rollout
+    from jepsen_tpu_torch.checker import checkers, rollout, torch_wgl
     from jepsen_tpu_torch.obs import profile as obs_profile
-    from jepsen_tpu_torch.profile_main import kernel_stats
+    from jepsen_tpu_torch.profile_main import graphs_since, kernel_stats
     from jepsen_tpu_torch.suites import txn as txn_suite
     t_start = time.monotonic()
     cuda = dev.type == "cuda"
@@ -2444,6 +2967,7 @@ def cli_phase(dev, time_limit=CLI_TIME_LIMIT,
 
     def run(name, main, argv, want):
         rollout.launches = 0
+        before = torch_wgl.chunk_graph.stats()
         t0 = time.monotonic()
         # a run prints its results map: keep this script's output to
         # its phase lines
@@ -2463,6 +2987,7 @@ def cli_phase(dev, time_limit=CLI_TIME_LIMIT,
         hist = test["history"]
         row = {"exit": code, "wall_s": wall,
                "rollout_launches": rollout.launches,
+               "graphs": graphs_since(before),
                "client_ops_per_s": client_rate(hist),
                "history_ops": len(hist)}
         mon = test["results"].get("monitor")
@@ -2500,8 +3025,9 @@ def cli_phase(dev, time_limit=CLI_TIME_LIMIT,
                     "--concurrency", "10n", "--per-key-limit",
                     str(CLI_PER_KEY), "--time-limit", str(limit)]
         # (a) the normal entry point at a realistic size
-        test, row = run("a", demo_main.main, ["test"] + register(time_limit),
-                        0)
+        test, row = run("a", demo_main.main,
+                        ["test"] + register(time_limit)
+                        + ["--monitor-chunk", str(MONITORED_CHUNK)], 0)
         r = test["results"]
         if r["valid"] is not True or r["monitor"]["verdict"] is not True:
             raise AssertionError(f"cli a: valid {r['valid']!r}, monitor "
@@ -2668,7 +3194,8 @@ def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
     """The campaign runner on one host (``jepsen_tpu_torch/campaign``),
     its store in a temporary directory. (a) ``python -m jepsen_tpu_torch
     campaign --no-ssh --axis workload=register,append --seeds 2
-    --parallel 2 --device-slots 1 --monitor`` in process through
+    --parallel 2 --device-slots 1 --monitor --monitor-chunk 512`` in
+    process through
     ``__main__.main``: exit 0, the four cells decided True, the report's
     ``fleet_analysis`` with no error and its ``certification`` of all
     four runs with no error, no two checks overlapping in time, the
@@ -2698,8 +3225,9 @@ def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
     from jepsen_tpu_torch import __main__ as demo_main
     from jepsen_tpu_torch import campaign, cli, core, demo, store
     from jepsen_tpu_torch.campaign import scheduler
-    from jepsen_tpu_torch.checker import checkers, rollout
+    from jepsen_tpu_torch.checker import checkers, rollout, torch_wgl
     from jepsen_tpu_torch.monitor import engine as mengine
+    from jepsen_tpu_torch.profile_main import graphs_since
     from jepsen_tpu_torch.monitor import txn as mtxn
     from jepsen_tpu_torch.monitor import wgl_stream
     from jepsen_tpu_torch.obs import trend
@@ -2716,7 +3244,8 @@ def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
     launches = {}
     argv = ["campaign", "--no-ssh", "--axis", "workload=register,append",
             "--seeds", "2", "--parallel", "2", "--device-slots", "1",
-            "--monitor", "--concurrency", "10n", "--per-key-limit",
+            "--monitor", "--monitor-chunk", str(MONITORED_CHUNK),
+            "--concurrency", "10n", "--per-key-limit",
             str(per_key), "--time-limit", str(time_limit)] + device
 
     def main(args):
@@ -2769,6 +3298,7 @@ def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
     try:
         # (a) the sweep through the command line, every check probed
         rollout.launches = 0
+        before = torch_wgl.chunk_graph.stats()
         saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
         for obj, name, fn in patches:
             setattr(obj, name, fn)
@@ -2782,6 +3312,7 @@ def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
             for obj, name, fn in saved:
                 setattr(obj, name, fn)
         launches["campaign"] = rollout.launches
+        graphs = graphs_since(before)
         rep = report("smoke")
         with open(store.campaign_path("smoke", "metrics.json")) as f:
             metrics = json.load(f)
@@ -2810,7 +3341,7 @@ def campaign_phase(dev, time_limit=CAMPAIGN_TIME_LIMIT,
                                  "rollout kernel")
         wait = metrics["histograms"]["campaign.device_wait_s"]
         out["a"] = {
-            "exit": code, "wall_s": wall,
+            "exit": code, "wall_s": wall, "graphs": graphs,
             "cells": {r["cell"]: {"outcome": r["outcome"],
                                   "wall_s": r["wall_s"]}
                       for r in rep["cells"]},
@@ -3152,7 +3683,7 @@ def batch_phase(keys, oracle):
     pairs = [spec.encode(h) for h in keys]
     n_ops = sum(len(e) for e, _ in pairs)
     prof = profile_batch(spec, pairs)                   # warms up too
-    torch.cuda.synchronize()
+    stream_sync()
     rollout.launches = 0
     dev = torch.device("cuda")
     t0 = time.monotonic()
@@ -3272,7 +3803,6 @@ def queue_phase(fifo):
     """64-key fifo-queue and unordered-queue batches with the fast check
     off, against the CPU oracles; then rung 4's FIFO history through
     ``checkers.linearizable``."""
-    import torch
     from jepsen_tpu_torch import models, parallel, simulate
     from jepsen_tpu_torch.checker import checkers, rollout
     rows = []
@@ -3290,7 +3820,7 @@ def queue_phase(fifo):
         t0 = time.monotonic()
         res = parallel.check_batch_encoded(search, pairs,
                                            max_configs=QUEUE_MAX_CONFIGS)
-        torch.cuda.synchronize()
+        stream_sync()
         wall = time.monotonic() - t0
         launches = scan_only(name)
         t0 = time.monotonic()
@@ -3340,9 +3870,8 @@ def queue_phase(fifo):
 
 
 def sync(dev):
-    import torch
     if dev.type == "cuda":
-        torch.cuda.synchronize()
+        stream_sync()
 
 
 def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
@@ -4207,11 +4736,11 @@ def mem_step(dev, fn):
     import torch
     if dev.type != "cuda":
         return fn(), None
-    torch.cuda.synchronize()
+    stream_sync()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     out = fn()
-    torch.cuda.synchronize()
+    stream_sync()
     return out, torch.cuda.max_memory_allocated(dev) - base
 
 
@@ -4961,13 +5490,17 @@ def main(argv):
     emit({"phase": "main", "rollout_launches": main_launches,
           "checks": main_rows})
 
+    # -- 3b. graph: the search chunk as graph replays against the eager loop
+    from jepsen_tpu_torch import simulate
+    keys, fifo = simulate.bench_histories(BATCH_KEYS)
+    graph_row = graph_phase(dev, keys)
+    emit(graph_row)
+
     # -- 4. invalid histories against the CPU oracle -----------------------
     trial_rows, trials = invalid_trials(dev)
     emit({"phase": "invalid", "trials": trial_rows})
 
     # -- 5. the gate at the JAX package's defaults -------------------------
-    from jepsen_tpu_torch import simulate
-    keys, fifo = simulate.bench_histories(BATCH_KEYS)
     flat = {r["model"]: r["wall_s"] for r in main_rows
             if r["rollout"] == "kernel"}
     gate, oracle = gate_phase(dev, keys, flat, trials, trial_rows)
@@ -5047,7 +5580,10 @@ def main(argv):
         # -- 21. summary: the store reader over the card's own stores ------
         sum_row = summary_phase(dev, kept, main_rows[0]["valid"], here)
         emit(sum_row)
-        by_path = {"main": main_launches, **gate["launches"],
+        by_path = {"main": main_launches,
+                   "graph": sum(c["rollout_launches"]
+                                for c in graph_row["cases"]),
+                   **gate["launches"],
                    **obs_row["launches"], "mesh": mesh_row["launches"],
                    **run_row["launches"], **mon_row["launches"],
                    "cli": sum(cli_row["launches"].values()),

@@ -24,6 +24,7 @@ none of it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import NamedTuple
@@ -46,9 +47,44 @@ MODEL_IDS = {_register_step: 0, _cas_step: 1, _mutex_step: 2}
 SMEM_BUDGET = 232448 - 1024
 
 #: kernel launches since the count was last reset (set it to 0 to start
-#: a count); the wrapper adds one per launch, and nowhere else
+#: a count); the wrapper adds one per launch, and nowhere else. A launch
+#: recorded into a CUDA graph (``chunk_graph``) goes to that graph's own
+#: count instead, and each replay of the graph adds it here
 launches = 0
 _launches_lock = threading.Lock()
+_captured = threading.local()
+
+
+@contextlib.contextmanager
+def counting_captured():
+    """Route this thread's launches to a capture's own count while the
+    block runs: yields a one-item list that counts them."""
+    prev = getattr(_captured, "count", None)
+    _captured.count = count = [0]
+    try:
+        yield count
+    finally:
+        _captured.count = prev
+
+
+def _note_launch():
+    """One launch of the kernel: into the capture's count while this
+    thread records a graph, else into ``launches``."""
+    global launches
+    count = getattr(_captured, "count", None)
+    if count is not None:
+        count[0] += 1
+        return
+    with _launches_lock:
+        launches += 1
+
+
+def add_replayed(n):
+    """A replay of a graph that recorded ``n`` launches."""
+    global launches
+    if n:
+        with _launches_lock:
+            launches += n
 
 
 def gate(step_fn, NS, R, n, B, S, A):
@@ -224,7 +260,6 @@ def run(step_fn, seed_lin, seed_st, seed_ok, invoke, ret, fop, args, rets,
     ``invoke``/``ret``/``fop`` (n,) int32 and ``args``/``rets`` (n, A)
     int32 in priority order. Returns ``(j, st)``. CPU tensors run
     ``plain``; CUDA tensors launch the kernel (raising on any refusal)."""
-    global launches
     dev = seed_lin.device
     if dev.type != "cuda":
         return plain(step_fn, seed_lin, seed_st, seed_ok, invoke, ret,
@@ -263,6 +298,5 @@ def run(step_fn, seed_lin, seed_st, seed_ok, invoke, ret, fop, args, rets,
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed: CUDA error "
                            f"{err}")
-    with _launches_lock:
-        launches += 1
+    _note_launch()
     return j, st

@@ -111,16 +111,19 @@ def main_path(model, n_ops, crash_p, device, NS=8, iters=3):
         rollout_kernel="scan", device=str(device))
     consts = torch_wgl.make_consts(inv32, ret32, fop, args, rets, ok_words,
                                    device)
-    carry = run_chunk(init_carry(init_state[None]), consts, iters)
-    top = int(carry[torch_wgl.IDX_TOP][0])
-    pos = torch.tensor([(top - 1 - k) % O for k in range(NS)],
-                       device=device)
-    seed_ok = torch.tensor([k < top for k in range(NS)], device=device)
-    seed_ok[-1] = False
-    cols = [x[0].contiguous() for x in consts[:5]]
-    return [carry[torch_wgl.IDX_BUF_LIN][pos].contiguous(),
-            carry[torch_wgl.IDX_BUF_STATE][pos].contiguous(), seed_ok,
-            *cols], len(e)
+    with torch_wgl.chunk_graph.Lease() as lease:
+        carry = run_chunk(init_carry(init_state[None]), consts, iters,
+                          lease)
+        top = int(carry[torch_wgl.IDX_TOP][0])
+        pos = torch.tensor([(top - 1 - k) % O for k in range(NS)],
+                           device=device)
+        seed_ok = torch.tensor([k < top for k in range(NS)], device=device)
+        seed_ok[-1] = False
+        cols = [x[0].contiguous() for x in consts[:5]]
+        # gathered copies: the graph's static carry goes back to the cache
+        return [carry[torch_wgl.IDX_BUF_LIN][pos].contiguous(),
+                carry[torch_wgl.IDX_BUF_STATE][pos].contiguous(), seed_ok,
+                *cols], len(e)
 
 
 def _padded(n, A):

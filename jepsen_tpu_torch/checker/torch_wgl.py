@@ -13,6 +13,8 @@ the machinery:
 * ``lax.while_loop`` becomes a host loop over ``body``. Every masked
   update in ``body`` is a no-op once a key is no longer running, so the
   loop checks the status between iterations without changing a result.
+  On the card the loop replays a captured CUDA graph of one iteration
+  (``chunk_graph.py``): one launch call an iteration, not ~700.
 * The greedy rollout runs in the hand-written CUDA kernel of
   ``rollout.py`` when the search has one key and the gate passes
   (``rollout_kernel="auto"`` on CUDA, or ``"kernel"``), else in the scan
@@ -70,7 +72,7 @@ from ..obs import phases as obs_phases
 from ..obs import search as obs_search
 from ..util import DEFAULT_N_FLOOR
 from ..xp import NP, TORCH
-from . import rollout, words
+from . import chunk_graph, rollout, words
 from .words import M32, u32
 
 logger = logging.getLogger(__name__)
@@ -152,18 +154,20 @@ def _bucket(x, lo):
 def _n_floor():
     """Minimum op-count bucket: a constant in the port. The JAX package
     lets a campaign raise it so that cells share one compiled shape; the
-    port compiles nothing per shape, so a coarser bucket would only add
-    padding rows (ROADMAP.md, deliberate divergences)."""
+    port's per-shape cost is a graph capture of about two eager
+    iterations, so a coarser bucket would mostly add padding rows
+    (ROADMAP.md, deliberate divergences)."""
     return DEFAULT_N_FLOOR
 
 
 def _note_compile(engine, key):
     """Report this search's plan to the campaign's plan-shape counter
     (``campaign.compile_cache``; never verdict-bearing). ``key`` holds the same
-    values as the JAX engine's, under the port's own engine label. The
-    phase plane's ``compile`` lap does not follow it: the port compiles
-    nothing per shape, and the lap marks the rollout kernel library's
-    first load instead (ROADMAP.md, deliberate divergences)."""
+    values as the JAX engine's, under the port's own engine label. On
+    the card a first sighting is where the shape's chunk graph is
+    captured; the phase plane's ``compile`` lap follows the capture
+    itself (and the rollout kernel library's first load), not this
+    note (ROADMAP.md, deliberate divergences)."""
     from ..campaign import compile_cache
     return compile_cache.note(engine, key)
 
@@ -417,7 +421,7 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
 
         init_carry(init_states (K,S) int32) -> carry
         body(carry, consts) -> carry          (one search iteration)
-        run_chunk(carry, consts, bound) -> carry
+        run_chunk(carry, consts, bound, lease=None) -> carry
 
     ``consts`` is ``(invoke (K,n), ret (K,n), fop (K,n), args (K,n,A),
     rets (K,n,A), ok_words (K,B))`` int32 tensors plus ``salt (K,)`` and
@@ -461,6 +465,9 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
     ML = M + NS * R if R else M
     KML = K * ML
     on_cpu = dev.type == "cpu"
+    # the scan rollout stops reading dead chains early on the CPU, by a
+    # host read per step; a graph (``chunk_graph``) makes no host read
+    early_exit = on_cpu and not chunk_graph.applies(dev)
     keys = words.Keys(B, S, dev)
 
     def i64(x):
@@ -716,7 +723,7 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
                 for _ in range(R):
                     *c, j = roll_step(*c, invoke, ret, fop, args, rets)
                     steps.append((c[0], c[1], j))
-                    if on_cpu and not bool(c[2].any()):
+                    if early_exit and not bool(c[2].any()):
                         # every chain is dead, so each later step is the
                         # identity (j = -1): stop reading them (a host
                         # read per step is free on the CPU only)
@@ -822,7 +829,14 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
 
         explored = explored + torch.where(running, fvalid.sum(dim=1), 0)
         its = its + running.to(torch.int64)
-        it = it + 1
+        if group is None:
+            # guarded, so that an iteration past the verdict is a no-op:
+            # ``run_chunk`` calls ``body`` only while a key runs, so this
+            # is the reference's unconditional ``it + 1`` there
+            it = it + running.any().to(torch.int64)
+        else:
+            # a rank without work still takes part in the iteration
+            it = it + 1
         return (buf_lin, buf_state, buf_fp, top, tab, dropped, status,
                 explored, best_depth, best_lin, best_state, its, it,
                 claim, tfail)
@@ -849,24 +863,71 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
                 i64(np.zeros(K)), i64(np.zeros(G)),
                 i64(np.zeros((G, TC))), i64(np.zeros(G)))
 
-    def run_chunk(carry, consts, bound):
+    def local(carry):
+        """The loop's condition on this rank: some key still running."""
+        return ((carry[IDX_STATUS] == running_c)
+                & (carry[IDX_TOP] > 0)).any()
+
+    # the graph cache's key: the plan shape ``check_encoded`` notes, the
+    # key count, the rollout's form, the device and the model's step
+    graph_key = (step_fn, K, n, B, S, C, A, W, O, T, R, NS, use_kernel,
+                 str(dev))
+
+    def graph_chunk(carry, consts, bound, lease):
+        """``run_chunk`` as replays of one captured iteration
+        (``chunk_graph``). The lease's graph of this shape holds the
+        carry. A carry it does not hold (a search's first chunk, a
+        compacted, resumed or restored carry) is copied into the static
+        tensors of the lease's graph, or of an idle cached one; where
+        there is none, the search's first iteration of this shape runs
+        eagerly (it also loads every kernel the capture will record) and
+        the next one is captured. The eager loop's two host reads at the
+        chunk's start, then the graph's flag once per iteration."""
+        it = int(carry[IDX_IT][0])
+        go = it < bound and bool(local(carry))
+        entry = None
+        while go and it < bound:
+            if entry is None:
+                entry, carry = lease.holds(graph_key, carry, consts)
+                if entry is None:
+                    if graph_key not in lease.warmed:
+                        lease.warmed.add(graph_key)
+                        carry = body(carry, consts)
+                        it += 1
+                        go = bool(local(carry))
+                        continue
+                    entry = lease.capture(graph_key, body, local, carry,
+                                          consts, dev)
+                carry = entry.carry
+            go = entry.replay()
+            it += 1
+        return carry
+
+    def run_chunk(carry, consts, bound, lease=None):
         """Advance the search until every key succeeds/exhausts or the
-        iteration counter reaches ``bound``. The status is read between
-        iterations (one host sync each); ``body`` is a no-op for keys no
-        longer running, so the reading cadence changes no result. A
-        sharded search continues while any rank holds work and no rank
-        has succeeded, so every rank runs the same iterations: the
-        status read is one ``all_reduce`` of (work, found)."""
+        iteration counter reaches ``bound``. On the card (``group``
+        None) the chunk is ``graph_chunk``'s replays, and ``lease`` (a
+        ``chunk_graph.Lease``, the search's hold on its graph) is
+        required: the returned carry belongs to the lease's graph until
+        the lease is released. Elsewhere the status is read between
+        eager iterations (one host sync each). ``body`` is a no-op for keys no longer running,
+        so the reading cadence changes no result. A sharded search
+        continues while any rank holds work and no rank has succeeded,
+        so every rank runs the same iterations: the status read is one
+        ``all_reduce`` of (work, found)."""
+        if group is None and chunk_graph.applies(dev):
+            if lease is None:
+                raise ValueError("run_chunk on the card needs the "
+                                 "search's chunk_graph.Lease")
+            return graph_chunk(carry, consts, bound, lease)
         it = int(carry[IDX_IT][0])
         while it < bound:
-            local = ((carry[IDX_STATUS] == running_c)
-                     & (carry[IDX_TOP] > 0)).any()
             if group is None:
-                if not bool(local):
+                if not bool(local(carry)):
                     break
             else:
                 flags = torch.stack([
-                    local.to(torch.int64),
+                    local(carry).to(torch.int64),
                     (carry[IDX_STATUS] == valid_c).sum()])
                 _collective(dist.all_reduce, flags, group=group)
                 work, found = flags.tolist()
@@ -879,7 +940,21 @@ def _build_search(step_fn, K, n, B, S, C, A, W, O, T, R=None, NS=None,
     # whether a chunk launches the rollout kernel (obs arms its compile
     # phase on the first dispatch that builds or loads the library)
     run_chunk.uses_kernel = use_kernel
+    run_chunk.graph_key = graph_key
     return init_carry, body, run_chunk
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """Run every search's chunks in the eager loop while the block runs:
+    the graph path's A/B against the loop it replaces. Process-wide, so
+    for a run with no other search in flight."""
+    saved = chunk_graph.DEVICES
+    chunk_graph.DEVICES = ()
+    try:
+        yield
+    finally:
+        chunk_graph.DEVICES = saved
 
 
 # ---------------------------------------------------------------------------
@@ -1054,114 +1129,121 @@ def check_encoded(spec, e, init_state, max_configs=50_000_000,
     carry = init_carry(init_state[None])
     ph.sync(carry)
     ph.lap("h2d")
-    fingerprint = None
-    if checkpoint is not None:
-        fingerprint = search_fingerprint(
-            spec, (inv32, ret32, fop, args, rets, ok_words, init_state),
-            (n_pad, B, S, C, W, O, T))
-        resumed = read_snapshot(checkpoint, fingerprint)
-        if resumed is not None:
-            carry = carry_from_numpy(
-                [resumed[f"c{i}"] for i in range(N_CARRY)], dev)
-        elif not _checkpoint_owned(checkpoint, fingerprint):
-            # another check's live snapshot: never touch it
-            logger.warning("checkpoint %s belongs to a different check; "
-                           "checkpointing disabled for this run",
-                           checkpoint)
-            checkpoint = None
-    t0 = time.monotonic()
-    last_ckpt = t0
-    timed_out = False
-    # sinks captured ONCE at search start: a competition straggler must
-    # not write into a later run's artifacts
-    so = obs_search.capture()
-    so.plan("jax-wgl", n_pad, len(e), n_pad)
-    it = int(carry[IDX_IT][0])
-    eff = min(chunk_iters, 32, max(1, (32 * 16384) // n_pad))
-    while True:
-        prev_it = it
-        t_chunk = time.monotonic()
-        ph.lap("host")
-        carry = run_chunk(carry, consts, min(it + eff, max_iters))
-        # the device bracket's synchronize exists only while phase
-        # attribution is on; the status read below is the chunk's sync
-        ph.sync(carry)
-        dev_s = ph.lap("device", iteration=it)
-        if so.enabled():
-            # the heartbeat's explored and witness depths ride the same
-            # single read, at the same two launches (cast and cat)
-            got = torch.cat(
-                [carry[IDX_STATUS][:1].to(torch.int64), carry[IDX_TOP][:1],
-                 carry[IDX_IT][:1], carry[IDX_EXPLORED][:1],
-                 carry[IDX_BEST_DEPTH][0]]).tolist()
-            status, top, it, explored = got[:4]
-            depth = max(0, max(got[4:]))
-        else:
-            status, top, it = (int(x) for x in torch.stack(
-                [carry[IDX_STATUS][0].to(torch.int64), carry[IDX_TOP][0],
-                 carry[IDX_IT][0]]).tolist())
-            explored = depth = None
-        ph.lap("d2h")
-        so.heartbeat("jax-wgl", iteration=it,
-                     chunk_s=time.monotonic() - t_chunk,
-                     device_s=dev_s if ph.enabled else None,
-                     frontier=top, explored=explored, depth=depth)
-        if status != RUNNING or top == 0 or it >= max_iters:
-            break
-        now = time.monotonic()
-        per_it = max(1e-4, (now - t_chunk) / max(1, it - prev_it))
-        eff = _adapt_quantum(
-            chunk_iters, per_it, 3.0,
-            timeout_s - (now - t0) if timeout_s is not None else None)
-        if checkpoint is not None and \
-                now - last_ckpt >= checkpoint_every_s:
-            save_carry(checkpoint, fingerprint, carry)
-            last_ckpt = now
-        if (timeout_s is not None and now - t0 > timeout_s) or \
-                (cancel is not None and cancel.is_set()):
-            timed_out = True
-            if checkpoint is not None:
+    # the search's hold on its chunk graph on the card: released once
+    # the last carry is read
+    with chunk_graph.Lease() as lease:
+        fingerprint = None
+        if checkpoint is not None:
+            fingerprint = search_fingerprint(
+                spec, (inv32, ret32, fop, args, rets, ok_words, init_state),
+                (n_pad, B, S, C, W, O, T))
+            resumed = read_snapshot(checkpoint, fingerprint)
+            if resumed is not None:
+                carry = carry_from_numpy(
+                    [resumed[f"c{i}"] for i in range(N_CARRY)], dev)
+            elif not _checkpoint_owned(checkpoint, fingerprint):
+                # another check's live snapshot: never touch it
+                logger.warning("checkpoint %s belongs to a different check; "
+                               "checkpointing disabled for this run",
+                               checkpoint)
+                checkpoint = None
+        t0 = time.monotonic()
+        last_ckpt = t0
+        timed_out = False
+        # sinks captured ONCE at search start: a competition straggler must
+        # not write into a later run's artifacts
+        so = obs_search.capture()
+        so.plan("jax-wgl", n_pad, len(e), n_pad)
+        it = int(carry[IDX_IT][0])
+        eff = min(chunk_iters, 32, max(1, (32 * 16384) // n_pad))
+        while True:
+            prev_it = it
+            t_chunk = time.monotonic()
+            ph.lap("host")
+            carry = run_chunk(carry, consts, min(it + eff, max_iters),
+                              lease)
+            # the device bracket's synchronize exists only while phase
+            # attribution is on; the status read below is the chunk's sync.
+            # A chunk that captured a graph is the compile lap, as the
+            # reference's chunk that compiles its shape is
+            ph.sync(carry)
+            ph.note_compile(lease.take_captured())
+            dev_s = ph.lap("device", iteration=it)
+            if so.enabled():
+                # the heartbeat's explored and witness depths ride the same
+                # single read, at the same two launches (cast and cat)
+                got = torch.cat(
+                    [carry[IDX_STATUS][:1].to(torch.int64), carry[IDX_TOP][:1],
+                     carry[IDX_IT][:1], carry[IDX_EXPLORED][:1],
+                     carry[IDX_BEST_DEPTH][0]]).tolist()
+                status, top, it, explored = got[:4]
+                depth = max(0, max(got[4:]))
+            else:
+                status, top, it = (int(x) for x in torch.stack(
+                    [carry[IDX_STATUS][0].to(torch.int64), carry[IDX_TOP][0],
+                     carry[IDX_IT][0]]).tolist())
+                explored = depth = None
+            ph.lap("d2h")
+            so.heartbeat("jax-wgl", iteration=it,
+                         chunk_s=time.monotonic() - t_chunk,
+                         device_s=dev_s if ph.enabled else None,
+                         frontier=top, explored=explored, depth=depth)
+            if status != RUNNING or top == 0 or it >= max_iters:
+                break
+            now = time.monotonic()
+            per_it = max(1e-4, (now - t_chunk) / max(1, it - prev_it))
+            eff = _adapt_quantum(
+                chunk_iters, per_it, 3.0,
+                timeout_s - (now - t0) if timeout_s is not None else None)
+            if checkpoint is not None and \
+                    now - last_ckpt >= checkpoint_every_s:
                 save_carry(checkpoint, fingerprint, carry)
-            break
+                last_ckpt = now
+            if (timeout_s is not None and now - t0 > timeout_s) or \
+                    (cancel is not None and cancel.is_set()):
+                timed_out = True
+                if checkpoint is not None:
+                    save_carry(checkpoint, fingerprint, carry)
+                break
 
-    ph.lap("host")
-    out = {"status": carry[IDX_STATUS][0], "top": carry[IDX_TOP][0],
-           "dropped": carry[IDX_DROPPED][0],
-           "explored": carry[IDX_EXPLORED][0],
-           "iterations": carry[IDX_ITS][0],
-           "best_depth": carry[IDX_BEST_DEPTH][0],
-           "best_lin": carry[IDX_BEST_LIN][0],
-           "best_state": carry[IDX_BEST_STATE][0]}
-    out = {k: v.cpu().numpy() for k, v in out.items()}
-    out["best_lin"] = out["best_lin"].view(np.uint32)
-    tstats = table_stats(carry)
-    ph.lap("d2h")
-    if timed_out and int(out["status"]) == RUNNING and int(out["top"]) > 0:
-        result = {"valid": "unknown", "error": "timeout",
-                  "configs_explored": int(out["explored"]),
-                  "iterations": int(out["iterations"]),
-                  "engine": "jax-wgl", **tstats,
-                  **({"checkpoint": checkpoint} if checkpoint else {})}
+        ph.lap("host")
+        out = {"status": carry[IDX_STATUS][0], "top": carry[IDX_TOP][0],
+               "dropped": carry[IDX_DROPPED][0],
+               "explored": carry[IDX_EXPLORED][0],
+               "iterations": carry[IDX_ITS][0],
+               "best_depth": carry[IDX_BEST_DEPTH][0],
+               "best_lin": carry[IDX_BEST_LIN][0],
+               "best_state": carry[IDX_BEST_STATE][0]}
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        out["best_lin"] = out["best_lin"].view(np.uint32)
+        tstats = table_stats(carry)
+        ph.lap("d2h")
+        if timed_out and int(out["status"]) == RUNNING and int(out["top"]) > 0:
+            result = {"valid": "unknown", "error": "timeout",
+                      "configs_explored": int(out["explored"]),
+                      "iterations": int(out["iterations"]),
+                      "engine": "jax-wgl", **tstats,
+                      **({"checkpoint": checkpoint} if checkpoint else {})}
+            so.summary("jax-wgl", result)
+            ph.lap("host")
+            return result
+        result = _interpret(spec, e, out, max_iters, confirm, init_state,
+                            perm)
+        result.update(tstats)
         so.summary("jax-wgl", result)
         ph.lap("host")
+        # never clobber a snapshot that belongs to a different check
+        if checkpoint is not None and _checkpoint_owned(checkpoint,
+                                                        fingerprint):
+            if result.get("valid") in (True, False):
+                with contextlib.suppress(FileNotFoundError):
+                    os.unlink(checkpoint)   # decided: the snapshot is spent
+            else:
+                # undecided (budget/overflow): a rerun with a larger budget
+                # resumes instead of restarting
+                save_carry(checkpoint, fingerprint, carry)
+                result["checkpoint"] = checkpoint
         return result
-    result = _interpret(spec, e, out, max_iters, confirm, init_state,
-                        perm)
-    result.update(tstats)
-    so.summary("jax-wgl", result)
-    ph.lap("host")
-    # never clobber a snapshot that belongs to a different check
-    if checkpoint is not None and _checkpoint_owned(checkpoint,
-                                                    fingerprint):
-        if result.get("valid") in (True, False):
-            with contextlib.suppress(FileNotFoundError):
-                os.unlink(checkpoint)       # decided: the snapshot is spent
-        else:
-            # undecided (budget/overflow): a rerun with a larger budget
-            # resumes instead of restarting
-            save_carry(checkpoint, fingerprint, carry)
-            result["checkpoint"] = checkpoint
-    return result
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ Exit codes (cli.clj:129-139):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import re
 import sys
@@ -1082,15 +1083,16 @@ def campaign_cmd(opts):
                   "params": c["params"], "build": build}
                  for c in cells_plan]
         try:
-            report = campaign.run_cells(
-                cells, parallel=options.get("parallel", 1),
-                device_slots=options.get("device-slots", 1),
-                campaign_id=options.get("campaign-id"),
-                resume=bool(options.get("resume")),
-                ledger=not options.get("no-ledger"),
-                backends=options.get("backends") or None,
-                fleetlint=options.get("fleetlint") != "off",
-                capacity_plan=cap_plan)
+            with graph_cache_bound(cap_plan, options.get("device-slots", 1)):
+                report = campaign.run_cells(
+                    cells, parallel=options.get("parallel", 1),
+                    device_slots=options.get("device-slots", 1),
+                    campaign_id=options.get("campaign-id"),
+                    resume=bool(options.get("resume")),
+                    ledger=not options.get("no-ledger"),
+                    backends=options.get("backends") or None,
+                    fleetlint=options.get("fleetlint") != "off",
+                    capacity_plan=cap_plan)
         except campaign.CampaignError as e:
             raise CliError(str(e)) from e
         print(campaign.report.render_text(report))
@@ -1101,6 +1103,22 @@ def campaign_cmd(opts):
                          "run": run_campaign,
                          "help": "Run a sweep matrix as a parallel, "
                                  "resumable campaign."}}
+
+
+def graph_cache_bound(cap_plan, slots):
+    """While a campaign runs its cells in this process under a device
+    memory budget, the search graphs kept idle between searches
+    (``checker/chunk_graph.py``) get what ``slots`` searches of the
+    plan's peak cell footprint leave of the budget; without a budget, or
+    with unbounded slots, the cache keeps its own bound."""
+    from .checker import torch_wgl
+    hbm = (cap_plan or {}).get("hbm") or {}
+    budget, peak = hbm.get("budget_bytes"), hbm.get("per_cell_peak_bytes")
+    if not budget or not peak or not isinstance(slots, int) \
+            or isinstance(slots, bool):
+        return contextlib.nullcontext()
+    graphs = torch_wgl.chunk_graph
+    return graphs.bounded(graphs.budget_bound(budget, slots, peak))
 
 
 def serve_cmd():

@@ -14,8 +14,14 @@ order that alternates between turns. It prints the card's
 interval, the exit code, the wall, the interpreter's client ops/s (the
 completed client ops over their span of history time), the monitor's
 checks, its time to the first verdict and detection latency, the abort
-reason and the rollout kernel's launches. ``--device cpu`` rehearses it
-on the CPU (no card, no ``nvidia-smi``).
+reason, the rollout kernel's launches and the chunk graphs captured,
+taken from the cache and replayed (``graphs``). Last, on the card, one
+clean monitored run at the default interval under ``torch.profiler``
+(``profile_main.profile_call``): the host's launch calls (a graph launch
+counts as 1) per replayed iteration, the captured graphs' node counts,
+and the card's idle share over the monitor's search loop (its first
+kernel to its last). ``--device cpu`` rehearses it on the CPU (no card,
+no ``nvidia-smi``, no profiled run).
 """
 
 from __future__ import annotations
@@ -36,11 +42,13 @@ def run_once(argv):
     to standard error)."""
     from . import __main__ as demo_main
     from . import store
-    from .checker import checkers, rollout
+    from .checker import checkers, rollout, torch_wgl
+    from .profile_main import graphs_since
     base = store.base_dir
     tmp = tempfile.mkdtemp(prefix="jepsen-monitor-ab-")
     store.base_dir = tmp
     rollout.launches = 0
+    before = torch_wgl.chunk_graph.stats()
     t0 = time.monotonic()
     try:
         with contextlib.redirect_stdout(sys.stderr):
@@ -61,7 +69,8 @@ def run_once(argv):
     row = {"exit": code, "wall_s": wall, "valid": r.get("valid"),
            "client_ops_per_s": sum(o["type"] != "invoke" for o in ops)
            / span, "abort_reason": r.get("abort-reason"),
-           "rollout_launches": rollout.launches}
+           "rollout_launches": rollout.launches,
+           "graphs": graphs_since(before)}
     mon = r.get("monitor")
     if isinstance(mon, dict):
         row.update(checks=mon["checks"], chunks=mon["chunks"],
@@ -111,6 +120,19 @@ def main(argv=None):
                                       "interval_s": interval,
                                       **run_once(base + extra)}),
                           flush=True)
+        if args.device == "cuda":
+            from .profile_main import profile_call, split
+            row, wall, ev = profile_call(
+                lambda: run_once(base + cases["clean"]), host_ops=False)
+            st = split(ev, None)
+            print(json.dumps({"case": "clean-profiled", **row,
+                              "profiled_wall_s": wall, **{k: st[k] for k in (
+                                  "host_launches", "graph_launches",
+                                  "host_launches_per_replayed_iteration",
+                                  "kernel_launches", "search_loop_s",
+                                  "device_busy_s",
+                                  "device_idle_share_in_search_loop")}}),
+                  flush=True)
     finally:
         checkers.MONITOR_SWITCH_INTERVAL = default
     return 0

@@ -15,11 +15,15 @@ plan      bucket/size planning, search build
 h2d       host->device transfer of op columns and the initial carry
 compile   the first device dispatch after the rollout kernel's
           library was built or loaded in this process during this
-          search (its wall is nvcc's and the loader's, not stepping)
+          search (its wall is nvcc's and the loader's, not stepping),
+          and a dispatch that captured the search's CUDA graph
+          (``checker/chunk_graph.py``), as the reference's dispatch
+          that compiles its shape
 device    the device bracket proper: dispatch -> a synchronize of
-          the carry's device. The port's loop launches several hundred
-          small kernels from Python per iteration, so on the card this
-          is mostly host launch time, not the card's busy share
+          the carry's stream. On the card the chunk is graph replays,
+          one launch an iteration; the eager loop (the CPU, the mesh
+          search) launches several hundred small kernels from Python
+          per iteration
 d2h       the batched progress read + final harvest reads
 host      everything else on the host between dispatches: heartbeat
           bookkeeping, quantum adaptation, expansion/dedup of
@@ -124,8 +128,9 @@ class PhaseSession:
     def note_compile(self, miss):
         """Arm the compile phase: the NEXT device lap is attributed to
         ``compile`` instead (the search's kernel library was not yet
-        loaded in this process, so that dispatch's wall is the build's
-        and the loader's, not the kernel's). Hits arm nothing."""
+        loaded in this process, or the dispatch captured the search's
+        graph, so that dispatch's wall is the build's, the loader's or
+        the capture's, not stepping). Hits arm nothing."""
         if miss:
             self._compile_pending = True
 
@@ -160,11 +165,14 @@ class PhaseSession:
         return dt
 
     def sync(self, *tensors):
-        """Synchronize the CUDA devices the given tensors (or tuples of
-        tensors, such as a search carry) live on -- but ONLY when the
-        session is enabled: with phases off the dispatch loop keeps its
-        original async shape (the status read remains the only sync)
-        and pays nothing. CPU tensors need no synchronize."""
+        """Synchronize the current stream of each CUDA device the given
+        tensors (or tuples of tensors, such as a search carry) live on,
+        where the search's work runs -- but ONLY when the session is
+        enabled: with phases off the dispatch loop keeps its original
+        async shape (the status read remains the only sync) and pays
+        nothing. CPU tensors need no synchronize. A stream, not the
+        device: a device-wide synchronize fails while another thread
+        captures a search graph."""
         if not self.enabled:
             return
         devices = set()
@@ -178,4 +186,4 @@ class PhaseSession:
         if devices:
             import torch
             for d in devices:
-                torch.cuda.synchronize(d)
+                torch.cuda.current_stream(d).synchronize()

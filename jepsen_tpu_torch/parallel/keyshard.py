@@ -65,6 +65,7 @@ from ..checker.torch_wgl import (IDX_BEST_DEPTH, IDX_BEST_LIN,
                                  _build_search, _checkpoint_owned,
                                  _encode_arrays, _fast_result, _interpret,
                                  _n_floor, _note_compile, _plan_sizes,
+                                 chunk_graph,
                                  _priority_order,
                                  _state_abstraction_check, carry_from_numpy,
                                  carry_to_numpy, compact, make_batch_consts,
@@ -483,132 +484,141 @@ def check_batch_encoded(spec, pairs, max_configs=50_000_000,
         _save_batch_checkpoint(checkpoint, fingerprint, carry, alive, it,
                                harvested)
 
-    while True:
-        bound = min(it + eff_chunk, max_iters)
-        t_chunk = time.monotonic()
-        prev_it = it
-        ph.lap("host")
-        carry = run_chunk(carry, local(consts), bound)
-        # the device bracket's synchronize exists only while phase
-        # attribution is on; the status read below is the chunk's sync
-        ph.sync(carry)
-        dev_s = ph.lap("device", iteration=bound)
-        it = bound
-        # one host round trip for the whole progress state; bound, the
-        # heartbeat's per-row explored and witness depths ride it at the
-        # same two launches (cast and cat)
-        Kc = len(alive)
-        if group is not None:
-            # one all_gather of every rank's rows; rank 0's clock rides
-            # along and decides for every rank
-            now = time.monotonic()
-            row = torch.cat([carry[IDX_STATUS].to(torch.int64),
-                             carry[IDX_TOP], carry[IDX_ITS],
-                             carry[IDX_EXPLORED],
-                             carry[IDX_BEST_DEPTH].amax(dim=1),
-                             torch.as_tensor(clock(now), dtype=torch.int64,
-                                             device=dev)])
-            got = gather_rows(group, row).cpu().numpy().reshape(G, -1)
-            status, top, its, explored_k, bdepth = (
-                got[:, :-3].reshape(G, 5, -1).transpose(1, 0, 2)
-                .reshape(5, Kc))
-            eff_chunk, want_ckpt, want_stop = (int(x) for x in got[0, -3:])
-        elif so.enabled():
-            got = torch.cat(
-                [carry[IDX_STATUS].to(torch.int64), carry[IDX_TOP],
-                 carry[IDX_ITS], carry[IDX_EXPLORED],
-                 carry[IDX_BEST_DEPTH].reshape(-1)]).cpu().numpy()
-            status, top, its, explored_k = got[:4 * Kc].reshape(4, Kc)
-            bdepth = got[4 * Kc:]
-        else:
-            status, top, its = torch.stack(
-                [carry[IDX_STATUS].to(torch.int64), carry[IDX_TOP],
-                 carry[IDX_ITS]]).cpu().numpy()
-        ph.lap("d2h")
-        if group is None:
-            now = time.monotonic()
-            eff_chunk, want_ckpt, want_stop = clock(now)
-        running = (status == RUNNING) & (top > 0) & (its < max_iters)
-        n_run = int(running.sum())
-        if so.enabled():
-            # explored sums the LIVE rows only (compaction pads with a
-            # copy of a finished row) plus what harvested keys
-            # contributed before their rows were compacted away, so the
-            # gauge stays monotone across compactions
-            so.heartbeat(
-                "jax-wgl-batch", iteration=it,
-                chunk_s=time.monotonic() - t_chunk,
-                device_s=dev_s if ph.enabled else None,
-                frontier=int(top.sum()),
-                explored=sum(int(explored_k[r]) for r in range(Kc)
-                             if alive[r] >= 0)
-                + sum(int(hv["explored"]) for hv in harvested.values()),
-                depth=max(0, int(bdepth.max())),
-                keys_alive=Kc, keys_running=n_run,
-                compactions=n_compactions)
-        if n_run == 0:
-            harvest(range(len(alive)), carry)
-            break
-        if want_ckpt:
-            save(carry)
-            last_ckpt = now
-        if want_stop:
-            # the not-all-decided save below writes the snapshot
-            timed_out = True
-            harvest(range(len(alive)), carry)
-            break
-        # Compact the batch once most keys are done: stragglers would
-        # otherwise drag every finished key's lanes through many more
-        # lockstep iterations. As the batch shrinks, widen the per-key
-        # frontier -- carries are W-independent, so the wider search
-        # picks up the stragglers' stacks and the dedup table as-is.
-        if len(alive) > Gs and n_run <= len(alive) // 2:
-            n_compactions += 1
-            done_rows = [r for r in range(len(alive)) if not running[r]]
-            harvest(done_rows, carry)
-            keep = [r for r in range(len(alive)) if running[r]]
-            newK = _bucket(n_run, 1)
-            while newK % Gs:           # a whole block of keys per rank
-                newK += 1
-            idx = keep + [done_rows[0]] * (newK - n_run)
-            sel = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+    # the search's hold on its chunk graph on the card (one per width:
+    # a compacted carry moves to a graph of its own width); released
+    # once the last carry is read
+    lease = chunk_graph.Lease()
+    try:
+        while True:
+            bound = min(it + eff_chunk, max_iters)
+            t_chunk = time.monotonic()
+            prev_it = it
+            ph.lap("host")
+            carry = run_chunk(carry, local(consts), bound, lease)
+            # the device bracket's synchronize exists only while phase
+            # attribution is on; the status read below is the chunk's
+            # sync. A chunk that captured a graph is the compile lap
+            ph.sync(carry)
+            ph.note_compile(lease.take_captured())
+            dev_s = ph.lap("device", iteration=bound)
+            it = bound
+            # one host round trip for the whole progress state; bound, the
+            # heartbeat's per-row explored and witness depths ride it at the
+            # same two launches (cast and cat)
+            Kc = len(alive)
+            if group is not None:
+                # one all_gather of every rank's rows; rank 0's clock rides
+                # along and decides for every rank
+                now = time.monotonic()
+                row = torch.cat([carry[IDX_STATUS].to(torch.int64),
+                                 carry[IDX_TOP], carry[IDX_ITS],
+                                 carry[IDX_EXPLORED],
+                                 carry[IDX_BEST_DEPTH].amax(dim=1),
+                                 torch.as_tensor(clock(now), dtype=torch.int64,
+                                                 device=dev)])
+                got = gather_rows(group, row).cpu().numpy().reshape(G, -1)
+                status, top, its, explored_k, bdepth = (
+                    got[:, :-3].reshape(G, 5, -1).transpose(1, 0, 2)
+                    .reshape(5, Kc))
+                eff_chunk, want_ckpt, want_stop = (int(x) for x in got[0, -3:])
+            elif so.enabled():
+                got = torch.cat(
+                    [carry[IDX_STATUS].to(torch.int64), carry[IDX_TOP],
+                     carry[IDX_ITS], carry[IDX_EXPLORED],
+                     carry[IDX_BEST_DEPTH].reshape(-1)]).cpu().numpy()
+                status, top, its, explored_k = got[:4 * Kc].reshape(4, Kc)
+                bdepth = got[4 * Kc:]
+            else:
+                status, top, its = torch.stack(
+                    [carry[IDX_STATUS].to(torch.int64), carry[IDX_TOP],
+                     carry[IDX_ITS]]).cpu().numpy()
+            ph.lap("d2h")
             if group is None:
-                carry, consts = compact(carry, consts, sel)
-            else:
-                # the keyed rows reshard; a moved key misses its old
-                # rank's dedup entries (key-salted: a cost, never a
-                # wrong answer), as under the reference's mesh
-                full, consts = compact(_gather_carry(group, carry), consts,
-                                       sel)
-                carry = _carry_block(full, *block_rows(newK, G, rank))
-            alive = [alive[r] for r in keep] + [-1] * (newK - n_run)
-            _, _, run_chunk = build_search(newK, wide_W(newK))
+                now = time.monotonic()
+                eff_chunk, want_ckpt, want_stop = clock(now)
+            running = (status == RUNNING) & (top > 0) & (its < max_iters)
+            n_run = int(running.sum())
+            if so.enabled():
+                # explored sums the LIVE rows only (compaction pads with a
+                # copy of a finished row) plus what harvested keys
+                # contributed before their rows were compacted away, so the
+                # gauge stays monotone across compactions
+                so.heartbeat(
+                    "jax-wgl-batch", iteration=it,
+                    chunk_s=time.monotonic() - t_chunk,
+                    device_s=dev_s if ph.enabled else None,
+                    frontier=int(top.sum()),
+                    explored=sum(int(explored_k[r]) for r in range(Kc)
+                                 if alive[r] >= 0)
+                    + sum(int(hv["explored"]) for hv in harvested.values()),
+                    depth=max(0, int(bdepth.max())),
+                    keys_alive=Kc, keys_running=n_run,
+                    compactions=n_compactions)
+            if n_run == 0:
+                harvest(range(len(alive)), carry)
+                break
+            if want_ckpt:
+                save(carry)
+                last_ckpt = now
+            if want_stop:
+                # the not-all-decided save below writes the snapshot
+                timed_out = True
+                harvest(range(len(alive)), carry)
+                break
+            # Compact the batch once most keys are done: stragglers would
+            # otherwise drag every finished key's lanes through many more
+            # lockstep iterations. As the batch shrinks, widen the per-key
+            # frontier -- carries are W-independent, so the wider search
+            # picks up the stragglers' stacks and the dedup table as-is.
+            if len(alive) > Gs and n_run <= len(alive) // 2:
+                n_compactions += 1
+                done_rows = [r for r in range(len(alive)) if not running[r]]
+                harvest(done_rows, carry)
+                keep = [r for r in range(len(alive)) if running[r]]
+                newK = _bucket(n_run, 1)
+                while newK % Gs:           # a whole block of keys per rank
+                    newK += 1
+                idx = keep + [done_rows[0]] * (newK - n_run)
+                sel = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+                if group is None:
+                    carry, consts = compact(carry, consts, sel)
+                else:
+                    # the keyed rows reshard; a moved key misses its old
+                    # rank's dedup entries (key-salted: a cost, never a
+                    # wrong answer), as under the reference's mesh
+                    full, consts = compact(_gather_carry(group, carry), consts,
+                                           sel)
+                    carry = _carry_block(full, *block_rows(newK, G, rank))
+                alive = [alive[r] for r in keep] + [-1] * (newK - n_run)
+                _, _, run_chunk = build_search(newK, wide_W(newK))
 
-    # never clobber a snapshot that belongs to a different check (under a
-    # mesh only rank 0 reads the file: the gather is every rank's)
-    if checkpoint is not None:
-        all_decided = (not timed_out and len(harvested) == len(live)
-                       and all(int(h["status"]) != RUNNING
-                               or int(h["top"]) == 0
-                               for h in harvested.values()))
-        if group is not None and not all_decided:
-            carry_all = _gather_carry(group, carry, groups=True)
-        if lead and _checkpoint_owned(checkpoint, fingerprint):
-            if all_decided:
-                with contextlib.suppress(FileNotFoundError):
-                    os.unlink(checkpoint)
-            else:
-                _save_batch_checkpoint(
-                    checkpoint, fingerprint,
-                    carry if group is None else carry_all, alive, it,
-                    harvested)
+        # never clobber a snapshot that belongs to a different check (under a
+        # mesh only rank 0 reads the file: the gather is every rank's)
+        if checkpoint is not None:
+            all_decided = (not timed_out and len(harvested) == len(live)
+                           and all(int(h["status"]) != RUNNING
+                                   or int(h["top"]) == 0
+                                   for h in harvested.values()))
+            if group is not None and not all_decided:
+                carry_all = _gather_carry(group, carry, groups=True)
+            if lead and _checkpoint_owned(checkpoint, fingerprint):
+                if all_decided:
+                    with contextlib.suppress(FileNotFoundError):
+                        os.unlink(checkpoint)
+                else:
+                    _save_batch_checkpoint(
+                        checkpoint, fingerprint,
+                        carry if group is None else carry_all, alive, it,
+                        harvested)
 
-    # the dedup table is shared across keys (key-salted), so occupancy
-    # diagnostics are batch-wide: the same numbers go on every searched
-    # key's result (summed over the ranks' table groups under a mesh)
-    ph.lap("host")
-    tstats = table_stats(carry) if group is None \
-        else mesh_table_stats(group, carry)
+        # the dedup table is shared across keys (key-salted), so occupancy
+        # diagnostics are batch-wide: the same numbers go on every searched
+        # key's result (summed over the ranks' table groups under a mesh)
+        ph.lap("host")
+        tstats = table_stats(carry) if group is None \
+            else mesh_table_stats(group, carry)
+    finally:
+        lease.release()
     ph.lap("d2h")
     for j, k in enumerate(live):
         per = harvested[j]

@@ -10,7 +10,14 @@ search (encode, prepare), the search loop and host time after it
 (witness decode and replay); kernel launches per iteration; device busy
 time (the sum of kernel times: the search runs on one stream) and the
 device's idle share; the rollout kernel's share; and the kernels that
-take the most device time. ``--trace-dir DIR`` also writes the Chrome
+take the most device time. On the card a search's chunks are replays
+of a captured CUDA graph (``checker/chunk_graph.py``), so each row also
+counts the host's launch calls from the profiler's runtime events
+(``host_launches``: a kernel launch, or a graph launch counted as 1,
+per iteration over the whole check and per replayed iteration between
+the first and the last graph launch) beside the node count of each
+graph captured, and the graphs captured, taken from the cache and
+replayed (``graphs``). ``--trace-dir DIR`` also writes the Chrome
 trace of each profiled check there (default: ``build/profile``).
 
 ``--batch`` profiles the key batch of ``chip_smoke.py`` instead: the JAX
@@ -38,7 +45,8 @@ the search's first chunks only: a second run stopped at the first chunk
 boundary past ``RUNG0_WINDOW_S`` (its chunks and verdict printed; all of
 the search when it ends sooner), for launches per iteration, the
 device's idle share in the search loop and the rollout kernel's share
-of busy time. Its trace is not written either. An
+of busy time (the first search captured the shape's graph, so this one
+replays it from the cache). Its trace is not written either. An
 undecided verdict at the timeout is a finding, not a failure.
 """
 
@@ -62,6 +70,23 @@ RUNG0 = {"seed": 157_000, "processes": 64, "n_ops": 80_000,
 RUNG0_WINDOW_S = 3.0
 #: the key batch's default width (``profile_kernel.py --keys``)
 BATCH_KEYS = 256
+#: the runtime calls that put work on the card: a kernel launch, or a
+#: graph launch (1 whatever the graph's node count)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+#: appended by ``profile_call`` to a kernel launch call that ran no
+#: kernel: a call recorded into a CUDA graph during its capture
+CAPTURED = " (captured)"
+#: kernels ``profile_call`` launches on the card before ``fn``, left out
+#: of its events. On the H100 a profiling session in a process that has
+#: run for minutes can lose the records of its first four kernels (their
+#: launch calls recorded, the kernels not; ``chip_smoke.py``'s obs
+#: phase prints the count as ``primer_records_lost``): these take that
+#: loss in place of ``fn``'s first kernels
+PRIMERS = 16
+#: primer kernels launched and primer kernel records lost, over every
+#: ``profile_call`` of the process (set them to 0 to start a count)
+primers_launched = primer_records_lost = 0
 
 
 def split(events, iterations):
@@ -89,7 +114,47 @@ def split(events, iterations):
             **kernel_stats(events, span / 1e6),
             "device_idle_share_in_search_loop": 1 - busy / (last - first),
             "rollout_kernel_s": roll / 1e6,
-            "rollout_share_of_busy": roll / busy}
+            "rollout_share_of_busy": roll / busy,
+            **host_launches(events, iterations)}
+
+
+def host_launches(events, iterations):
+    """The host's launch calls (``LAUNCH_CALLS``, from events shaped as
+    ``split``'s; the calls a capture recorded, marked ``CAPTURED``,
+    counted apart): in all and per iteration, the graph launches among
+    them, and per replayed iteration the mean of the calls from one
+    graph launch to the next, over the intervals that hold no capture (a
+    capture's interval also holds its shape's eager first iteration);
+    None with fewer than two graph launches."""
+    calls = sorted((e for e in events if not e[3] and e[2] in LAUNCH_CALLS),
+                   key=lambda e: e[0])
+    captured = sorted(e[0] for e in events
+                      if not e[3] and e[2].endswith(CAPTURED))
+    graphs = [e[0] for e in calls if e[2] == "cudaGraphLaunch"]
+    per_replay = None
+    spans = [(lo, hi) for lo, hi in zip(graphs, graphs[1:])
+             if not any(lo <= t < hi for t in captured)]
+    if spans:
+        per_replay = sum(sum(1 for e in calls if lo <= e[0] < hi)
+                         for lo, hi in spans) / len(spans)
+    return {"host_launches": len(calls),
+            "host_launches_per_iteration": len(calls) / (iterations or 1),
+            "graph_launches": len(graphs),
+            "captured_launch_calls": len(captured),
+            "host_launches_per_replayed_iteration": per_replay}
+
+
+def graphs_since(before):
+    """The chunk graphs' counters since ``before`` (a
+    ``torch_wgl.chunk_graph.stats()``): captures, cache hits, replays,
+    evictions, and each new capture's node count."""
+    from .checker import torch_wgl
+    now = torch_wgl.chunk_graph.stats()
+    new = now["captures"] - before["captures"]
+    return {**{k: now[k] - before[k]
+               for k in ("captures", "hits", "replays", "evictions")},
+            "node_counts": now["node_counts"][-new:] if new else [],
+            "cached": now["cached"], "cached_bytes": now["cached_bytes"]}
 
 
 def kernel_stats(events, wall_s, top=10):
@@ -115,13 +180,14 @@ def profile_case(model, crash_p, out_dir):
     from torch.profiler import ProfilerActivity, profile
 
     from . import simulate
-    from .checker import checkers, rollout
+    from .checker import checkers, rollout, torch_wgl
     hist = simulate.random_history(random.Random(45100), model, 64, 10_000,
                                    crash_p)
     chk = checkers.linearizable({"model": model, "algorithm": "jax-wgl"})
     chk.check({}, hist)                              # warm-up
     torch.cuda.synchronize()
     rollout.launches = 0
+    before = torch_wgl.chunk_graph.stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -138,6 +204,7 @@ def profile_case(model, crash_p, out_dir):
     return {"model": model, "valid": r["valid"],
             "configs_explored": r.get("configs_explored"),
             "rollout_launches": rollout.launches, "wall_s": wall,
+            "graphs": graphs_since(before),
             **split(ev, r.get("iterations"))}
 
 
@@ -154,23 +221,56 @@ def profile_call(fn, host_ops=True):
     call of hundreds of thousands of launches then leaves the profiler
     fewer events to gather when it stops (without a card, where the
     profiler has no device activity, host events are recorded all the
-    same)."""
+    same). A kernel launch call that ran no kernel, one a graph capture
+    recorded, gets ``CAPTURED`` appended to its name. On the card the
+    window opens with ``PRIMERS`` kernels of its own (``torch.cuda._sleep``),
+    whose launch calls and kernels are left out of the events."""
+    global primers_launched, primer_records_lost
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.cuda.is_available()
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
-    if host_ops or not torch.cuda.is_available():
+    if host_ops or not cuda:
         activities.append(ProfilerActivity.CPU)
     with profile(activities=activities) as prof:
+        if cuda:
+            for _ in range(PRIMERS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
         t0 = time.monotonic()
         out = fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    ev = [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name(),
-           e.device_type() == DeviceType.CUDA
-           and not e.name().startswith(("Memcpy", "Memset")))
-          for e in prof.profiler.kineto_results.events()]
+    raw = list(prof.profiler.kineto_results.events())
+    if cuda:
+        # the primers are the window's first launch calls (nothing else
+        # launches work while ``fn`` is profiled)
+        calls = sorted((e for e in raw if e.device_type() != DeviceType.CUDA
+                        and e.name() in LAUNCH_CALLS),
+                       key=lambda e: e.start_ns())
+        primer = {e.correlation_id() for e in calls[:PRIMERS]}
+        kept = sum(e.device_type() == DeviceType.CUDA
+                   and e.correlation_id() in primer for e in raw)
+        primers_launched += PRIMERS
+        primer_records_lost += PRIMERS - kept
+        raw = [e for e in raw if e.correlation_id() not in primer
+               and "spin_kernel" not in e.name()]
+    # a kernel launch call whose correlation id no device event carries
+    # ran nothing: a capture recorded it into a graph
+    ran = {e.correlation_id() for e in raw
+           if e.device_type() == DeviceType.CUDA}
+    ev = []
+    for e in raw:
+        name = e.name()
+        if (e.device_type() != DeviceType.CUDA and name in LAUNCH_CALLS
+                and name != "cudaGraphLaunch" and ran - {0}
+                and e.correlation_id() not in ran):
+            name += CAPTURED
+        ev.append((e.start_ns() / 1e3, e.end_ns() / 1e3, name,
+                   e.device_type() == DeviceType.CUDA
+                   and not name.startswith(("Memcpy", "Memset"))))
     return out, wall, ev
 
 
@@ -180,11 +280,13 @@ def profile_batch(spec, pairs):
     (first to last kernel) and the top kernels, plus the batch's
     compactions and verdict counts (``profile_call``)."""
     from . import parallel
+    from .checker import torch_wgl
+    before = torch_wgl.chunk_graph.stats()
     res, wall, ev = profile_call(
         lambda: parallel.check_batch_encoded(spec, pairs))
     out = split(ev, max((r.get("iterations") or 0) for r in res))
     del out["host_before_first_kernel_s"], out["host_after_last_kernel_s"]
-    return {"keys": len(pairs),
+    return {"keys": len(pairs), "graphs": graphs_since(before),
             "history_ops": sum(len(e) for e, _ in pairs),
             "compactions": max((r.get("compactions") or 0) for r in res),
             "invalid_keys": sum(r["valid"] is False for r in res),
@@ -260,6 +362,7 @@ def profile_rung0(n_ops=RUNG0["n_ops"], timeout_s=RUNG0["timeout_s"],
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
     rollout.launches = 0
+    before = torch_wgl.chunk_graph.stats()
     test = {}
     with obs.run_scope(test):
         t0 = time.monotonic()
@@ -269,6 +372,7 @@ def profile_rung0(n_ops=RUNG0["n_ops"], timeout_s=RUNG0["timeout_s"],
         wall = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base if cuda else None
     launches = rollout.launches
+    graphs = graphs_since(before)
     its = r.get("iterations") or 0
     row = {"rung": 0, "model": "cas-register",
            "n_ops": sum(1 for o in hist if o["type"] == "invoke"),
@@ -282,7 +386,9 @@ def profile_rung0(n_ops=RUNG0["n_ops"], timeout_s=RUNG0["timeout_s"],
            "rollout_launches": launches,
            "rollout_launches_per_iteration": launches / its if its else None,
            "peak_bytes": peak, "predicted_bytes": predicted,
-           "peak_over_predicted": peak / predicted if cuda else None}
+           "peak_over_predicted": peak / predicted if cuda else None,
+           "graphs": graphs}
+    before = torch_wgl.chunk_graph.stats()
     res, pwall, ev = profile_call(
         lambda: torch_wgl.check_encoded(spec, e, st, timeout_s=window_s,
                                         chunk_iters=chunk, device=dev),
@@ -293,7 +399,8 @@ def profile_rung0(n_ops=RUNG0["n_ops"], timeout_s=RUNG0["timeout_s"],
         window["host_after_last_kernel_s"]
     row["profiled_window"] = {"timeout_s": window_s, "wall_s": pwall,
                               "chunks": -(-pits // chunk),
-                              "valid": res["valid"], **window}
+                              "valid": res["valid"],
+                              "graphs": graphs_since(before), **window}
     return row
 
 

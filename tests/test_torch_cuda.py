@@ -20,9 +20,14 @@ streaming monitor chunk by chunk, gives the same summary on the card as
 on the CPU, valid and with one read falsified; and the command line's
 monitored register run, exit 0 with the kernel launched; and a
 two-cell campaign of monitored register runs behind one device slot,
-with the trend rung's key batch. Every
+with the trend rung's key batch; and the search chunk as replays of a
+captured CUDA graph against the eager loop (carries equal at every
+chunk boundary, results and rollout launches equal, single key and key
+batch), two threads holding graphs of their own, and a capture that
+fails raising. Every
 test is marked ``cuda`` and skips without a card (the kernels
-have no CPU mode). This file imports neither JAX nor the JAX
+have no CPU mode, and a CUDA graph is captured and replayed only on a
+card). This file imports neither JAX nor the JAX
 package, so it runs where they are absent too:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -37,8 +42,8 @@ import pytest
 import torch
 
 from jepsen_tpu_torch import models, parallel, simulate
-from jepsen_tpu_torch.checker import (checkers, rollout, rollout_cases,
-                                      torch_wgl)
+from jepsen_tpu_torch.checker import (checkers, chunk_graph, rollout,
+                                      rollout_cases, torch_wgl)
 from jepsen_tpu_torch.history import NIL
 
 pytestmark = pytest.mark.cuda
@@ -371,17 +376,19 @@ def test_obs_bound_search_launches_what_the_unbound_one_does(dev, name,
                                                              monkeypatch):
     """The main-path histories (10k ops, 64 processes) unbound, bound,
     and bound with ``phases?`` off: the same verdict, iterations and
-    rollout kernel launches; the phase plane synchronizes the card once
-    per chunk plus once for the initial carry, and only with phases on."""
+    rollout kernel launches; the phase plane synchronizes the search's
+    stream once per chunk plus once for the initial carry, and only with
+    phases on."""
     from jepsen_tpu_torch import obs
     hist = simulate.random_history(random.Random(45100), name, 64, 10_000,
                                    crash_p)
     spec = models.model_spec(name)
     e, st = spec.encode(hist)
     synced = []
-    real = torch.cuda.synchronize
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda d=None: (synced.append(d), real(d)))
+    real = torch.cuda.Stream.synchronize
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize",
+                        lambda self: (synced.append(self.device),
+                                      real(self)))
     got = {}
     for mode, test in (("unbound", None), ("bound", {}),
                        ("phases_off", {"phases?": False})):
@@ -405,22 +412,31 @@ def test_obs_bound_search_launches_what_the_unbound_one_does(dev, name,
 
 def test_obs_bound_batch_launches_what_the_unbound_one_does(dev):
     """One iteration of a 16-key batch under the profiler: as many
-    kernels bound with ``phases?`` off as unbound."""
+    kernels bound with ``phases?`` off as unbound in the eager loop, and
+    as many host launch calls on the graph path (where a replay's kernels
+    are its graph's nodes)."""
     from jepsen_tpu_torch import obs
-    from jepsen_tpu_torch.profile_main import profile_call
+    from jepsen_tpu_torch.profile_main import host_launches, profile_call
     spec = models.cas_register_spec
     pairs = [spec.encode(hh) for hh in simulate.bench_histories(16)[0]]
     parallel.check_batch_encoded(spec, pairs, max_configs=1)     # warm-up
 
-    def kernels():
-        _, _, ev = profile_call(lambda: parallel.check_batch_encoded(
-            spec, pairs, max_configs=1), host_ops=False)
-        return sum(x[3] for x in ev)
+    def run():
+        return parallel.check_batch_encoded(spec, pairs, max_configs=1)
 
-    unbound = kernels()
+    def launches():
+        run()                           # each profiled run follows one
+        _, _, ev = profile_call(run, host_ops=False)
+        with torch_wgl.eager_chunks():
+            run()
+            _, _, eager = profile_call(run, host_ops=False)
+        return (sum(x[3] for x in eager),
+                host_launches(ev, 1)["host_launches"])
+
+    unbound = launches()
     with obs.run_scope({"phases?": False}):
-        bound = kernels()
-    assert unbound > 0 and bound == unbound
+        bound = launches()
+    assert unbound[0] > 0 and bound == unbound
 
 
 def test_obs_compile_phase_armed_only_before_the_library_loads(
@@ -694,3 +710,117 @@ def test_campaign_and_trend_on_card(dev, tmp_path, monkeypatch):
     rollout.launches = 0
     r = trend.mini_bench(n_keys=2, n_ops=40, repeats=2)["mini-cas-batch"]
     assert r["metrics"]["ops_per_s"] > 0 and rollout.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the search chunk as graph replays
+
+@pytest.fixture
+def graph_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph is captured and "
+                    "replayed only on a card (tests/test_torch_chunk_graph"
+                    ".py drives the graph path with a stub on the CPU)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name", SPECS)
+def test_graph_chunks_equal_eager_chunks(graph_dev, name):
+    """One search's chunks in the eager loop and as graph replays, in
+    lockstep: every carry array equal at every chunk boundary, and the
+    rollout kernel's launches equal (a replay adds the capture's)."""
+    spec = models.model_spec(name)
+    hist = simulate.random_history(random.Random(5), name, 16, 2_000,
+                                   0.05)
+    e, st = spec.encode(hist)
+    kind, prep = torch_wgl._prepare_search(spec, e, st)
+    assert kind == "search"
+    (_, inv, ret, fop, args, rets, okw, st0, n_pad, C, A, S) = prep
+    B, W, O, T = torch_wgl._plan_sizes(n_pad, S, C)
+    init, _, run = torch_wgl._build_search(spec.step, 1, n_pad, B, S, C, A,
+                                           W, O, T, R=64, NS=2,
+                                           device="cuda")
+    consts = torch_wgl.make_consts(inv, ret, fop, args, rets, okw,
+                                   graph_dev)
+    eager, graph = init(st0[None]), init(st0[None])
+    launches = {}
+    with chunk_graph.Lease() as lease:
+        for bound in (1, 2, 3, 5, 8, 13, 21, 34, 55, 89, 144):
+            rollout.launches = 0
+            with torch_wgl.eager_chunks():
+                eager = run(eager, consts, bound)
+            launches["eager"] = launches.get("eager", 0) + rollout.launches
+            rollout.launches = 0
+            graph = run(graph, consts, bound, lease)
+            launches["graph"] = launches.get("graph", 0) + rollout.launches
+            for i, (a, b) in enumerate(zip(torch_wgl.carry_to_numpy(eager),
+                                           torch_wgl.carry_to_numpy(graph))):
+                assert np.array_equal(a, b), (bound, i)
+            status = int(eager[torch_wgl.IDX_STATUS][0])
+            if status != torch_wgl.RUNNING or \
+                    int(eager[torch_wgl.IDX_TOP][0]) == 0:
+                break
+        assert lease.entry is not None, "no graph was captured"
+    assert launches["graph"] == launches["eager"] > 0
+
+
+def test_graph_batch_equals_eager_batch(graph_dev):
+    spec = models.cas_register_spec
+    pairs = [spec.encode(hh) for hh in simulate.bench_histories(16)[0]]
+    with torch_wgl.eager_chunks():
+        want = parallel.check_batch_encoded(spec, pairs, chunk_iters=1)
+    before = chunk_graph.stats()
+    got = parallel.check_batch_encoded(spec, pairs, chunk_iters=1)
+    after = chunk_graph.stats()
+    assert got == want
+    assert after["replays"] > before["replays"]
+
+
+def test_graph_two_threads_hold_their_own_graphs(graph_dev):
+    """Two searches of one shape at once: each captures or takes a graph
+    of its own, and both decide as one search alone does."""
+    import threading
+    spec = models.cas_register_spec
+    hist = simulate.random_history(random.Random(45100), "cas-register",
+                                   64, 10_000, 0.05)
+    e, st = spec.encode(hist)
+    want = torch_wgl.check_encoded(spec, e, st)
+    got, errors = {}, []
+    barrier = threading.Barrier(2)
+
+    def search(i):
+        try:
+            barrier.wait()
+            got[i] = torch_wgl.check_encoded(spec, e, st)
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    before = chunk_graph.stats()
+    threads = [threading.Thread(target=search, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert got[0] == want and got[1] == want
+    after = chunk_graph.stats()
+    assert (after["captures"] - before["captures"]
+            + after["hits"] - before["hits"]) == 2
+
+
+def test_graph_capture_that_fails_raises(graph_dev):
+    """A step that reads back to the host cannot be captured: the capture
+    raises, nothing falls back, and the cache takes nothing."""
+    carry = (torch.zeros(4, dtype=torch.int64, device=graph_dev),)
+
+    def body(c, consts):
+        return (c[0] + int(c[0].sum()),)
+
+    before = chunk_graph.stats()
+    with pytest.raises(Exception):
+        chunk_graph.Entry("fails", body, lambda c: c[0][:1] < 3, carry, (),
+                          graph_dev)
+    after = chunk_graph.stats()
+    assert after["captures"] == before["captures"]
+    assert after["cached"] == before["cached"]
+    torch.cuda.synchronize()

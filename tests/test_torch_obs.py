@@ -509,11 +509,23 @@ class _FakeCuda:
         self.device = torch.device("cuda", index)
 
 
+class _FakeStream:
+    """Stands for a device's current stream: ``synchronize`` records the
+    device (the session synchronizes the search's stream, not the whole
+    device, which would fail beside another thread's graph capture)."""
+
+    def __init__(self, device, synced):
+        self.device, self.synced = device, synced
+
+    def synchronize(self):
+        self.synced.append(self.device)
+
+
 def test_phase_sync_synchronizes_only_cuda_devices_while_enabled(
         monkeypatch):
     synced = []
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda d=None: synced.append(d))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: _FakeStream(d, synced))
     carry = (torch.zeros(2), (_FakeCuda(0), _FakeCuda(0)), None)
     ph = obs_phases.capture("unit")           # unbound: a no-op
     ph.sync(carry, _FakeCuda(1))
