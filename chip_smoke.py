@@ -8,7 +8,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
 1. ``env``: the card (``nvidia-smi`` name and power limit, also printed
    raw on a line of its own), torch and CUDA versions, and the time to
    build every kernel from ``jepsen_tpu_torch/checker/csrc``.
-2. ``kernels``: each kernel against its plain PyTorch version on the
+2. ``kernels``: the rollout kernel against its plain PyTorch version on the
    card, on the ops of real encoded histories and seeds from their
    search (the main-path shapes of ``rollout_cases.MAIN_SHAPES``), then
    on the adversarial cases of
@@ -161,7 +161,8 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    certified (the cross-check confirms, no VC error); again with
    ``skip-offline?`` (``monitor-only``). (c) The "streamlin" engine at
    chunk 8 on a clean and a lost-write run of 300 ops: each verdict equal
-   to the CPU oracle's, no fall-back; seconds per event. (d) The
+   to the CPU oracle's, no fall-back, the fold kernel launched;
+   seconds per event. (d) The
    list-append workload (``tests/cycle/append``) against a serializable
    in-memory client, 8,192 txns at 8 processes, monitored by the txn
    family at chunks of 1,024: the monitor's verdict True and equal to the
@@ -266,19 +267,28 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    ``checkers.linearizable``, fast check on.
 
 16. ``streamlin``: the streaming frontier fold (``checker/streamlin.py``,
-   torch ops) on keys of the batch above: (a) the offline face at the
-   hard frontier cap on ``OFFLINE_KEYS`` (one of them corrupted), each
-   verdict equal to the CPU sweep's (``linear``) and each violating op
-   the return at which the sweep fails; (b) one lane-batched fold of
-   ``FOLD_BATCH_KEYS`` keys' whole histories at ``FOLD_BATCH_F`` rows,
-   every lane equal to its solo fold, only corrupted keys invalid, the
-   lanes that overflowed listed: seconds and host syncs per event step;
-   (c) ``StreamCheck`` on ``STREAM_KEYS`` (key 7) fed op by op, checked every ``STREAM_CHUNK`` completions, each
+   one launch of the fold kernel ``csrc/fold.cu`` a fold) on keys of the
+   batch above, through its entry points with the kernel's launches
+   counted from 0: (a) the offline face at the hard frontier cap on
+   ``OFFLINE_KEYS`` (one of them corrupted), each verdict equal to the
+   CPU sweep's (``linear``) and each violating op the return at which
+   the sweep fails; (b) one lane-batched fold of ``FOLD_BATCH_KEYS``
+   keys' whole histories at ``FOLD_BATCH_F`` rows, every lane equal to
+   its solo fold, only corrupted keys invalid, the lanes that
+   overflowed listed, one launch and one host read: seconds and host
+   syncs per event step; (c) ``StreamCheck`` on ``STREAM_KEYS`` (key 7)
+   fed op by op, checked every ``STREAM_CHUNK`` completions, each
    verdict equal to the CPU WGL oracle's on the same prefix, no
    fall-back, the corrupted keys caught by the frontier and confirmed
-   by the port's WGL engine: seconds, host syncs, passes and frontier
-   peak per event. (b) and (c) are not profiled: gathering the
-   profiler's events costs more than the run itself (PERF.md).
+   by the port's WGL engine: seconds, host syncs, launches, passes and
+   frontier peak per event. Then (d), not counted, the kernel against
+   its plain version (``fold_kernel.plain``), every output array
+   bit-identical: each fold (a) makes at each frontier size the
+   offline face grows through, (b)'s batch (kernel and plain ms, the
+   bound, the latency floor: the longest lane's passes times two block
+   barriers, ``jf_barrier_probe``), and each case of
+   ``checker/fold_cases.py``. (b) and (c) are not profiled: gathering
+   the profiler's events cost more than the run itself (PERF.md).
 17. ``txn``: the cycle checkers at ``bench.py`` rung 15's txn shape, a
    serial list-append history of 8,192 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
@@ -306,7 +316,7 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    and two valid keys whole and the others a prefix: final
    verdicts equal to the CPU oracle's, each prefix's verdict and summary
    equal to the same stream folded solo, a fold batch of at least two
-   streams. (d) ``python
+   streams, the fold kernel launched. (d) ``python
    -m jepsen_tpu_torch serve --token`` in a subprocess answers 401,
    200, 413 and ``/api/metrics``, and exits 0 on SIGINT. (e) A burst
    against a one-check budget sheds 429s with Retry-After; every 200 is
@@ -318,15 +328,16 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    main cas-register history; (b) the batch phase's timed 256-key call,
    against the prediction at its runtime key axis and the per-lane
    prediction times that axis; (c) an 8,192-txn closure; (d) one fold at
-   F=8192. (e) ``campaign`` over two register cells with ``--capacity
-   enforce --device-mem-budget 64G --device-slots auto``: exit 0, the
+   F=8192, one fold kernel launch. (e) ``campaign`` over two register
+   cells with ``--capacity enforce --device-mem-budget 64G
+   --device-slots auto``: exit 0, the
    slots resolved from the plan, the prediction oracle's error 0.0, the
    sweep's peak against the size model at the shapes its searches ran
    (their runtime key axes), beside the plan's per-lane cell figure; (f)
    the same with a budget below the peak cell: refused (254) before any
    cell runs. A prediction more than 2x above its measurement is listed
    in ``loose``. See ``capacity_phase``.
-20. ``suites``: ``toystore test`` on 3 local nodes (5 s, kill nemesis,
+20. ``suites``: ``toystore test`` on 3 local nodes (8 s, kill nemesis,
    default algorithm): valid; with ``--stale``: exit 1, invalid;
    ``zookeeper test --stub`` for 130 s (a child process started before
    phase 16, so its run overlaps phases 16-20): linearizable through the
@@ -362,9 +373,13 @@ streamlin path's only search is the confirm of a frontier violation, and
 on the corrupted keys here ``torch_wgl``'s host pre-check
 (``_state_abstraction_check``: a read of a value no reachable state
 holds) decides it before any search starts, so its ``confirmed_by`` is
-``aspect``. Then a ``{"kernels": [...]}`` line (with each kernel's
-launches in the main phase, and on every path) and, last, ``{"ok": true,
-"device": {...}}``. Any failure raises and the script exits non-zero.
+``aspect``. The fold kernel's paths (the streamlin phase's entry points,
+the monitor's streamlin runs, the service's fold lane, the capacity
+step's fold) are each run with its launch count set to 0 and must
+launch it. Then a ``{"kernels": [...]}`` line (each kernel's launches in
+its main path and on every path, rollout then fold) and, last,
+``{"ok": true, "device": {...}}``. Any failure raises and the script
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -434,6 +449,8 @@ GATE_SEGMENTS = (1, 1, 1, 1, 1, 1, 2, 2, 1, 2, 1, 1, 1, 1, 2, 1,
                  2, 2, 1, 1, 1, 1, 1, 1, 5, 2, 2, 1, 2, 1, 2, 1,
                  1, 2, 1, 1, 2, 1, 1, 1, 1, 1, 1, 2, 1, 1, 1, 1)
 ROLLOUT_REPLACES = "jepsen_tpu/checker/pallas_rollout.py:179"
+#: the reference's fold is an XLA program, not a Pallas kernel
+FOLD_REPLACES = "jepsen_tpu/checker/streamlin.py:124"
 #: the graph phase: the single-key A/B's quantum (fixed, so that the eager
 #: and the graph runs stop at the same chunk boundaries), the key batch's
 #: keys, the queue batches' keys and their budget in iterations (cut from
@@ -453,14 +470,14 @@ GRAPH_MAX_HOST_LAUNCHES = 10
 #: outgrow the default cap of 4,096 configs); the lane batch runs the
 #: first FOLD_BATCH_KEYS keys at FOLD_BATCH_F rows each, every lane held
 #: against its solo fold; the stream is checked every STREAM_CHUNK
-#: completions. Fewer keys than the batch's 256: the fold is a host
-#: loop of torch ops, about 800 launches and 4 host reads per event
-#: (PERF.md), so each key costs seconds, and the two phases together
-#: are to take about two minutes of the run. FOLD_BATCH_F holds every
-#: one of the first 8 keys' closures but key 4's: the CPU sweep's
-#: largest config set per return is 8,168 configs for key 0 and 49,280
-#: for key 4, so lane 4 overflows (status 2) and the batch says which.
-#: The device time of a pass grows with lanes x rows (PERF.md)
+#: completions. Fewer keys than the batch's 256: the fold kernel takes
+#: tens of ms for the batch, but the phase holds it against the plain
+#: fold, a host loop of about 800 launches and 4 host reads per event
+#: (PERF.md) that takes about 12 s for the batch alone. FOLD_BATCH_F
+#: holds every one of the first 8 keys' closures but key 4's: the CPU
+#: sweep's largest config set per return is 8,168 configs for key 0 and
+#: 49,280 for key 4, so lane 4 overflows (status 2) and the batch says
+#: which
 OFFLINE_KEYS, STREAM_KEYS = (0, 7), (7,)
 FOLD_BATCH_KEYS, FOLD_BATCH_F = 8, 8192
 STREAM_CHUNK = 8
@@ -2578,7 +2595,8 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
     confirms, no VC error); again with ``skip-offline?``: ``monitor-only``
     False, certified. (c) The "streamlin" engine at chunk 8, unkeyed, on
     a clean run and a lost-write run of ``stream_ops`` ops: each verdict
-    equal to the CPU oracle's on the recorded history, no fall-back.
+    equal to the CPU oracle's on the recorded history, no fall-back, the
+    fold kernel launched (on the card).
     (d) ``tests/cycle/append`` with its ``txn_generator`` against a
     serializable list-append client, ``txns`` txns at 8 processes,
     ``{"family": "txn", "chunk": 1024}``: the monitor's verdict True and
@@ -2598,7 +2616,7 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
     from jepsen_tpu_torch import core, cycle, nemesis, store
     from jepsen_tpu_torch import generator as gen
     from jepsen_tpu_torch import tests as tst
-    from jepsen_tpu_torch.checker import checkers, rollout
+    from jepsen_tpu_torch.checker import checkers, fold_kernel, rollout
     from jepsen_tpu_torch.tests.cycle import append as append_workload
     IndeterminateClient, _, LostWriteClient = run_clients()
     ListAppendClient = txn_clients()
@@ -2608,7 +2626,7 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
     base = store.base_dir
     store.base_dir = tempfile.mkdtemp(prefix="jepsen-monitor-")
     out = {"phase": "monitor"}
-    launches = {}
+    launches, fold_launches = {}, {}
     at_analyze = {}
     real_analyze = core.analyze
 
@@ -2631,6 +2649,7 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
         t["monitor"] = dict(t["monitor"], **({"engine-opts": engine_opts}
                                              if not cuda else {}))
         rollout.launches = 0
+        fold_kernel.launches = 0
         at_analyze.clear()
         t0 = time.monotonic()
         test = core.run(t)
@@ -2638,6 +2657,7 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
         wall = time.monotonic() - t0
         checkers.join_racers()
         launches[path] = rollout.launches
+        fold_launches[path] = fold_kernel.launches
         errs = errors_in(test["results"])
         if errs:
             raise AssertionError(f"monitor {t['name']}: {errs}: "
@@ -2649,6 +2669,7 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
             raise AssertionError(f"monitor {t['name']}: no monitor.json")
         return test, mon, {
             "wall_s": wall, "rollout_launches": rollout.launches,
+            "fold_launches": fold_kernel.launches,
             "monitor_rollout_launches": at_analyze.get("launches"),
             "checks": mon["checks"], "chunks": mon["chunks"],
             "ops_consumed": mon["ops_consumed"],
@@ -2814,6 +2835,9 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
             if want is False:
                 rows[what].update(violation(f"streamlin {what}", test,
                                             mon, aborted=False))
+            if cuda and row["fold_launches"] <= 0:
+                raise AssertionError(f"monitor streamlin {what}: the fold "
+                                     f"kernel was not launched")
         out["streamlin"] = rows
 
         # (d) the list-append workload, monitored by the txn family
@@ -2877,6 +2901,7 @@ def monitor_phase(dev, unmonitored_ops_per_s, n_ops=RUN_OPS,
             shutil.rmtree(store.base_dir, ignore_errors=True)
         store.base_dir = base
     out["launches"] = launches
+    out["fold_launches"] = fold_launches
     out["seconds"] = time.monotonic() - t_start
     return out
 
@@ -3874,35 +3899,152 @@ def sync(dev):
         stream_sync()
 
 
+def fold_bound(args, out):
+    """The least time the card could take for one fold on these inputs:
+    the bytes the function must move (each input read once, the upload
+    of fingerprint multipliers and events included, each output written
+    once) over HBM_BYTES_PER_S, or the operations this run's data needs
+    (OPS_PER_OP for each candidate the closures evaluate: the ``steps``
+    the fold reports) over INT_OPS_PER_S, whichever is larger. Returns
+    (bound_ms, bound_by)."""
+    _step, arrays, kinds, _slots, _C = args
+    K, F, B = arrays["lin"].shape
+    S = arrays["st"].shape[2]
+    nbytes = sum(x.numel() * x.element_size() for x in arrays.values()) \
+        + 4 * (4 * (B + S) + 2 * kinds.size) \
+        + sum(x.numel() * x.element_size() for x in out[:4]) + 4 * 5 * K
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = OPS_PER_OP * int(out[7].sum()) / INT_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def fold_parity(args, dev, what, reps=0):
+    """The fold kernel against its plain version on one fold's inputs on
+    the card: every output array equal (dtype and values), else raise.
+    The launches made here are not counted: the kernel's count is put
+    back. ``kernel_ms`` is the mean of ``reps`` calls (1 when 0) after
+    the first, timed with CUDA events (the host clock off the card), the
+    upload of events included; ``plain_ms`` one call of
+    ``fold_kernel.plain`` on the host clock, ending in a synchronize."""
+    import torch
+    from jepsen_tpu_torch.checker import fold_kernel
+    saved = fold_kernel.launches
+    cuda = dev.type == "cuda"
+    try:
+        got = fold_kernel.run(*args)
+        sync(dev)
+        n = max(1, reps)
+        if cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.monotonic()
+        for _ in range(n):
+            fold_kernel.run(*args)
+        if cuda:
+            b.record()
+            b.synchronize()
+            kernel_ms = a.elapsed_time(b) / n
+        else:
+            kernel_ms = (time.monotonic() - t0) * 1e3 / n
+    finally:
+        fold_kernel.launches = saved
+    t0 = time.monotonic()
+    want = fold_kernel.plain(*args)
+    sync(dev)
+    plain_ms = (time.monotonic() - t0) * 1e3
+    names = ("lin", "st", "live", "open_w", "status", "viol", "passes",
+             "steps", "n_live")
+    bad = [n for n, g, w in zip(names, got, want)
+           if g.dtype != w.dtype or not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"fold kernel {what}: {bad} differ from the "
+                             f"plain fold")
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              if g.numel() else 0 for g, w in zip(got, want))
+    bound_ms, bound_by = fold_bound(args, got)
+    K, F, B = args[1]["lin"].shape
+    return {"what": what, "K": K, "F": F, "B": B,
+            "S": args[1]["st"].shape[2], "C": int(args[4]),
+            "E": int(args[2].shape[1]), "status": got[4].tolist(),
+            "passes": got[6].tolist(), "max_abs_err": err,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "passes_max": int(got[6].max())}
+
+
+def fold_entry(stream_row, mon_row, svc_row, cap_row):
+    """The fold kernel's entry of the ``kernels`` line: its launches on
+    each path that folds (each counted from 0 just before the path ran:
+    the streamlin phase's entry points, the monitor's streamlin runs, the
+    service's fold lane, the capacity step's fold), and its numbers at
+    the lane batch's shape from the streamlin phase."""
+    k = stream_row["fold_kernel"]
+    by_path = {"streamlin": k["launches"],
+               **{p: mon_row["fold_launches"][p]
+                  for p in ("monitor_streamlin",
+                            "monitor_streamlin_violation")},
+               **svc_row["fold_launches"], **cap_row["fold_launches"]}
+    if any(v <= 0 for v in by_path.values()):
+        raise AssertionError(f"fold kernel: a path launched it no time: "
+                             f"{by_path}")
+    return {"name": "fold", "route": "cuda",
+            "source": "jepsen_tpu_torch/checker/csrc/fold.cu",
+            "replaces": FOLD_REPLACES,
+            "launches": k["launches"], "launches_by_path": by_path,
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+            "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None,
+            "latency_floor_ms": k["latency_floor_ms"],
+            "barrier_ns": k["barrier_ns"], "shape": k["shape"],
+            "launches_per_fold": k["launches_per_fold"],
+            "host_reads_per_fold": k["host_reads_per_fold"],
+            "s_per_event_step": k["s_per_event_step"],
+            "parity": "exact",
+            "cases": len(stream_row["parity"]["cases"])}
+
+
 def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
                     stream_keys=STREAM_KEYS, batch_keys=FOLD_BATCH_KEYS,
                     batch_f=FOLD_BATCH_F):
-    """The streaming frontier fold on the batch keys: (a) the offline
-    face on ``offline_keys`` against the CPU sweep (``linear``): equal
-    verdicts, and on the corrupted keys the violating op is the return
-    at which the sweep fails; (b) one lane-batched fold over the first
-    ``batch_keys`` keys' whole histories at ``batch_f`` rows, one timed
-    call (not profiled: gathering its events took 23 s), each lane
-    equal to its solo fold; (c)
-    ``StreamCheck`` fed ``stream_keys`` op by op, checked every
-    STREAM_CHUNK completions, each verdict equal to the CPU WGL oracle's
-    on the same prefix, the corrupted keys caught by the frontier and
-    confirmed by the port's WGL engine (``torch_wgl``). The stream's
-    seconds are those of its own offers and checks, without the
-    oracle's."""
+    """The streaming frontier fold on the batch keys, first through its
+    entry points with the fold kernel's launches counted from 0: (a) the
+    offline face on ``offline_keys`` against the CPU sweep (``linear``):
+    equal verdicts, and on the corrupted keys the violating op is the
+    return at which the sweep fails; (b) one lane-batched fold over the
+    first ``batch_keys`` keys' whole histories at ``batch_f`` rows, one
+    timed call (not profiled: gathering its events took 23 s), each lane
+    equal to its solo fold; (c) ``StreamCheck`` fed ``stream_keys`` op
+    by op, checked every STREAM_CHUNK completions, each verdict equal to
+    the CPU WGL oracle's on the same prefix, the corrupted keys caught by
+    the frontier and confirmed by the port's WGL engine (``torch_wgl``).
+    The stream's seconds are those of its own offers and checks, without
+    the oracle's. On the card every fold of (a)-(c) launches the kernel
+    once and reads its results once. Then (d), not counted, the kernel
+    against its plain version (``fold_parity``): every fold (a) makes at
+    each frontier size the offline face grows through, (b)'s batch
+    (timed: kernel and plain ms, the bound and the latency floor), and
+    each case of ``checker/fold_cases.py``."""
     from jepsen_tpu_torch import models
-    from jepsen_tpu_torch.checker import linear, streamlin
+    from jepsen_tpu_torch.checker import (fold_cases, fold_kernel, linear,
+                                          streamlin)
     from jepsen_tpu_torch.monitor import StreamCheck
     from jepsen_tpu_torch.monitor import engine as mengine
     spec = models.cas_register_spec
+    cuda = dev.type == "cuda"
     def corrupted(ks):
         return [k for k in ks if k % CORRUPT_EVERY == CORRUPT_EVERY - 1]
     pairs = [spec.encode(h) for h in
              keys[:max(batch_keys, *offline_keys, *stream_keys) + 1]]
+    fold_kernel.launches = 0
+    fold_kernel.plain_folds = 0
 
     # (a) the offline face
     t_start = time.monotonic()
     offline, offline_s, oracle_s = [], 0.0, 0.0
+    streamlin.syncs = 0
     for k in offline_keys:
         e, st = pairs[k]
         t0 = time.monotonic()
@@ -3940,6 +4082,7 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
         raise AssertionError(f"streamlin offline: invalid keys "
                              f"{offline}, expected "
                              f"{corrupted(offline_keys)}")
+    offline_launches, offline_syncs = fold_kernel.launches, streamlin.syncs
 
     # (b) one lane-batched fold over the first batch_keys whole histories
     jobs = [streamlin.history_job(spec, e, st, batch_f, dev)
@@ -3948,11 +4091,12 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
     for j in jobs:
         j.C = C                      # one shape: one fold of K lanes
     streamlin.syncs = 0
+    l0 = fold_kernel.launches
     t0 = time.monotonic()
     res = streamlin.batch_fold(jobs)
     sync(dev)
     wall = time.monotonic() - t0
-    syncs = streamlin.syncs
+    syncs, batch_launches = streamlin.syncs, fold_kernel.launches - l0
     fields = ("status", "viol_slot", "passes", "steps", "n_live")
     t0 = time.monotonic()
     for k, job in enumerate(jobs):
@@ -3976,6 +4120,7 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
              "groups": len({j.shape_key() for j in jobs}),
              "wall_s": wall, "s_per_event": wall / E,
              "syncs": syncs, "syncs_per_event": syncs / E,
+             "launches": batch_launches,
              # over the lanes whose frontier held (an overflowed lane
              # stops at its overflow)
              "passes_max": max(r["passes"] for r in held),
@@ -3983,9 +4128,13 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
              "final_frontier_max": max(r["n_live"] for r in held),
              "invalid_lanes": invalid, "overflowed_lanes": overflowed,
              "solo_s": solo_s}
+    if cuda and (batch_launches, syncs) != (1, 1):
+        raise AssertionError(f"batch fold: {batch_launches} launches and "
+                             f"{syncs} host reads, expected 1 and 1")
 
     # (c) StreamCheck op by op
     streamlin.syncs = 0
+    l0 = fold_kernel.launches
     rows = []
 
     def stream():
@@ -4037,14 +4186,69 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
                  "s_per_event": own / events,
                  "syncs": streamlin.syncs,
                  "syncs_per_event": streamlin.syncs / events,
+                 "launches": fold_kernel.launches - l0,
                  "passes_per_event": sum(r["fold_passes"] for r in rows)
                  / events,
                  "frontier_peak": max(r["frontier_peak"] for r in rows),
                  "streams": rows}
+    launches = fold_kernel.launches
+    if cuda and (launches <= 0 or fold_kernel.plain_folds):
+        raise AssertionError(f"streamlin: {launches} fold kernel launches, "
+                             f"{fold_kernel.plain_folds} plain folds on "
+                             f"the card")
+    entry_s = time.monotonic() - t_start
+
+    # (d) the kernel against its plain version (not counted)
+    parity = {"offline": [], "cases": []}
+    t0 = time.monotonic()
+    for k in offline_keys:
+        e, st = pairs[k]
+        F = streamlin.FRONTIER_FLOOR
+        while True:
+            job = streamlin.history_job(spec, e, st, F, dev)
+            row = fold_parity(streamlin.fold_inputs([job]), dev,
+                              f"offline key {k} F={F}")
+            parity["offline"].append(row)
+            if row["status"][0] != 2 or F >= streamlin.FRONTIER_CAP_MAX:
+                break
+            F *= 2
+    parity["batch"] = fold_parity(streamlin.fold_inputs(jobs), dev,
+                                  "batch", reps=3)
+    for case in fold_cases.cases(dev):
+        row = fold_parity(streamlin.fold_inputs(case.jobs), dev, case.name)
+        if tuple(row["status"][:len(case.jobs)]) != case.status:
+            raise AssertionError(f"fold case {case.name}: status "
+                                 f"{row['status']}, expected {case.status}")
+        parity["cases"].append(row)
+    parity["seconds"] = time.monotonic() - t0
+    b = parity["batch"]
+    # a lane's passes are a dependent chain, and a pass needs at least two
+    # block-wide barriers (every candidate before the dedup, the
+    # compaction before the next pass): the longest lane's passes times
+    # two barriers of this card is the least time the batch can take
+    bns = fold_kernel.barrier_ns(dev) if cuda else None
+    kernel = {"launches": launches,
+              "launches_per_fold": batch_launches,
+              "host_reads_per_fold": syncs,
+              "offline_launches": offline_launches,
+              "offline_host_reads": offline_syncs,
+              "kernel_ms": b["kernel_ms"], "plain_ms": b["plain_ms"],
+              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+              "barrier_ns": bns,
+              "latency_floor_ms": None if bns is None
+              else b["passes_max"] * 2 * bns / 1e6,
+              "shape": {f: b[f] for f in ("K", "F", "B", "S", "C", "E")},
+              "s_per_event_step": b["kernel_ms"] / 1e3 / E,
+              "plain_s_per_event_step": b["plain_ms"] / 1e3 / E,
+              "max_abs_err": max(r["max_abs_err"] for r in
+                                 parity["offline"] + parity["cases"]
+                                 + [b])}
     return {"phase": "streamlin", "seconds": time.monotonic() - t_start,
+            "entry_s": entry_s,
             "offline": offline, "offline_s": offline_s,
             "offline_oracle_s": oracle_s, "batch": batch,
-            "streaming": streaming}
+            "streaming": streaming, "fold_kernel": kernel,
+            "parity": parity}
 
 
 def squaring_ms(n, dev):
@@ -4330,7 +4534,7 @@ def service_phase(dev, keys, oracle, tenants=SERVICE_TENANTS,
     import signal
     import tempfile
     from jepsen_tpu_torch import models, simulate, store, web
-    from jepsen_tpu_torch.checker import linear, rollout, streamlin
+    from jepsen_tpu_torch.checker import fold_kernel, linear, rollout, streamlin
     from jepsen_tpu_torch.cycle import append
     from jepsen_tpu_torch.fleet import service
     from jepsen_tpu_torch.monitor.wgl_stream import StreamCheck
@@ -4506,10 +4710,15 @@ def service_phase(dev, keys, oracle, tenants=SERVICE_TENANTS,
                 return sc.check()["valid"]
 
             rollout.launches = 0
+            fold_kernel.launches = 0
             got, secs, wall = concurrent([(lambda k=k: feed(checks[k], k))
                                           for k in range(streams)])
             sync(dev)
             launches["service_fold"] = rollout.launches
+            out["fold_launches"] = {"service_fold": fold_kernel.launches}
+            if dev.type == "cuda" and fold_kernel.launches <= 0:
+                raise AssertionError("service c: the fold lane launched no "
+                                     "fold kernel")
             summ = [sc.stream_summary() for sc in checks]
             # the whole streams against the gate's CPU oracle on their
             # keys, each prefix against the CPU sweep
@@ -4924,7 +5133,8 @@ def capacity_phase(dev, batch_mem, fold_hist, kept=None):
     import numpy as np
     from jepsen_tpu_torch import cycle, models, simulate
     from jepsen_tpu_torch.analysis import sizemodel
-    from jepsen_tpu_torch.checker import rollout, streamlin, torch_wgl
+    from jepsen_tpu_torch.checker import (fold_kernel, rollout, streamlin,
+                                          torch_wgl)
     t_start = time.monotonic()
     cuda = dev.type == "cuda"
     out = {"phase": "capacity"}
@@ -4998,10 +5208,15 @@ def capacity_phase(dev, batch_mem, fold_hist, kept=None):
     job = streamlin.history_job(spec, fe, fst, F=CAPACITY_FOLD_F,
                                 device=dev)
     t0 = time.monotonic()
+    fold_kernel.launches = 0
     fr, peak = mem_step(dev, lambda: streamlin.solo_fold(job))
+    out["fold_launches"] = {"capacity": fold_kernel.launches}
+    if cuda and fold_kernel.launches != 1:
+        raise AssertionError(f"capacity (d): {fold_kernel.launches} fold "
+                             f"kernel launches, expected 1")
     pred = sizemodel.stream_frontier_shape(
         job.F, job.B * 32, state_size=job.S, arg_width=job.A,
-        open_cap=job.C, events=job.E)
+        open_cap=job.C, events=job.E, device=str(dev))
     out["d"] = held("d", pred["hbm"]["total"], peak, hbm=pred["hbm"],
                     F=job.F, window=job.B * 32, C=job.C, events=job.E,
                     status=fr.get("status"),
@@ -5023,8 +5238,11 @@ def capacity_phase(dev, batch_mem, fold_hist, kept=None):
 #: (zookeeper.clj's ``stagger 1``), failed cas ops drop out of the
 #: checked history (about 0.73 kept a second), and the engine rolls
 #: chains only past 64 ops (``torch_wgl._rollout_shape``), so 130 s keep
-#: about 95 ops, 64 lies about four standard deviations below
-SUITES_TOYSTORE_S, SUITES_ZK_S = 5, 130
+#: about 95 ops, 64 lies about four standard deviations below. The kill
+#: run takes the suite's own default of 8 s: at 5 s (20 ops a second,
+#: some failed by the kills, which drop out) it kept so few ops in one
+#: whole smoke that its search rolled no chain (PERF.md)
+SUITES_TOYSTORE_S, SUITES_ZK_S = 8, 130
 SUITES_STALE_S, SUITES_STALE_CONCURRENCY = 6, 6
 
 #: the zookeeper stub's child process: the suite's ``main`` (what
@@ -5554,7 +5772,8 @@ def main(argv):
         try:
             # -- 16-17. the streaming fold and the txn closure ----------------
             rollout.launches = 0
-            emit(streamlin_phase(keys, dev))
+            stream_row = streamlin_phase(keys, dev)
+            emit(stream_row)
             stream_launches = scan_only("streamlin")
             rollout.launches = 0
             emit(txn_phase(dev))
@@ -5617,7 +5836,8 @@ def main(argv):
             "adversarial_cases": len(adversarial),
             "adversarial_max_abs_err": max(a["max_abs_err"]
                                            for a in adversarial),
-            "shapes": cases}]})
+            "shapes": cases}, fold_entry(stream_row, mon_row, svc_row,
+                                         cap_row)]})
     finally:
         kept.close()
     emit({"ok": True, "device": {"platform": "gpu",

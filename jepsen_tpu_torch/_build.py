@@ -23,7 +23,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "jepsen_tpu_torch")
 
 #: every kernel source of the port (name -> file under checker/csrc)
-SOURCES = {"rollout": "rollout.cu"}
+SOURCES = {"rollout": "rollout.cu", "fold": "fold.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

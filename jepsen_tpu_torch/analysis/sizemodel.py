@@ -315,15 +315,37 @@ def closure_shape(n_txns, *, lo=64, device="cuda"):
     }
 
 
+#: the CUDA caching allocator's block: requests round up to 512 bytes, and
+#: a cached block of the large pool is not split when less than 1 MiB of
+#: it would be left, so a request of 1 MiB or more may be charged up to
+#: that much beyond its rounded size
+_ALLOC_ROUND, _ALLOC_UNSPLIT = 512, 1 << 20
+
+
+def _charged(nbytes):
+    """The most the caching allocator charges for one request."""
+    r = -(-int(nbytes) // _ALLOC_ROUND) * _ALLOC_ROUND
+    return r + (_ALLOC_UNSPLIT if r >= _ALLOC_UNSPLIT else 0)
+
+
 def stream_frontier_shape(frontier_cap, window, *, state_size=1,
-                          arg_width=2, open_cap=None, events=64):
+                          arg_width=2, open_cap=None, events=64,
+                          device="cuda"):
     """The symbolic prediction for one monitored stream's
     device-resident frontier (``checker/streamlin`` /
     ``monitor/wgl_stream.StreamCheck``): the frontier rows pad to a
     pow-2 bucket and the device keeps, per stream, the linearized
     bitsets (F x window/32 int32 words), the model states (F x S), the
-    open-op bitset and the window's encoded cells. A closure pass's
-    transient pool is (F + F*C) candidate rows, C the open-op axis: the
+    open-op bitset and the window's encoded cells. ``pool`` is what one
+    fold allocates besides them, C the open-op axis. On CUDA the fold is
+    one launch of the fold kernel (``checker/fold_kernel``): its scratch
+    (``fold_kernel.plan``: a second row buffer, the flags and work list,
+    the open ops, and per pool entry (F + F*C of them) two keys, two
+    indices and three fingerprints with its pool index), its outputs,
+    the one upload of fingerprint multipliers and events, and the
+    results' stack, each allocation as the caching allocator charges
+    it. Elsewhere (``device``) the fold is ``fold_kernel.plain``: a
+    closure pass's transient pool of (F + F*C) candidate rows, the
     candidates' bitsets, the pool's concatenation, its int64 words and
     the four multiply-shift fingerprints over them (the port's two odd
     ones beside the reference's two, ROADMAP.md C.3), the lexsort keys
@@ -344,15 +366,26 @@ def stream_frontier_shape(frontier_cap, window, *, state_size=1,
         "state": F * S * per,
         "window": NW * (1 + 2 * A) * per,
         "open": B * per,
+    }
+    if str(device).startswith("cuda"):
+        from ..checker import fold_kernel
+        hbm = {k: _charged(v) for k, v in hbm.items()}
+        hbm["window"] = (_charged(NW * per) + 2 * _charged(NW * A * per)
+                         + _charged(B * per))        # clear_w beside
+        hbm["pool"] = sum(_charged(x) for x in (
+            fold_kernel.scratch_bytes(1, F, B, S, A, C),
+            F * B * per, F * S * per, F, B * per,      # the outputs
+            5 * per, 5 * per,                          # results, stack
+            (4 * (B + S) + 2 * E) * per))              # the upload
+    else:
         # per word: the candidates (int32 bitsets), the pool's int32
         # concatenation, the fingerprints' concatenation and its int64
         # words with three multiply-shift temporaries, the sorted
         # gather, and one int64 spare for the allocator's order; per row
         # the four hashes, the sort keys, order and the compaction's
         # positions
-        "pool": pool * (B + S) * (4 * per + 5 * _I64)
-        + pool * 16 * _I64,
-    }
+        hbm["pool"] = pool * (B + S) * (4 * per + 5 * _I64) \
+            + pool * 16 * _I64
     hbm["total"] = sum(hbm.values())
     cells = pool * (B + S)
     return {

@@ -230,17 +230,19 @@ def chain_bitsets(seed_lin, j):
     return after, torch.cat([seed, after[:, :-1]], dim=1)
 
 
-def _check(name, x, dtype, shape, device):
+def _check(name, x, dtype, shape, device, kernel="rollout"):
+    """Raise unless the kernel's argument ``name`` lies on ``device``
+    with this dtype and shape, contiguous."""
     if x.device != device:
-        raise ValueError(f"rollout: {name} on {x.device}, expected "
+        raise ValueError(f"{kernel}: {name} on {x.device}, expected "
                          f"{device}")
     if x.dtype != dtype:
-        raise TypeError(f"rollout: {name} is {x.dtype}, expected {dtype}")
+        raise TypeError(f"{kernel}: {name} is {x.dtype}, expected {dtype}")
     if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"rollout: {name} has shape {tuple(x.shape)}, "
+        raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, "
                          f"expected {tuple(shape)}")
     if not x.is_contiguous():
-        raise ValueError(f"rollout: {name} is not contiguous")
+        raise ValueError(f"{kernel}: {name} is not contiguous")
 
 
 def _launcher():

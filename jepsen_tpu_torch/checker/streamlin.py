@@ -45,17 +45,17 @@ engines.
 
 The JAX package compiles the fold into one program: a ``lax.scan`` over
 the events, a ``lax.cond`` per event and a ``lax.while_loop`` of
-closure passes per return. Here the loop over events runs on the host
-and issues torch ops:
-
-* an invoke is a masked OR into the open-slot set (no host read);
-* a return reads, once before its first pass and once after each pass,
-  whether any lane still has work -- the reference's loop condition.
-  Those reads are the host syncs a fold pays (``syncs`` counts them,
-  with the one read of the results);
-* lanes (the reference's ``vmap``) each keep their carry while their own
-  condition is false, so a lane's result equals its solo fold; after a
-  violation or an overflow every later event of that lane is a no-op.
+closure passes per return. Its counterpart here is one launch of the
+CUDA kernel ``csrc/fold.cu`` (``fold_kernel``): on the card the event
+arrays go up once, every event of every lane and every closure pass run
+in the kernel, and the results come back in one host read (``syncs``
+counts it). Lanes (the reference's ``vmap``) are independent, so a
+lane's result equals its solo fold; after a violation or an overflow
+every later event of that lane is a no-op. On the CPU, and on the card
+for a model the kernel has no step for, the fold is
+``fold_kernel.plain``: a host loop over the events in torch ops that
+reads, once before a return's first pass and once after each pass,
+whether any lane still has work.
 
 ``check_encoded`` is the offline face: one fold over a whole encoded
 history, with the verdict names of ``linear.check_encoded``.
@@ -83,14 +83,15 @@ from ..campaign import compile_cache
 from ..history import INF_TIME
 from ..obs import search as obs_search
 from ..util import bucket as _bucket
-from ..xp import TORCH
-from . import words
+from . import fold_kernel
+# the fold's fingerprints, named here too
+from .fold_kernel import _fingerprint_cols, _fingerprints  # noqa: F401
 
 __all__ = ["DEFAULT_FRONTIER_CAP", "FRONTIER_CAP_MAX",
            "DEFAULT_WINDOW_CAP", "WINDOW_FLOOR", "OPEN_FLOOR",
            "EVENT_FLOOR", "STREAM_LANE_PREFIX", "FoldJob",
            "fold_lane_spec", "fresh_frontier", "history_job",
-           "solo_fold", "batch_fold", "check_encoded"]
+           "fold_inputs", "solo_fold", "batch_fold", "check_encoded"]
 
 #: default / hard maximum frontier capacity (configs)
 DEFAULT_FRONTIER_CAP = 4096
@@ -117,11 +118,10 @@ STREAM_LANE_PREFIX = "streamlin:"
 _ARRAY_ORDER = ("lin", "st", "live", "open_w", "ev_kind", "ev_slot",
                 "w_f", "w_args", "w_ret", "clear_w")
 
-#: the reference's two fingerprints' (multiplier, offset) constants
-_MIX = ((0x9E3779B1, 0x85EBCA6B), (0xC2B2AE35, 0x27D4EB2F))
-
-#: host reads of device values made by folds (loop conditions and
-#: results): a plain module counter; set it to 0 before a run to count
+#: host reads of device values made by folds: a plain module counter;
+#: set it to 0 before a run to count. On the card a fold whose model the
+#: kernel knows makes one (its results); ``fold_kernel.plain`` also reads
+#: its loop condition before and after every closure pass
 syncs = 0
 _syncs_lock = threading.Lock()
 
@@ -134,219 +134,13 @@ def _read(t):
     return t.tolist()
 
 
-def _lexsort(keys):
-    """The stable permutation sorting the last axis by ``keys``, least
-    significant first (non-negative int64 tensors), as ``jnp.lexsort``:
-    one stable sort per key."""
-    order = None
-    for k in keys:
-        if order is not None:
-            k = k.gather(-1, order)
-        o = torch.sort(k, dim=-1, stable=True).indices
-        order = o if order is None else order.gather(-1, o)
-    return order
-
-
-def _fingerprint_cols(n, dev):
-    """The per-word multipliers of the four fingerprints over n words:
-    the reference's two (even at odd word indices), then two odd ones
-    (module docstring)."""
-    idx = np.arange(n, dtype=np.uint32)
-    return [torch.as_tensor(c.astype(np.int64), device=dev) for c in
-            [idx * np.uint32(m) + np.uint32(a) for m, a in _MIX]
-            + list(words.hash_keys(n))]
-
-
-def _fingerprints(lin_w, st_w, cols):
-    """32-bit multiply-shift sums over each config's words (lin bitset
-    words then state words), one per row of per-column multipliers
-    ``cols``; uint32 values in int64 tensors."""
-    w = words.u32(torch.cat([lin_w, st_w], -1))
-    out = []
-    for c in cols:
-        t = words.mul32(w, c)
-        t = t ^ (t >> 15)
-        t = words.mul32(t, 0x2C1B3C6D)
-        t = t ^ (t >> 12)
-        out.append(t.sum(-1) & words.M32)
-    return out
-
-
 def _fold(step, arrays, ev_kind, ev_slot, C):
     """Fold the events ``ev_kind``/``ev_slot`` (host int (K, E)) into
     the frontiers ``arrays`` (device tensors with a leading lane axis
-    K, named as ``_ARRAY_ORDER``). Returns (lin, st, live, open_w,
-    status, viol, passes, steps, n_live), each with the lane axis."""
-    lin, st, live, open_w = (arrays[k] for k in
-                             ("lin", "st", "live", "open_w"))
-    w_f, w_args, w_ret = arrays["w_f"], arrays["w_args"], arrays["w_ret"]
-    K, F, B = lin.shape
-    S, A = st.shape[2], w_args.shape[2]
-    NW = B * 32
-    P = F * (C + 1)
-    dev = lin.device
-    i32 = torch.int32
-
-    def i32s(x):
-        return torch.as_tensor(np.asarray(x), dtype=i32, device=dev)
-
-    status = torch.zeros(K, dtype=i32, device=dev)
-    viol = torch.full((K,), -1, dtype=i32, device=dev)
-    passes = torch.zeros(K, dtype=i32, device=dev)
-    steps = torch.zeros(K, dtype=i32, device=dev)
-    slot_ids = torch.arange(NW, dtype=torch.int64, device=dev)
-    b_ids = torch.arange(B, dtype=torch.int64, device=dev)
-    shifts = torch.arange(32, dtype=i32, device=dev)
-    cols = _fingerprint_cols(B + S, dev)
-    # ~pool_o: the F established configs (0) sort before candidates (1)
-    new_key = (torch.arange(P, device=dev) >= F).to(torch.int64)
-
-    for t in range(ev_kind.shape[1]):
-        kind = ev_kind[:, t]
-        if not (kind > 0).any():
-            continue
-        s = np.clip(ev_slot[:, t], 0, NW - 1)
-        s_t = i32s(s)
-        word = torch.as_tensor(s // 32, dtype=torch.int64, device=dev)
-        sh = i32s(s % 32)[:, None]                       # (K, 1)
-        bit = words.bit_mask(s_t)
-        one_hot = b_ids[None, :] == word[:, None]        # (K, B)
-        act = status == 0
-        if (kind == 1).any():
-            m = act & torch.as_tensor(kind == 1, device=dev)
-            open_w = open_w | torch.where(
-                m[:, None] & one_hot, bit[:, None], 0)
-        if not (kind == 2).any():
-            continue
-
-        def tbit(lin_w):
-            """(K, F') whether each config has the returning slot."""
-            wv = lin_w.gather(2, word[:, None, None].expand(
-                K, lin_w.shape[1], 1))[..., 0]
-            return ((wv >> sh) & 1) == 1
-
-        R = act & torch.as_tensor(kind == 2, device=dev)
-        bits = ((open_w[:, :, None] >> shifts) & 1).reshape(K, NW)
-        n_open = bits.sum(-1)
-        # open slot ids ascending, padded with NW
-        oidx = torch.sort(torch.where(bits > 0, slot_ids, NW),
-                          dim=-1).values[:, :C]
-        j_valid = oidx < NW
-        jc = oidx.clamp(max=NW - 1)
-        f_j = w_f.gather(1, jc)                                  # (K, C)
-        a_j = w_args.gather(1, jc[..., None].expand(K, C, A))
-        r_j = w_ret.gather(1, jc[..., None].expand(K, C, A))
-        j_word = jc // 32
-        j_sh = (jc % 32).to(i32)[:, None, :]                     # (K,1,C)
-        add_mask = torch.where(
-            b_ids[None, None, :] == j_word[..., None],
-            words.bit_mask(jc)[..., None], 0)                    # (K,C,B)
-        # the step's op columns, component first against (K, F, C)
-        sf = f_j[:, None, :]
-        sa = a_j.permute(2, 0, 1)[:, :, None, :]
-        sr = r_j.permute(2, 0, 1)[:, :, None, :]
-
-        seen = live
-        work = live & ~tbit(lin)
-        p = torch.zeros(K, dtype=i32, device=dev)
-        stp = steps
-        ovf = n_open > C
-        nlin, nst = lin, st
-        cond = R & work.any(-1) & ~ovf
-        any_act, any_ret, go = _read(torch.stack(
-            [act.any(), R.any(), cond.any()]))
-        if not any_act:
-            break           # every lane stopped: later events are no-ops
-        if not any_ret:
-            continue
-        while go:
-            st_planes = nst.permute(2, 0, 1)[..., None]         # (S,K,F,1)
-            st2, ok = step(st_planes, sf, sa, sr, TORCH)
-            st2 = torch.broadcast_to(st2, (S, K, F, C)).permute(
-                1, 2, 3, 0).reshape(K, F * C, S).to(i32)
-            ok = torch.broadcast_to(ok, (K, F, C)).reshape(K, F * C)
-            lw = nlin.gather(2, j_word[:, None, :].expand(K, F, C))
-            already = ((lw >> j_sh) & 1) == 1                    # (K,F,C)
-            parent_ok = work[:, :, None] & j_valid[:, None, :] & ~already
-            stp2 = stp + parent_ok.sum((1, 2), dtype=i32)
-            cand_valid = parent_ok.reshape(K, F * C) & ok
-            cand_lin = (nlin[:, :, None, :]
-                        | add_mask[:, None, :, :]).reshape(K, F * C, B)
-            # dedup pool: the F survivors-so-far + all F*C candidates;
-            # old entries sort first among equal fingerprints so the
-            # established config wins: the reference's
-            # jnp.lexsort((~o, h2, h1, ~v)) with h4, h3 after h2
-            pool_lin = torch.cat([nlin, cand_lin], 1)
-            pool_st = torch.cat([nst, st2], 1)
-            pool_v = torch.cat([seen, cand_valid], 1)
-            h1, h2, h3, h4 = _fingerprints(pool_lin, pool_st, cols)
-            order = _lexsort([h4 * 2 + new_key, h3, h2,
-                              ((~pool_v).to(torch.int64) << 32) | h1])
-            sl = pool_lin.gather(1, order[..., None].expand(K, P, B))
-            ss = pool_st.gather(1, order[..., None].expand(K, P, S))
-            sv = pool_v.gather(1, order)
-            so = order < F
-            same = sv[:, 1:] & sv[:, :-1]
-            for h in (h1, h2, h3, h4):
-                hs = h.gather(1, order)
-                same = same & (hs[:, 1:] == hs[:, :-1])
-            dup = torch.cat([
-                torch.zeros((K, 1), dtype=torch.bool, device=dev), same], 1)
-            keep = sv & ~dup
-            ovf2 = ovf | (keep.sum(-1) > F)
-            # kept rows take positions 0.. in sorted order; the rest
-            # (and any past F) land on the sentinel row F, dropped
-            pos = torch.where(keep, (keep.cumsum(-1) - 1).clamp(max=F), F)
-
-            def compact(x, fill_dtype):
-                out = torch.zeros((K, F + 1) + x.shape[2:],
-                                  dtype=fill_dtype, device=dev)
-                ix = pos.reshape(pos.shape + (1,) * (x.dim() - 2))
-                return out.scatter_(1, ix.expand(x.shape), x)[:, :F]
-
-            lin3 = compact(sl, i32)
-            st3 = compact(ss, i32)
-            seen3 = compact(keep, torch.bool)
-            old3 = compact(so & keep, torch.bool)
-            # fresh configs without the target go back to work;
-            # expanded (old) ones retire to dedup-only ghosts
-            work3 = seen3 & ~tbit(lin3) & ~old3
-            if K == 1:
-                nlin, nst, seen, work, stp, ovf = (lin3, st3, seen3, work3,
-                                                   stp2, ovf2)
-                p = p + 1
-            else:
-                nlin = torch.where(cond[:, None, None], lin3, nlin)
-                nst = torch.where(cond[:, None, None], st3, nst)
-                seen = torch.where(cond[:, None], seen3, seen)
-                work = torch.where(cond[:, None], work3, work)
-                stp = torch.where(cond, stp2, stp)
-                ovf = torch.where(cond, ovf2, ovf)
-                p = p + cond.to(i32)
-            cond = R & work.any(-1) & ~ovf & (p < C + 1)
-            go = _read(cond.any())
-        final = seen & tbit(nlin)
-        violated = ~final.any(-1) & ~ovf
-        open_w2 = open_w & torch.where(one_hot, ~bit[:, None], -1)
-        status2 = torch.where(ovf, 2, torch.where(violated, 1, status))
-        viol2 = torch.where(violated, s_t, viol)
-        if K == 1:
-            lin, st, live, open_w = nlin, nst, final, open_w2
-            status, viol, passes, steps = status2, viol2, passes + p, stp
-        else:
-            lin = torch.where(R[:, None, None], nlin, lin)
-            st = torch.where(R[:, None, None], nst, st)
-            live = torch.where(R[:, None], final, live)
-            open_w = torch.where(R[:, None], open_w2, open_w)
-            status = torch.where(R, status2, status)
-            viol = torch.where(R, viol2, viol)
-            passes = torch.where(R, passes + p, passes)
-            steps = torch.where(R, stp, steps)
-    # recycle fully-sealed slots: their bit is set in EVERY live config
-    # (the return event forced it), so clearing is uniform
-    lin = lin & ~arrays["clear_w"][:, None, :]
-    return (lin, st, live, open_w, status, viol, passes, steps,
-            live.sum(-1, dtype=i32))
+    K, named as ``_ARRAY_ORDER``): ``fold_kernel.run``, the kernel on the
+    card. Returns (lin, st, live, open_w, status, viol, passes, steps,
+    n_live), each with the lane axis."""
+    return fold_kernel.run(step, arrays, ev_kind, ev_slot, C, read=_read)
 
 
 def fresh_frontier(F, B, S, init_state):
@@ -456,20 +250,46 @@ def _results(out, batch=None):
     return res
 
 
+def fold_inputs(members, e_bucket=None):
+    """The arguments of one fold (``_fold``/``fold_kernel.run``) over
+    FoldJobs of one shape key and device: (step, arrays, ev_kind,
+    ev_slot, C). One member folds as itself (K = 1); more pad the event
+    axis to at least ``e_bucket`` and K to a pow-2 with inert lanes
+    (member 0 with no events: a fold over zero events is the
+    identity)."""
+    dev = members[0].device
+    if len(members) == 1:
+        job = members[0]
+        arrays = {k: _tensor(job.arrays[k], dev)[None]
+                  for k in _ARRAY_ORDER if not k.startswith("ev_")}
+        ev = {k: np.asarray(job.arrays[k], np.int32)[None]
+              for k in ("ev_kind", "ev_slot")}
+    else:
+        E = _bucket(max(max(m.E for m in members), int(e_bucket or 1)),
+                    EVENT_FLOOR)
+        pad = _bucket(len(members), 1) - len(members)
+        arrays = {}
+        for name in _ARRAY_ORDER:
+            if name.startswith("ev_"):
+                continue
+            parts = [_tensor(m.arrays[name], dev) for m in members]
+            arrays[name] = torch.stack(parts + parts[:1] * pad)
+        ev = {name: np.stack([_pad_events(m.arrays[name], E)
+                              for m in members]
+                             + [np.zeros(E, np.int32)] * pad)
+              for name in ("ev_kind", "ev_slot")}
+    return (members[0].spec.step, arrays, ev["ev_kind"], ev["ev_slot"],
+            members[0].C)
+
+
 def solo_fold(job):
     """Run one FoldJob. Returns the fold result dict; the frontier
     tensors stay on the job's device for the caller to re-commit."""
-    dev = job.device
     compile_cache.note("torch-streamlin",
                        (job.spec.name, 1, job.F, job.B, job.S, job.C,
                         job.E, job.A))
     t0 = time.monotonic()
-    arrays = {k: _tensor(job.arrays[k], dev)[None]
-              for k in _ARRAY_ORDER if not k.startswith("ev_")}
-    out = _fold(job.spec.step, arrays,
-                np.asarray(job.arrays["ev_kind"], np.int32)[None],
-                np.asarray(job.arrays["ev_slot"], np.int32)[None], job.C)
-    r = _results(out)[0]
+    r = _results(_fold(*fold_inputs([job])))[0]
     r["device_s"] = time.monotonic() - t0
     return r
 
@@ -500,26 +320,11 @@ def batch_fold(jobs, owners=None, e_bucket=None):
             results[idxs[0]] = dict(solo_fold(members[0]), batch=1)
             continue
         model, F, B, S, C, A = key
-        E = _bucket(max(max(m.E for m in members), int(e_bucket or 1)),
-                    EVENT_FLOOR)
-        K = _bucket(len(members), 1)
+        args = fold_inputs(members, e_bucket)
+        K, E = args[2].shape
         compile_cache.note("torch-streamlin-batch",
                            (model, K, F, B, S, C, E, A))
-        # pad lanes are member 0 with no events: a fold over zero
-        # events is the identity, so the lane is inert
-        pad = K - len(members)
-        arrays = {}
-        for name in _ARRAY_ORDER:
-            if name.startswith("ev_"):
-                continue
-            parts = [_tensor(m.arrays[name], dev) for m in members]
-            arrays[name] = torch.stack(parts + parts[:1] * pad)
-        ev = {name: np.stack([_pad_events(m.arrays[name], E)
-                              for m in members]
-                             + [np.zeros(E, np.int32)] * pad)
-              for name in ("ev_kind", "ev_slot")}
-        out = _fold(members[0].spec.step, arrays, ev["ev_kind"],
-                    ev["ev_slot"], members[0].C)
+        out = _fold(*args)
         for i, r in zip(idxs, _results(out, batch=len(members))):
             results[i] = r
     dt = time.monotonic() - t0

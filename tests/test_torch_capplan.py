@@ -849,7 +849,7 @@ e, st = spec.encode(hist)
 job = streamlin.history_job(spec, e, st, F=1024, device="cpu")
 pred = tsize.stream_frontier_shape(
     job.F, job.B * 32, state_size=job.S, arg_width=job.A,
-    open_cap=job.C, events=job.E)["hbm"]["total"]
+    open_cap=job.C, events=job.E, device="cpu")["hbm"]["total"]
 peak = _cpu_peak(lambda: streamlin.solo_fold(job))
 """, "closure": """
 adj = np.random.RandomState(0).rand(1024, 1024) < 2.0 / 1024
@@ -861,6 +861,35 @@ peak = _cpu_peak(lambda: cycle.transitive_closure(adj, device="cpu"))
     if what == "closure":
         # on the card the closure squares in bf16: half the float32 lanes
         assert tsize.closure_shape(1024)["hbm"]["total"] < pred
+
+
+def test_stream_frontier_on_cuda_counts_the_fold_kernels_scratch():
+    """The stated divergence for the fold: on CUDA ``pool`` is the fold
+    kernel's scratch (``fold_kernel.plan``), its outputs and its one
+    upload, each as the caching allocator charges it, in place of the
+    plain fold's transients; the field names stay the reference's."""
+    from jepsen_tpu_torch.checker import fold_kernel
+    F, NW, S, A, C, E = 8192, 256, 1, 2, 16, 512
+    kw = dict(state_size=S, arg_width=A, open_cap=C, events=E)
+    ref = jsize.stream_frontier_shape(F, NW, **kw)
+    card = tsize.stream_frontier_shape(F, NW, **kw)
+    cpu = tsize.stream_frontier_shape(F, NW, device="cpu", **kw)
+    assert card == tsize.stream_frontier_shape(F, NW, device="cuda", **kw)
+    assert set(card) == set(cpu) == set(ref)
+    assert set(card["hbm"]) == set(cpu["hbm"]) == set(ref["hbm"])
+    assert {k: v for k, v in card.items() if k != "hbm"} \
+        == {k: v for k, v in cpu.items() if k != "hbm"}
+    B = NW // 32
+    scratch = fold_kernel.scratch_bytes(1, F, B, S, A, C)
+    assert card["hbm"]["pool"] >= scratch + F * (B + S) * 4
+    assert card["hbm"]["pool"] <= scratch + F * (B + S) * 4 + (3 << 20)
+    assert card["hbm"]["pool"] < cpu["hbm"]["pool"] / 4
+    assert card["hbm"]["total"] == sum(
+        v for k, v in card["hbm"].items() if k != "total")
+    for n in (1, 511, 512, 513, (1 << 20) - 1, 1 << 20):
+        got = tsize._charged(n)
+        assert got >= n and got % 512 == 0 and got - n < 512 + (
+            (1 << 20) if got >= 1 << 20 else 0)
 
 
 def test_batch_prediction_narrows_with_the_key_axis():

@@ -6,6 +6,8 @@ the queue models) and a single-key queue check against the same on the
 CPU, and the two incremental monitors card against CPU: the streaming
 fold (solo and lane-batched, every carry array), ``StreamCheck``, the
 closures (bf16 on the card, float32 on the CPU) and the txn checkers;
+the fold kernel against its plain version on the cases of fold_cases.py
+(one launch and one host read a fold) and its wrapper's checks;
 the default gate ("competition") and a checkpoint resumed on the card
 and on the CPU; under a bound obs registry, the main histories and a key
 batch make the launches they make unbound (and with ``phases?`` off),
@@ -42,8 +44,9 @@ import pytest
 import torch
 
 from jepsen_tpu_torch import models, parallel, simulate
-from jepsen_tpu_torch.checker import (checkers, chunk_graph, rollout,
-                                      rollout_cases, torch_wgl)
+from jepsen_tpu_torch.checker import (checkers, chunk_graph, fold_cases,
+                                      fold_kernel, rollout, rollout_cases,
+                                      streamlin, torch_wgl)
 from jepsen_tpu_torch.history import NIL
 
 pytestmark = pytest.mark.cuda
@@ -261,6 +264,70 @@ def test_fold_equals_cpu_fold(dev, name):
     want = streamlin.batch_fold([c for _, c in jobs])
     for g, w in zip(got, want):
         _same_fold(g, w)
+
+
+@pytest.fixture(scope="module")
+def fold_case_table():
+    """name -> fold case with its jobs on the card, filled on first
+    use."""
+    return {}
+
+
+@pytest.mark.parametrize("name", fold_cases.NAMES)
+def test_fold_kernel_equals_plain(dev, fold_case_table, name):
+    """The fold kernel against its plain version on the card, on each
+    case of fold_cases.py: one launch, every output array equal, each
+    lane ending in the case's status."""
+    if not fold_case_table:
+        fold_case_table.update((c.name, c) for c in fold_cases.cases(dev))
+    case = fold_case_table[name]
+    args = streamlin.fold_inputs(case.jobs)
+    before = fold_kernel.launches
+    got = fold_kernel.run(*args)
+    torch.cuda.synchronize()
+    assert fold_kernel.launches == before + 1
+    want = fold_kernel.plain(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert tuple(got[4].tolist()[:len(case.jobs)]) == case.status
+
+
+def test_fold_launches_once_per_fold_and_reads_once(dev):
+    """On the card a fold is one launch and one host read: a solo fold,
+    and each shape group of a batch."""
+    from jepsen_tpu_torch.checker import streamlin
+    jobs = [_fold_job("cas-register", s, s % 2 == 1, dev) for s in range(3)]
+    streamlin.syncs = 0
+    before = fold_kernel.launches
+    streamlin.solo_fold(jobs[0])
+    assert (fold_kernel.launches - before, streamlin.syncs) == (1, 1)
+    jobs[2].C = 32                       # a second shape group
+    streamlin.batch_fold(jobs)
+    assert (fold_kernel.launches - before, streamlin.syncs) == (3, 3)
+
+
+def test_fold_wrapper_refuses_bad_inputs(dev):
+    from jepsen_tpu_torch.checker import streamlin
+    step, arrays, kinds, slots, C = streamlin.fold_inputs(
+        [_fold_job("cas-register", 0, False, dev)])
+    bad = [("lin", arrays["lin"].to(torch.int64)),               # dtype
+           ("st", arrays["st"].cpu()),                           # device
+           ("w_args", arrays["w_args"].transpose(1, 2).contiguous()
+            .transpose(1, 2)),                                   # contiguity
+           ("open_w", arrays["open_w"][:, :-1]),                 # shape
+           ("live", arrays["live"].to(torch.int32))]             # dtype
+    for name, x in bad:
+        with pytest.raises((TypeError, ValueError)):
+            fold_kernel.run(step, dict(arrays, **{name: x}), kinds, slots,
+                            C)
+    with pytest.raises(ValueError, match="refuses"):
+        fold_kernel.run(step, arrays, kinds[:, :-1], slots, C)
+    with pytest.raises(ValueError, match="refuses"):     # S != 1
+        fold_kernel.run(step, dict(arrays, st=arrays["st"].repeat(1, 1, 2)),
+                        kinds, slots, C)
+    multi = models.multi_register_spec(["x", "y"]).step   # S != A
+    with pytest.raises(ValueError, match="refuses"):
+        fold_kernel.run(multi, arrays, kinds, slots, C)
 
 
 def test_stream_check_equals_cpu(dev):
