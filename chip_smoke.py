@@ -287,8 +287,14 @@ imports neither JAX nor the JAX package. Phases, one JSON line each:
    offline face grows through, (b)'s batch (kernel and plain ms, the
    bound, the latency floor: the longest lane's passes times two block
    barriers, ``jf_barrier_probe``), and each case of
-   ``checker/fold_cases.py``. (b) and (c) are not profiled: gathering
-   the profiler's events cost more than the run itself (PERF.md).
+   ``checker/fold_cases.py``, each also with the kernel's statistics on
+   (outputs equal again): the split of the batch's longest lane's cycles
+   by phase, and the kernel's branches the folds reached (a first pass
+   that sorts its seen rows, passes whose pool sat in shared memory and
+   in the global scratch, runs of equal h1 put in order), each case of
+   ``fold_cases.BRANCHES`` raising its own. (b) and (c) are not
+   profiled: gathering the profiler's events cost more than the run
+   itself (PERF.md).
 17. ``txn``: the cycle checkers at ``bench.py`` rung 15's txn shape, a
    serial list-append history of 8,192 txns (1 read + 7 appends, 8
    processes; ``simulate.txn_append_history``): ``cycle.append.check``
@@ -3921,16 +3927,22 @@ def fold_bound(args, out):
 
 def fold_parity(args, dev, what, reps=0):
     """The fold kernel against its plain version on one fold's inputs on
-    the card: every output array equal (dtype and values), else raise.
-    The launches made here are not counted: the kernel's count is put
-    back. ``kernel_ms`` is the mean of ``reps`` calls (1 when 0) after
-    the first, timed with CUDA events (the host clock off the card), the
-    upload of events included; ``plain_ms`` one call of
-    ``fold_kernel.plain`` on the host clock, ending in a synchronize."""
+    the card: every output array equal (dtype and values), else raise,
+    with the kernel's statistics off and on (``fold_kernel.run``'s
+    ``clocks``). The launches made here are not counted: the kernel's
+    count is put back. ``kernel_ms`` is the mean of ``reps`` calls (1
+    when 0) after the first, timed with CUDA events (the host clock off
+    the card), the upload of events included, statistics off;
+    ``plain_ms`` one call of ``fold_kernel.plain`` on the host clock,
+    ending in a synchronize. On the card the row also carries the
+    statistics: ``split``, the longest lane's phases as shares of its
+    cycles and its counts (``fold_ab.split``), and ``stats``, each count
+    summed over the lanes."""
     import torch
-    from jepsen_tpu_torch.checker import fold_kernel
+    from jepsen_tpu_torch.checker import fold_ab, fold_kernel
     saved = fold_kernel.launches
     cuda = dev.type == "cuda"
+    clocks = None
     try:
         got = fold_kernel.run(*args)
         sync(dev)
@@ -3946,8 +3958,10 @@ def fold_parity(args, dev, what, reps=0):
             b.record()
             b.synchronize()
             kernel_ms = a.elapsed_time(b) / n
+            clocked, clocks = fold_ab.stats(args, dev)
         else:
             kernel_ms = (time.monotonic() - t0) * 1e3 / n
+            clocked = got
     finally:
         fold_kernel.launches = saved
     t0 = time.monotonic()
@@ -3956,7 +3970,8 @@ def fold_parity(args, dev, what, reps=0):
     plain_ms = (time.monotonic() - t0) * 1e3
     names = ("lin", "st", "live", "open_w", "status", "viol", "passes",
              "steps", "n_live")
-    bad = [n for n, g, w in zip(names, got, want)
+    bad = [n for out in (got, clocked)
+           for n, g, w in zip(names, out, want)
            if g.dtype != w.dtype or not torch.equal(g, w)]
     if bad:
         raise AssertionError(f"fold kernel {what}: {bad} differ from the "
@@ -3965,13 +3980,48 @@ def fold_parity(args, dev, what, reps=0):
               if g.numel() else 0 for g, w in zip(got, want))
     bound_ms, bound_by = fold_bound(args, got)
     K, F, B = args[1]["lin"].shape
-    return {"what": what, "K": K, "F": F, "B": B,
-            "S": args[1]["st"].shape[2], "C": int(args[4]),
-            "E": int(args[2].shape[1]), "status": got[4].tolist(),
-            "passes": got[6].tolist(), "max_abs_err": err,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "passes_max": int(got[6].max())}
+    row = {"what": what, "K": K, "F": F, "B": B,
+           "S": args[1]["st"].shape[2], "C": int(args[4]),
+           "E": int(args[2].shape[1]), "status": got[4].tolist(),
+           "passes": got[6].tolist(), "max_abs_err": err,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "passes_max": int(got[6].max())}
+    if clocks is not None:
+        row["split"] = fold_ab.split(clocks)
+        row["stats"] = dict(zip(fold_kernel.STAT_NAMES,
+                                (int(x) for x in clocks.sum(0))))
+    return row
+
+
+def fold_branches(rows):
+    """The fold kernel's branches the parity folds reached (each count
+    summed over ``rows``' statistics): the first pass of a return that
+    sorts its seen rows with its candidates, passes whose pool sat in
+    shared memory and in the global scratch, the runs of equal h1 put in
+    order. Raises if one was not reached, or if a case of
+    ``fold_cases.BRANCHES`` did not raise its own."""
+    from jepsen_tpu_torch.checker import fold_cases
+    total = {}
+    for r in rows:
+        for k, v in r["stats"].items():
+            total[k] = total.get(k, 0) + v
+        want = fold_cases.BRANCHES.get(r["what"])
+        if want is not None and r["stats"][want] <= 0:
+            raise AssertionError(f"fold case {r['what']}: the kernel's "
+                                 f"{want} stayed 0")
+    out = {"full_sort_passes": total["full_sort_passes"],
+           "shared_pool_passes": total["passes"]
+           - total["global_pool_passes"],
+           "global_pool_passes": total["global_pool_passes"],
+           "fixup_passes": total["fixup_passes"],
+           "multi_tile_passes": total["multi_tile_passes"],
+           "in_place_passes": total["in_place_passes"]}
+    missed = [k for k, v in out.items()
+              if v <= 0 and k not in ("multi_tile_passes", "in_place_passes")]
+    if missed:
+        raise AssertionError(f"fold kernel: branches not reached: {missed}")
+    return out
 
 
 def fold_entry(stream_row, mon_row, svc_row, cap_row):
@@ -4026,7 +4076,8 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
     against its plain version (``fold_parity``): every fold (a) makes at
     each frontier size the offline face grows through, (b)'s batch
     (timed: kernel and plain ms, the bound and the latency floor), and
-    each case of ``checker/fold_cases.py``."""
+    each case of ``checker/fold_cases.py``; on the card the batch's
+    phase split and the branches reached (``fold_branches``)."""
     from jepsen_tpu_torch import models
     from jepsen_tpu_torch.checker import (fold_cases, fold_kernel, linear,
                                           streamlin)
@@ -4220,6 +4271,9 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
             raise AssertionError(f"fold case {case.name}: status "
                                  f"{row['status']}, expected {case.status}")
         parity["cases"].append(row)
+    if cuda:
+        parity["branches"] = fold_branches(
+            parity["offline"] + [parity["batch"]] + parity["cases"])
     parity["seconds"] = time.monotonic() - t0
     b = parity["batch"]
     # a lane's passes are a dependent chain, and a pass needs at least two
@@ -4238,6 +4292,7 @@ def streamlin_phase(keys, dev, offline_keys=OFFLINE_KEYS,
               "latency_floor_ms": None if bns is None
               else b["passes_max"] * 2 * bns / 1e6,
               "shape": {f: b[f] for f in ("K", "F", "B", "S", "C", "E")},
+              "split": b.get("split"),
               "s_per_event_step": b["kernel_ms"] / 1e3 / E,
               "plain_s_per_event_step": b["plain_ms"] / 1e3 / E,
               "max_abs_err": max(r["max_abs_err"] for r in

@@ -339,9 +339,10 @@ def stream_frontier_shape(frontier_cap, window, *, state_size=1,
     open-op bitset and the window's encoded cells. ``pool`` is what one
     fold allocates besides them, C the open-op axis. On CUDA the fold is
     one launch of the fold kernel (``checker/fold_kernel``): its scratch
-    (``fold_kernel.plan``: a second row buffer, the flags and work list,
-    the open ops, and per pool entry (F + F*C of them) two keys, two
-    indices and three fingerprints with its pool index), its outputs,
+    (``fold_kernel.plan``: two heaps of F row slots with each slot's four
+    fingerprints, two row-to-slot orders, the seen and work lists, the
+    open ops, and per pool entry (F + F*C of them) two keys, two indices
+    and three fingerprints with its pool index), its outputs,
     the one upload of fingerprint multipliers and events, and the
     results' stack, each allocation as the caching allocator charges
     it. Elsewhere (``device``) the fold is ``fold_kernel.plain``: a

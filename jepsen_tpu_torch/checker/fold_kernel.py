@@ -48,6 +48,17 @@ MODEL_IDS = {_register_step: 0, _cas_step: 1, _mutex_step: 2,
 #: the reference's two fingerprints' (multiplier, offset) constants
 _MIX = ((0x9E3779B1, 0x85EBCA6B), (0xC2B2AE35, 0x27D4EB2F))
 
+#: the kernel's per-lane statistics (``run``'s ``clocks``, JF_STATS in
+#: csrc/fold.cu): thread 0's clock cycles in each phase, then counts
+STAT_NAMES = ("seen_rows", "candidates", "sort", "merge_fixup",
+              "dedup_compaction", "return", "passes", "entries",
+              "candidate_entries", "full_sort_passes", "global_pool_passes",
+              "fixup_passes", "returns", "in_place_passes", "entries_max",
+              "multi_tile_passes")
+STATS = len(STAT_NAMES)
+#: the phases among them, whose cycles make a lane's total
+PHASES = STAT_NAMES[:6]
+
 #: kernel launches since the count was last reset (set it to 0 to start
 #: a count); the wrapper adds one per launch, and nowhere else. A launch
 #: recorded into a CUDA graph goes to that capture's own count instead
@@ -113,19 +124,21 @@ def _fingerprint_cols(n, dev):
             for c in fingerprint_words(n)]
 
 
+def _mix(w, c):
+    """A fingerprint's term for word ``w`` under multiplier ``c``
+    (uint32 values in int64 tensors)."""
+    t = words.mul32(w, c)
+    t = t ^ (t >> 15)
+    t = words.mul32(t, 0x2C1B3C6D)
+    return t ^ (t >> 12)
+
+
 def _fingerprints(lin_w, st_w, cols):
     """32-bit multiply-shift sums over each config's words (lin bitset
     words then state words), one per row of per-column multipliers
     ``cols``; uint32 values in int64 tensors."""
     w = words.u32(torch.cat([lin_w, st_w], -1))
-    out = []
-    for c in cols:
-        t = words.mul32(w, c)
-        t = t ^ (t >> 15)
-        t = words.mul32(t, 0x2C1B3C6D)
-        t = t ^ (t >> 12)
-        out.append(t.sum(-1) & words.M32)
-    return out
+    return [_mix(w, c).sum(-1) & words.M32 for c in cols]
 
 
 def _lexsort(keys):
@@ -322,35 +335,53 @@ def plain(step, arrays, ev_kind, ev_slot, C, read=_tolist):
             live.sum(-1, dtype=i32))
 
 
+#: the most entries the kernel's pool keeps in shared memory (24 bytes
+#: each, 48 KiB); a pass whose sorted entries are more runs the same code
+#: over the global pool. It is at most the kernel's sort tile (JF_T *
+#: JF_IPT = 512 * 4). On the card a larger pool left less of the SM's
+#: memory to L1, which the pass's gathers of rows and orders hit, and was
+#: slower (PERF.md)
+SMEM_POOL = 2048
+
+
 class Plan(NamedTuple):
-    """Byte offsets of one lane's scratch, each 16-byte aligned; the
-    kernel's ``JfLayout``."""
+    """Byte offsets of one lane's scratch, each 16-byte aligned, and the
+    shared pool's capacity; the kernel's ``JfLayout``."""
     lane_bytes: int
-    lin_alt: int       # F * B words: the second row buffer's bitsets
-    st_alt: int        # F * S words: its states
-    seen: int          # F bytes
-    work: int          # F bytes
-    worklist: int      # F int32
+    lin0: int          # F * B words: row heap 0's bitsets ...
+    st0: int           # ... F * S words: its states ...
+    fp0: int           # ... F * 16 bytes: its rows' h1..h4
+    lin1: int          # row heap 1, the same three parts
+    st1: int
+    fp1: int
+    ord0: int          # F int32 each: row -> heap slot, two buffers
+    ord1: int
+    alist: int         # F int32: the seen rows at a return's first pass
+    worklist: int      # F int32: the rows to expand ...
+    workslot: int      # ... F int32: their heap slots
     ops: int           # C * (2 + 2A) int32: open slots, f, args, rets
-    key0: int          # P = F * (C + 1) uint32 each: the pool's h1 ...
-    val0: int          # ... and entry index, two buffers for the sort
+    key0: int          # P = F * (C + 1) uint32 each: the global pool's
+    val0: int          # h1 and entry index, two buffers for the sort ...
     key1: int
     val1: int
-    efp: int           # P * 16 bytes: h2, h3, h4, pool index
+    ent: int           # ... and P * 16 bytes: h2, h3, h4, pool index
+    smem_items: int    # entries of the shared pool: min(SMEM_POOL, P)
 
 
 def plan(F, B, S, A, C):
     """One lane's scratch layout for a fold of this shape."""
     P = F * (C + 1)
-    parts = (("lin_alt", 4 * F * B), ("st_alt", 4 * F * S), ("seen", F),
-             ("work", F), ("worklist", 4 * F), ("ops", 4 * C * (2 + 2 * A)),
-             ("key0", 4 * P), ("val0", 4 * P), ("key1", 4 * P),
-             ("val1", 4 * P), ("efp", 16 * P))
+    heap = (("lin", 4 * F * B), ("st", 4 * F * S), ("fp", 16 * F))
+    parts = tuple((f"{n}{h}", b) for h in (0, 1) for n, b in heap) + (
+        ("ord0", 4 * F), ("ord1", 4 * F), ("alist", 4 * F),
+        ("worklist", 4 * F), ("workslot", 4 * F),
+        ("ops", 4 * C * (2 + 2 * A)), ("key0", 4 * P), ("val0", 4 * P),
+        ("key1", 4 * P), ("val1", 4 * P), ("ent", 16 * P))
     offs, off = {}, 0
     for name, n in parts:
         offs[name] = off
         off += (n + 15) // 16 * 16
-    return Plan(off, **offs)
+    return Plan(off, **offs, smem_items=min(SMEM_POOL, P))
 
 
 def scratch_bytes(K, F, B, S, A, C):
@@ -368,17 +399,19 @@ def _launcher():
     fn = _build.library("fold").jf_fold_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.POINTER(_Layout)] \
-            + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return fn
 
 
-def run(step, arrays, ev_kind, ev_slot, C, read=_tolist):
+def run(step, arrays, ev_kind, ev_slot, C, read=_tolist, clocks=None):
     """Fold the events into the frontiers ``arrays`` (module docstring).
     CPU tensors run ``plain`` (whose host reads go through ``read``); on
     CUDA tensors a model the gate knows launches the kernel, raising on
     any refusal, and makes no host read; any other model runs
-    ``plain``."""
+    ``plain``. ``clocks``, a (K, STATS) int64 tensor on the card, gets
+    the kernel's per-lane statistics added into it (``STAT_NAMES``);
+    the outputs do not change."""
     global plain_folds
     dev = arrays["lin"].device
     model = gate(step)
@@ -387,6 +420,15 @@ def run(step, arrays, ev_kind, ev_slot, C, read=_tolist):
             with _launches_lock:
                 plain_folds += 1
         return plain(step, arrays, ev_kind, ev_slot, C, read)
+    return _launch(model, arrays, ev_kind, ev_slot, C, clocks,
+                   torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch(model, arrays, ev_kind, ev_slot, C, clocks, stream):
+    """``run``'s kernel launch on ``stream`` (a CUDA stream handle) for
+    model id ``model``: the checks, the upload, the outputs and the
+    scratch on the arrays' device, the launch and its count."""
+    dev = arrays["lin"].device
     K, F, B = arrays["lin"].shape
     S, A = arrays["st"].shape[2], arrays["w_args"].shape[2]
     NW = B * 32
@@ -421,6 +463,8 @@ def run(step, arrays, ev_kind, ev_slot, C, read=_tolist):
     open_w = torch.empty((K, B), dtype=i32, device=dev)
     res = torch.empty((K, 5), dtype=i32, device=dev)
     scratch = torch.empty(K * p.lane_bytes, dtype=torch.uint8, device=dev)
+    if clocks is not None:
+        _check("clocks", clocks, torch.int64, (K, STATS), dev, "fold")
     err = _launcher()(
         arrays["lin"].data_ptr(), arrays["st"].data_ptr(),
         arrays["live"].data_ptr(), arrays["open_w"].data_ptr(),
@@ -429,7 +473,7 @@ def run(step, arrays, ev_kind, ev_slot, C, read=_tolist):
         up.data_ptr(), up[n:].data_ptr(), lin.data_ptr(), st.data_ptr(),
         live.data_ptr(), open_w.data_ptr(), res.data_ptr(),
         scratch.data_ptr(), ctypes.byref(_Layout(*p)), K, F, B, S, A, C, E,
-        model, torch.cuda.current_stream(dev).cuda_stream)
+        model, None if clocks is None else clocks.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fold kernel launch failed: CUDA error {err}")
     _note_launch()

@@ -881,6 +881,11 @@ def test_stream_frontier_on_cuda_counts_the_fold_kernels_scratch():
         == {k: v for k, v in cpu.items() if k != "hbm"}
     B = NW // 32
     scratch = fold_kernel.scratch_bytes(1, F, B, S, A, C)
+    # the scratch counts two row heaps with their fingerprints (F x 4
+    # uint32 a heap), the two orders, the seen and work lists and the
+    # pool's 32 bytes an entry
+    P = F * (C + 1)
+    assert scratch >= 2 * 4 * F * (B + S + 4) + 5 * 4 * F + 32 * P
     assert card["hbm"]["pool"] >= scratch + F * (B + S) * 4
     assert card["hbm"]["pool"] <= scratch + F * (B + S) * 4 + (3 << 20)
     assert card["hbm"]["pool"] < cpu["hbm"]["pool"] / 4

@@ -47,7 +47,10 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def _join():
-    """Every test leaves no racer running behind it."""
+    """Every test starts with no race of an earlier test file on its
+    worker still listed (``join_racers`` returns every race since it was
+    last called), and leaves no racer running behind it."""
+    ck.join_racers()
     yield
     ck.join_racers()
 

@@ -18,6 +18,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from jepsen_tpu import models as jm
 from jepsen_tpu.checker import streamlin as jstreamlin
@@ -105,20 +106,91 @@ def test_gate_decides_on_the_model_alone():
 
 def test_plan_layout():
     """Every part of a lane's scratch is 16-byte aligned and the parts
-    do not overlap; a launch's scratch is K lanes."""
+    do not overlap: two row heaps (bitsets, states and the four
+    fingerprints of each slot), two row-to-slot orders, the seen list, the
+    work list and its slots, the open ops and the global pool (two key and
+    two index buffers, and h2..h4 with the pool index per entry); a
+    launch's scratch is K lanes. The shared pool holds ``SMEM_POOL``
+    entries, or the whole pool when it is smaller."""
     F, B, S, A, C = 8192, 8, 3, 3, 16
     p = fold_kernel.plan(F, B, S, A, C)
     P = F * (C + 1)
-    sizes = {"lin_alt": 4 * F * B, "st_alt": 4 * F * S, "seen": F,
-             "work": F, "worklist": 4 * F, "ops": 4 * C * (2 + 2 * A),
-             "key0": 4 * P, "val0": 4 * P, "key1": 4 * P, "val1": 4 * P,
-             "efp": 16 * P}
+    sizes = {"lin0": 4 * F * B, "st0": 4 * F * S, "fp0": 16 * F,
+             "lin1": 4 * F * B, "st1": 4 * F * S, "fp1": 16 * F,
+             "ord0": 4 * F, "ord1": 4 * F, "alist": 4 * F,
+             "worklist": 4 * F, "workslot": 4 * F,
+             "ops": 4 * C * (2 + 2 * A), "key0": 4 * P, "val0": 4 * P,
+             "key1": 4 * P, "val1": 4 * P, "ent": 16 * P}
+    assert set(sizes) | {"lane_bytes", "smem_items"} == set(p._fields)
     spans = sorted((getattr(p, k), getattr(p, k) + n)
                    for k, n in sizes.items())
     assert all(a % 16 == 0 for a, _ in spans)
     assert all(e <= s for (_, e), (s, _) in zip(spans, spans[1:]))
     assert spans[-1][1] <= p.lane_bytes < spans[-1][1] + 16
     assert fold_kernel.scratch_bytes(8, F, B, S, A, C) == 8 * p.lane_bytes
+    assert p.smem_items == fold_kernel.SMEM_POOL == 2048
+    assert fold_kernel.plan(16, 1, 1, 2, 8).smem_items == 16 * 9
+
+
+@pytest.mark.parametrize("model", ["register", "cas-register", "mutex",
+                                   "multi-register-3"])
+def test_incremental_fingerprint_equals_the_childs(model):
+    """The kernel's candidate fingerprints (``jf_refp`` in csrc/fold.cu):
+    the parent's four sums plus, for the bitset word that gains the op's
+    slot and for each state word the step changes, the new word's term
+    minus the old one's, mod 2^32 in ``words.mul32`` arithmetic, equal
+    ``fold_kernel._fingerprints`` of the child row. Seeded parents (the
+    op's slot clear, as in a work row), ops of every kind the model has
+    and the model's own step for the child's state (``jf_post``'s
+    counterpart)."""
+    from jepsen_tpu_torch.checker import words
+    from jepsen_tpu_torch.history import NIL
+    from jepsen_tpu_torch.xp import TORCH
+    spec = fold_cases.spec_of(model)
+    rng = np.random.default_rng(45118)
+    R, B = 512, 3
+    S, A = (3, 3) if model.startswith("multi") else (1, spec.arg_width)
+    NW = 32 * B
+    vals = np.array([NIL, 0, 1, 2, 3, 7, 2**29 + 5], np.int64)
+    lin = rng.integers(0, 2**32, (R, B), dtype=np.uint64).astype(np.uint32)
+    st = rng.choice(vals, (R, S)).astype(np.int32)
+    if model == "mutex":
+        st = rng.integers(0, 2, (R, S)).astype(np.int32)
+    slot = rng.integers(0, NW, R)
+    f = rng.integers(0, 3 if model == "cas-register" else 2, R)
+    args = rng.choice(vals, (R, A)).astype(np.int32)
+    rets = rng.choice(vals, (R, A)).astype(np.int32)
+    word, bit = slot // 32, (np.uint32(1) << (slot % 32).astype(np.uint32))
+    lin[np.arange(R), word] &= ~bit                   # a work row lacks it
+    st2, _ok = spec.step(torch.as_tensor(st.T), torch.as_tensor(f),
+                         torch.as_tensor(args.T), torch.as_tensor(rets.T),
+                         TORCH)
+    st2 = torch.broadcast_to(torch.as_tensor(st2), (S, R)).T.to(torch.int32)
+    child = lin.copy()
+    child[np.arange(R), word] |= bit
+    cols = fold_kernel._fingerprint_cols(B + S, "cpu")
+    lin_t = torch.as_tensor(lin.view(np.int32))
+    st_t = torch.as_tensor(st)
+    want = fold_kernel._fingerprints(torch.as_tensor(child.view(np.int32)),
+                                     st2, cols)
+    got = fold_kernel._fingerprints(lin_t, st_t, cols)
+    w_old = words.u32(lin_t[np.arange(R), word])
+    w_new = words.u32(torch.as_tensor(child.view(np.int32))[np.arange(R),
+                                                           word])
+    s_old, s_new = words.u32(st_t), words.u32(st2)
+    changed = 0
+    for c, m in enumerate(cols):
+        mw = m[torch.as_tensor(word)]
+        h = got[c] + fold_kernel._mix(w_new, mw) - fold_kernel._mix(w_old,
+                                                                     mw)
+        for i in range(S):
+            diff = s_new[:, i] != s_old[:, i]
+            changed += int(diff.sum())
+            h = h + torch.where(
+                diff, fold_kernel._mix(s_new[:, i], m[B + i])
+                - fold_kernel._mix(s_old[:, i], m[B + i]), 0)
+        assert torch.equal(h & words.M32, want[c]), c
+    assert changed > 0
 
 
 def test_fingerprint_words_are_the_plain_folds():

@@ -142,12 +142,16 @@ def _writes_then_reads():
 @pytest.fixture(scope="module")
 def port_runs(tmp_path_factory):
     """Three port runs in one store: a plain run (no monitor, no
-    certificate), a monitored certified run, and a monitored run whose
-    lost writes the monitor reports (its violation instant)."""
+    certificate, one flat search: a search plan would split the history
+    at its quiescent points, which follow the run's timing, and send the
+    segments to the batch engine), a monitored certified run, and a
+    monitored run whose lost writes the monitor reports (its violation
+    instant)."""
     prev = tstore.base_dir
     tstore.base_dir = str(tmp_path_factory.mktemp("torch-store"))
     try:
-        plain = tcore.run(_register_test("plain", **{"certify?": False}))
+        plain = tcore.run(_register_test(
+            "plain", **{"certify?": False, "searchplan?": False}))
         certified = tcore.run(_register_test(
             "certified", monitor={"chunk": 8, "engine-opts": CPU}))
         violation = tcore.run(_register_test(
